@@ -1,0 +1,82 @@
+"""Throughput harness: warmup, then images/s timed with CUDA events.
+
+    python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_224 \
+        --batch 256 --img-size 224
+
+Weights are seeded random (speed does not depend on them). Each result is
+printed as one JSON line beside the card's name and power limit. There is no
+CPU timing: a run without a CUDA device fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+
+def card_info() -> str:
+    """`name, power.limit` of the current card as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()].strip()
+
+
+def throughput(model: torch.nn.Module, batch: int, img_size: int,
+               dtype: torch.dtype = torch.bfloat16, n_iters: int = 20,
+               warmup: int = 3) -> float:
+    """Forward images/s of `model` on its CUDA device: `warmup` untimed
+    forwards, then `n_iters` forwards between two CUDA events, under
+    torch.inference_mode()."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"throughput is measured on a CUDA device, "
+                           f"the model is on {device}")
+    gen = torch.Generator(device).manual_seed(0)
+    x = torch.randn(batch, img_size, img_size, 3, generator=gen,
+                    device=device).to(dtype)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        for _ in range(warmup):
+            model(x)
+        start.record()
+        for _ in range(n_iters):
+            model(x)
+        end.record()
+        end.synchronize()
+    return batch * n_iters / (start.elapsed_time(end) / 1e3)
+
+
+def main(argv=None):
+    from cream_tpu_torch.models import create_model, list_models
+    from cream_tpu_torch.zoo.load import seeded_state_dict
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--models", nargs="+", default=["tiny_vit_21m_224"])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--img-size", type=int, default=224)
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
+    results = {}
+    for name in args.models:
+        if name not in list_models():
+            print(f"skip unknown model {name}")
+            continue
+        model = create_model(name, device=args.device, dtype=dtype,
+                             img_size=args.img_size)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        ips = throughput(model, args.batch, args.img_size, dtype, args.iters)
+        results[name] = ips
+        print(json.dumps({"model": name, "img_per_s": ips, "batch": args.batch,
+                          "dtype": args.dtype, "card": card_info()}))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""Window attention with a trained per-offset bias table (TinyViT style).
+
+Counterpart of `cream_tpu/nn/attention.py:WindowBiasAttention`: pre-LN, fused
+qkv projection (q/k get key_dim, v gets attn_ratio*key_dim, packed per head),
+a learned (num_heads, num_offsets) bias table gathered through a static (N, N)
+index map, softmax, value product, output projection — per non-overlapping
+window of an NHWC map. Parameter names are the released TinyViT ones
+(`norm`, `qkv`, `proj`, `attention_biases`).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from cream_tpu_torch.nn.layers import layer_norm, linear
+from cream_tpu_torch.ops.common import attention_bias_indices
+from cream_tpu_torch.ops.window import window_partition, window_reverse
+from cream_tpu_torch.ops.window_attention import (MAX_TOKENS, attend,
+                                                  fused_window_attention,
+                                                  split_qkv,
+                                                  window_attention_ref)
+
+
+def fits_kernel(H: int, W: int, window: int) -> bool:
+    """The kernel path's shape rule: whole windows, at most 256 tokens each."""
+    return H % window == 0 and W % window == 0 and window * window <= MAX_TOKENS
+
+
+class WindowBiasAttention(nn.Module):
+    """Bias-attention over (window x window) tiles of a (B, H, W, C) map.
+
+    Whole windows (H and W multiples of the window, N <= 256): LN and the
+    qkv GEMM run on the whole map, and the qkv bias, the windowing and the
+    attention run in one op — `fused_window_attention`, whose CUDA kernel
+    never transposes in memory. `use_kernel=False` swaps that op for its
+    plain version `window_attention_ref`, so the two paths differ only in
+    the attention. Ragged windows (the plain path): the reference order —
+    zero-pad and partition first, then LN inside the windows, so padded
+    tokens pass through LN and act as keys. Both orders give the same result
+    on whole windows. Eval only.
+    """
+
+    def __init__(self, dim: int, key_dim: int, num_heads: int, window: int,
+                 attn_ratio: float = 1.0, use_kernel: bool = True, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.heads, self.kd = num_heads, key_dim
+        self.dv = int(attn_ratio * key_dim)
+        self.window = window
+        self.use_kernel = use_kernel
+        self.dtype = dtype
+        idxs, num_offsets = attention_bias_indices((window, window))
+        self.norm = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.qkv = nn.Linear(dim, num_heads * (2 * key_dim + self.dv),
+                             device=device)
+        self.proj = nn.Linear(num_heads * self.dv, dim, device=device)
+        self.attention_biases = nn.Parameter(
+            torch.zeros(num_heads, num_offsets, device=device))
+        self.register_buffer("attention_bias_idxs",
+                             torch.as_tensor(idxs, dtype=torch.long,
+                                             device=device),
+                             persistent=False)
+
+    def kernel_path(self, x: torch.Tensor) -> bool:
+        """Whether `forward(x)` runs the fused kernel."""
+        _, H, W, _ = x.shape
+        return self.use_kernel and x.is_cuda and fits_kernel(H, W, self.window)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, H, W, _ = x.shape
+        if H < self.window or W < self.window:
+            raise ValueError(f"map {H}x{W} is smaller than window {self.window}")
+        x = x.to(self.dtype)
+        bias = self.attention_biases[:, self.attention_bias_idxs]   # (h, N, N)
+        if fits_kernel(H, W, self.window):
+            out = self.forward_fused(x, bias)
+        else:
+            out = self.forward_windowed(x, bias)
+        return linear(self.proj, out, self.dtype)
+
+    def forward_fused(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """LN and qkv GEMM on the map; qkv bias, windows and attention in the
+        attention op (the kernel on the card unless `use_kernel` is off).
+        Returns (B, H, W, heads*dv) before the output projection."""
+        y = layer_norm(self.norm, x, self.dtype)
+        qkv = F.linear(y, self.qkv.weight.to(self.dtype))
+        attention = (fused_window_attention if self.kernel_path(x)
+                     else window_attention_ref)
+        return attention(qkv, bias, window=self.window, heads=self.heads,
+                         kd=self.kd, dv=self.dv, qkv_bias=self.qkv.bias)
+
+    def forward_windowed(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """Partition (zero-padded), LN and qkv inside the windows, plain
+        attention, reverse. Returns (B, H, W, heads*dv).
+
+        The qkv bias is added after the GEMM's output is rounded to the
+        compute dtype, as the JAX package's Dense and the fused op do."""
+        _, H, W, _ = x.shape
+        w, padded = window_partition(x, self.window)
+        w = F.linear(layer_norm(self.norm, w, self.dtype),
+                     self.qkv.weight.to(self.dtype)) + self.qkv.bias.to(self.dtype)
+        q, k, v = split_qkv(w, "head_major", self.heads, self.kd, self.dv)
+        return window_reverse(attend(q, k, v, bias), self.window, padded, (H, W))

@@ -1,0 +1,126 @@
+"""The window-attention CUDA kernel against its plain version, on the card.
+
+These tests need a CUDA card and skip without one. They import no jax, so
+they run on a machine that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest`: the suite's conftest sets up jax.) They cover what
+`chip_smoke.py` does not: the other head dims, rectangular maps, the largest
+window (256 tokens), small windows, inputs without qkv bias, the wrapper's
+refusals, and a narrow TinyViT whose kernel path and plain path agree.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cream_tpu_torch.models.tinyvit import TinyViT
+from cream_tpu_torch.nn.attention import WindowBiasAttention
+from cream_tpu_torch.ops import window_attention as wa
+from cream_tpu_torch.zoo.load import seeded_state_dict
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bound(dtype, ref):
+    """bf16: two ulps at the largest |out| (P and out each round to bf16 and
+    the fp32 sums run in another order); fp32: 1e-5 of the largest |out|."""
+    top = max(1.0, ref.abs().max().item())
+    if dtype == torch.bfloat16:
+        return 2.0 ** (np.floor(np.log2(top)) - 6)
+    return 1e-5 * top
+
+
+def _inputs(rng, B, H, W, ws, heads, kd, dv, use_mask, use_qb, device):
+    L, N = heads * (2 * kd + dv), ws * ws
+    nwin = (H // ws) * (W // ws)
+    qkv = rng.standard_normal((B, H, W, L)).astype(np.float32)
+    bias = (rng.standard_normal((heads, N, N)) * 0.5).astype(np.float32)
+    mask = np.where(rng.random((nwin, N, N)) < 0.2, -100.0, 0.0).astype(np.float32)
+    qb = (rng.standard_normal(L) * 0.1).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(qkv), t(bias), t(mask) if use_mask else None, t(qb) if use_qb else None
+
+
+CASES = [
+    # B, H, W, ws, heads, kd, dv, layout, mask, qkv_bias
+    (2, 14, 14, 7, 6, 32, 32, "head_major", False, True),
+    (1, 16, 32, 16, 2, 32, 32, "head_major", False, True),   # 256 tokens, 2 windows
+    (2, 14, 21, 7, 3, 16, 64, "head_major", True, True),     # kd != dv, rectangular
+    (1, 14, 14, 14, 2, 64, 64, "qkv_major", False, False),   # no qkv bias
+    (3, 8, 12, 4, 4, 64, 16, "qkv_major", True, True),       # 16 tokens < one warp
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,ws,heads,kd,dv,layout,use_mask,use_qb", CASES)
+def test_kernel_matches_plain(card, dtype, B, H, W, ws, heads, kd, dv, layout,
+                              use_mask, use_qb):
+    qkv, bias, mask, qb = _inputs(np.random.default_rng(0), B, H, W, ws, heads,
+                                  kd, dv, use_mask, use_qb, card)
+    qkv = qkv.to(dtype)
+    kw = dict(window=ws, heads=heads, kd=kd, dv=dv, layout=layout, qkv_bias=qb)
+    before = wa.LAUNCHES
+    with torch.inference_mode():
+        got = wa.fused_window_attention(qkv, bias, mask, **kw)
+        torch.cuda.synchronize()
+        want = wa.window_attention_ref(qkv, bias, mask, **kw)
+    assert wa.LAUNCHES == before + 1
+    assert got.shape == (B, H, W, heads * dv) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bound(dtype, want.float()), err
+
+
+def test_kernel_refuses_what_it_does_not_take(card):
+    qkv, bias, _, _ = _inputs(np.random.default_rng(1), 1, 14, 14, 7, 2, 32, 32,
+                              False, False, card)
+    kw = dict(window=7, heads=2, kd=32, dv=32)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):                       # fp16 is not built
+            wa.fused_window_attention(qkv.half(), bias, **kw)
+        with pytest.raises(ValueError):                      # head dim not built
+            wa.fused_window_attention(qkv[..., :2 * 72].contiguous(), bias, window=7,
+                                      heads=2, kd=24, dv=24)
+        with pytest.raises(ValueError):                      # strided qkv
+            wa.fused_window_attention(qkv.transpose(1, 2), bias, **kw)
+        with pytest.raises(ValueError):                      # bias on the CPU
+            wa.fused_window_attention(qkv, bias.cpu(), **kw)
+    with pytest.raises(NotImplementedError):                 # forward only
+        wa.fused_window_attention(qkv.requires_grad_(), bias, **kw)
+
+
+NARROW = dict(embed_dims=(32, 32, 64, 64), depths=(1, 2, 1, 1),
+              num_heads=(1, 1, 2, 2), window_sizes=(7, 7, 14, 7), num_classes=10)
+
+
+def _set_kernel(model, on):
+    for m in model.modules():
+        if isinstance(m, WindowBiasAttention):
+            m.use_kernel = on
+
+
+@pytest.mark.parametrize("img,per_forward", [(112, 4), (100, 2)])  # 100: stage 1 padded
+def test_narrow_tinyvit_kernel_path_matches_plain(card, img, per_forward):
+    m = TinyViT(img_size=img, device=card, **NARROW).eval()
+    m.load_state_dict(seeded_state_dict(m, 5))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, img, img, 3)).astype(np.float32)).to(card)
+    before = wa.LAUNCHES
+    with torch.inference_mode():
+        got = m(x)
+        assert wa.LAUNCHES == before + per_forward
+        _set_kernel(m, False)
+        want = m(x)
+    assert wa.LAUNCHES == before + per_forward
+    # fp32 with TF32 off; the kernel sums in another order than the einsums
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
