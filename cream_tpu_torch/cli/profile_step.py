@@ -1,0 +1,151 @@
+"""Where a forward or a train step spends its device time, by kernel.
+
+    python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_224
+    python -m cream_tpu_torch.cli.profile_step --train       # AdamW train steps
+
+Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
+(CPU and CUDA activity) and prints one JSON line: the wall time per
+iteration (host clock around the profiled iterations, ending in a
+synchronize), the device time per iteration (union of the kernels' busy
+intervals), the device idle share (1 - device/wall), the device time by
+kind of kernel, and the top kernels by name, beside the card's name and
+power limit. The train steps are those of `speed_test.train_throughput`
+(random images, int labels, adamw(1e-3, weight_decay=0.05), the variant's
+drop path). A run without a CUDA device fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import time
+
+import torch
+
+from cream_tpu_torch.cli.speed_test import card_info
+
+# kind of kernel by name, first match wins
+KINDS = [
+    ("K1 window attention fwd", r"window_attention_fwd_kernel"),
+    ("K2 window attention bwd", r"window_attention_bwd_kernel|dbias_reduce"),
+    ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
+    ("convolution (cuDNN)", r"conv|cudnn|implicit|dgrad|wgrad|winograd|fft"),
+    ("batch norm", r"batch_norm|batchnorm|bn_"),
+    ("layer norm", r"layer_norm|layernorm"),
+    ("GELU", r"gelu"),
+    ("softmax", r"softmax"),
+    ("optimizer (foreach / multi-tensor)", r"foreach|multi_tensor"),
+    ("reductions", r"reduce"),
+    ("copies and casts", r"copy|cat|index|gather|scatter|transpose|permute"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+]
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, pattern in KINDS:
+        if re.search(pattern, low):
+            return kind
+    return "other"
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25) -> dict:
+    """Profile `steps` calls of `fn` (after `warmup` untimed ones) on the
+    current CUDA device; times in ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by_kind: dict[str, float] = {}
+    for name, us in by_name.items():
+        by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us
+    device_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                          for e in kernels]) / 1e3 / steps
+    per = lambda us: us / 1e3 / steps
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "idle_share": 1.0 - device_ms / wall_ms,
+        "launches": len(kernels) / steps,
+        "by_kind_ms": {k: per(v) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": {n[:90]: per(v) for n, v in
+                           sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+    }
+
+
+def main(argv=None):
+    from cream_tpu_torch.cli.speed_test import train_step_fn
+    from cream_tpu_torch.models import create_model
+    from cream_tpu_torch.zoo.load import seeded_state_dict
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--models", nargs="+", default=["tiny_vit_21m_224"])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--img-size", type=int, default=224)
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--plain-attention", action="store_true",
+                    help="use the plain attention instead of the kernels")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step measures a CUDA device; none is available")
+    dtype = getattr(torch, args.dtype)
+    out = {}
+    for name in args.models:
+        model = create_model(name, device="cuda", dtype=dtype, img_size=args.img_size)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        if args.plain_attention:
+            from cream_tpu_torch.nn.attention import WindowBiasAttention
+            for m in model.modules():
+                if isinstance(m, WindowBiasAttention):
+                    m.use_kernel = False
+        if args.train:
+            fn = train_step_fn(model, args.batch, args.img_size, dtype)
+        else:
+            x = torch.randn(args.batch, args.img_size, args.img_size, 3,
+                            device="cuda").to(dtype)
+
+            def fn():
+                with torch.inference_mode():
+                    model(x)
+        res = profile(fn, args.steps, args.warmup)
+        out[name] = res
+        print(json.dumps({"model": name, "train": args.train, "batch": args.batch,
+                          "dtype": args.dtype, "plain_attention": args.plain_attention,
+                          **res, "card": card_info()}))
+    return out
+
+
+if __name__ == "__main__":
+    main()

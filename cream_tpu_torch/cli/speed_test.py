@@ -2,6 +2,12 @@
 
     python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_224 \
         --batch 256 --img-size 224
+    python -m cream_tpu_torch.cli.speed_test --train     # train steps/s
+
+`--train` times full train steps (forward, backward, AdamW update) as the
+JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
+every param with no clipping, random images and int labels, the variant's
+drop path, bf16 compute with fp32 params.
 
 Weights are seeded random (speed does not depend on them). Each result is
 printed as one JSON line beside the card's name and power limit. There is no
@@ -50,6 +56,47 @@ def throughput(model: torch.nn.Module, batch: int, img_size: int,
     return batch * n_iters / (start.elapsed_time(end) / 1e3)
 
 
+def train_step_fn(model: torch.nn.Module, batch: int, img_size: int,
+                  dtype: torch.dtype = torch.bfloat16, num_classes: int = 1000):
+    """A zero-argument function that runs one train step of `model` (the
+    JAX package's `bench_train_step`: `make_train_step` with int labels,
+    adamw(1e-3, weight_decay=0.05) on every param, no clipping) on one
+    random batch on the model's CUDA device."""
+    from cream_tpu_torch.train import TrainState, make_train_step
+    from cream_tpu_torch.train.optim import make_adamw
+
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"throughput is measured on a CUDA device, "
+                           f"the model is on {device}")
+    gen = torch.Generator(device).manual_seed(1)
+    x = torch.randn(batch, img_size, img_size, 3, generator=gen,
+                    device=device).to(dtype)
+    labels = torch.randint(0, num_classes, (batch,), generator=gen, device=device)
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=None))
+    step = make_train_step()
+    data = {"image": x, "label": labels}
+    return lambda: step(state, data, 3)
+
+
+def train_throughput(model: torch.nn.Module, batch: int, img_size: int,
+                     dtype: torch.dtype = torch.bfloat16, n_iters: int = 10,
+                     warmup: int = 3) -> float:
+    """Train images/s of `model` on its CUDA device: `warmup` untimed
+    steps of `train_step_fn`, then `n_iters` between two CUDA events."""
+    run = train_step_fn(model, batch, img_size, dtype)
+    for _ in range(warmup):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_iters):
+        run()
+    end.record()
+    end.synchronize()
+    return batch * n_iters / (start.elapsed_time(end) / 1e3)
+
+
 def main(argv=None):
     from cream_tpu_torch.models import create_model, list_models
     from cream_tpu_torch.zoo.load import seeded_state_dict
@@ -61,6 +108,8 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--train", action="store_true",
+                    help="time train steps instead of forwards")
     args = ap.parse_args(argv)
     dtype = getattr(torch, args.dtype)
     results = {}
@@ -71,10 +120,15 @@ def main(argv=None):
         model = create_model(name, device=args.device, dtype=dtype,
                              img_size=args.img_size)
         model.load_state_dict(seeded_state_dict(model, 0))
-        ips = throughput(model, args.batch, args.img_size, dtype, args.iters)
+        if args.train:
+            ips = train_throughput(model, args.batch, args.img_size, dtype,
+                                   args.iters)
+        else:
+            ips = throughput(model, args.batch, args.img_size, dtype, args.iters)
         results[name] = ips
         print(json.dumps({"model": name, "img_per_s": ips, "batch": args.batch,
-                          "dtype": args.dtype, "card": card_info()}))
+                          "dtype": args.dtype, "train": args.train,
+                          "card": card_info()}))
     return results
 
 

@@ -1,6 +1,6 @@
 """TinyViT — hierarchical tiny ViT (conv stem + windowed bias-attention stages).
 
-Counterpart of `cream_tpu/models/tinyvit.py`, eval only. 4-stage pyramid:
+Counterpart of `cream_tpu/models/tinyvit.py`, eval and train. 4-stage pyramid:
   stage 0: MBConvs (after a stride-4 conv patch embed)
   stages 1-3: TinyViTBlocks = window bias-attention + depthwise local conv + MLP,
               PatchMerging (1x1 → 3x3 dw stride-2 → 1x1, all Conv+BN) between
@@ -13,6 +13,12 @@ released microsoft/Cream TinyViT (`patch_embed.seq.0.c.weight`,
 
 The window of each block is min(window_size, H, W) at the stage's map size,
 which follows from `img_size`; a model takes only inputs of that size.
+
+Train mode follows `module.training`: BatchNorm uses batch statistics, and
+drop path (per block, rate growing linearly from 0 at the first MBConv to
+`drop_path_rate` at the last block) and MLP dropout (`drop_rate`) draw from
+the `generator` passed to `forward`, the counterpart of the JAX package's
+"drop_path"/"dropout" rngs.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from cream_tpu_torch.models.registry import register_model
 from cream_tpu_torch.nn.act import gelu
 from cream_tpu_torch.nn.attention import WindowBiasAttention
 from cream_tpu_torch.nn.layers import ConvBN, MBConv, MlpLN, layer_norm, linear
+from cream_tpu_torch.ops.common import drop_path
 
 
 def _conv_s2_out(n: int) -> int:
@@ -68,23 +75,29 @@ class PatchMerging(nn.Module):
 
 
 class TinyViTBlock(nn.Module):
-    """Window bias-attention + residual, depthwise local conv, MLP + residual."""
+    """Window bias-attention + residual, depthwise local conv, MLP + residual;
+    drop path on both residual branches in train mode."""
 
     def __init__(self, dim: int, num_heads: int, window: int,
-                 mlp_ratio: float = 4.0, local_conv_size: int = 3, *,
+                 mlp_ratio: float = 4.0, drop: float = 0.0,
+                 drop_path_rate: float = 0.0, local_conv_size: int = 3, *,
                  dtype, device):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         kw = dict(dtype=dtype, device=device)
         self.attn = WindowBiasAttention(dim, dim // num_heads, num_heads,
                                         window, attn_ratio=1.0, **kw)
         self.local_conv = ConvBN(dim, dim, local_conv_size, 1,
                                  local_conv_size // 2, groups=dim, **kw)
-        self.mlp = MlpLN(dim, int(dim * mlp_ratio), dim, **kw)
+        self.mlp = MlpLN(dim, int(dim * mlp_ratio), dim, dropout=drop, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        eval_ = not self.training
+        x = x + drop_path(self.attn(x), self.drop_path_rate, eval_, generator)
         x = self.local_conv(x)
-        return x + self.mlp(x)
+        h = self.mlp(x, generator)
+        return x + drop_path(h, self.drop_path_rate, eval_, generator)
 
 
 class TinyViTLayer(nn.Module):
@@ -95,9 +108,10 @@ class TinyViTLayer(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -119,22 +133,25 @@ class TinyViT(nn.Module):
         if remat_stem or pin_layouts:
             raise NotImplementedError("remat_stem and pin_layouts are not "
                                       "ported to cream_tpu_torch")
-        # drop_rate and drop_path_rate are the identity in eval; they are
-        # accepted so the variants' factories match the JAX package's
         self.img_size, self.num_classes, self.dtype = img_size, num_classes, dtype
+        total_depth = sum(depths)
+        dpr = [drop_path_rate * i / max(total_depth - 1, 1)
+               for i in range(total_depth)]
         kw = dict(dtype=dtype, device=device)
         self.patch_embed = PatchEmbed(3, embed_dims[0], **kw)
         res = _conv_s2_out(_conv_s2_out(img_size))
         self.layers = nn.ModuleList()
         for s, depth in enumerate(depths):
+            rates = dpr[sum(depths[:s]):sum(depths[:s + 1])]
             if s == 0:
-                blocks = [MBConv(embed_dims[0], mbconv_expand_ratio, **kw)
-                          for _ in range(depth)]
+                blocks = [MBConv(embed_dims[0], mbconv_expand_ratio, r, **kw)
+                          for r in rates]
             else:
                 ws = min(window_sizes[s], res)
                 blocks = [TinyViTBlock(embed_dims[s], num_heads[s], ws,
-                                       mlp_ratio, local_conv_size, **kw)
-                          for _ in range(depth)]
+                                       mlp_ratio, drop_rate, r,
+                                       local_conv_size, **kw)
+                          for r in rates]
             down = None
             if s < len(depths) - 1:
                 down = PatchMerging(embed_dims[s], embed_dims[s + 1], **kw)
@@ -146,20 +163,21 @@ class TinyViT(nn.Module):
             nn.init.trunc_normal_(self.head.weight, std=0.02)
             nn.init.zeros_(self.head.bias)
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("TinyViT training is not ported yet; "
-                                      "call .eval()")
+    def forward_features(self, x: torch.Tensor,
+                         generator: torch.Generator | None = None) -> torch.Tensor:
         if tuple(x.shape[1:]) != (self.img_size, self.img_size, 3):
             raise ValueError(f"expected (B, {self.img_size}, {self.img_size}, 3)"
                              f" NHWC input, got {tuple(x.shape)}")
         x = self.patch_embed(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.forward_features(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits of NHWC images. In train mode with drop path or dropout on,
+        `generator` supplies their random draws (required then)."""
+        x = self.forward_features(x, generator)
         x = x.mean(dim=(1, 2))                      # global token mean-pool
         x = layer_norm(self.norm_head, x, self.dtype)
         if self.num_classes > 0:

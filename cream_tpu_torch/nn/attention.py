@@ -38,7 +38,12 @@ class WindowBiasAttention(nn.Module):
     the attention. Ragged windows (the plain path): the reference order —
     zero-pad and partition first, then LN inside the windows, so padded
     tokens pass through LN and act as keys. Both orders give the same result
-    on whole windows. Eval only.
+    on whole windows.
+
+    Training takes the same paths: on the card the op is the autograd
+    Function `FusedWindowAttention` (K1 forward, K2 backward), the grad of
+    `attention_biases` flows back through the `[:, idxs]` gather, and
+    `use_kernel=False` trains through autograd of the plain forward.
     """
 
     def __init__(self, dim: int, key_dim: int, num_heads: int, window: int,

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with nvcc at first use and load them.
 
-Every `csrc/*.cu` file is compiled, with a plain C interface, into one shared
-library for Hopper (`sm_90a`) under `build/` at the root of the checkout,
-named by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is loaded as it is. The library is opened with ctypes; each
-kernel module declares its functions' `argtypes`. A failed build raises.
+Every `csrc/*.cu` file is compiled, with a plain C interface, by its own
+nvcc process (all started together) and the objects are linked into one
+shared library for Hopper (`sm_90a`) under `build/` at the root of the
+checkout, named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is loaded as it is. The library is opened with
+ctypes; each kernel module declares its functions' `argtypes`. A failed
+build raises.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list[Path]:
@@ -53,13 +55,30 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(sources(), procs)]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".so.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    failed = [src.name for src, proc in zip(sources(), procs) if proc.returncode]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode:
+            failed = ["link"]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    path.with_suffix(".so.log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, path)
     return path
 

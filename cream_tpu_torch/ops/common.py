@@ -1,4 +1,8 @@
-"""Shared small ops: stochastic depth, attention-bias index tables."""
+"""Shared small ops: stochastic depth, dropout, attention-bias index tables.
+
+The random draws take an explicit `torch.Generator` (the counterpart of the
+JAX package's rng keys); they cannot give JAX's bits, only its
+distribution."""
 from __future__ import annotations
 
 import itertools
@@ -20,6 +24,23 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     mask = torch.rand(shape, generator=generator,
                       device=generator.device) < keep
     return x * mask.to(x.device, x.dtype) / keep
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Element-wise dropout as flax `nn.Dropout` does it: keep with prob
+    1-rate, kept values x/(1-rate), dropped ones 0. The identity in eval.
+    Unlike `F.dropout` it draws from the given generator."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a generator in training mode")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
 def attention_bias_indices(resolution: tuple[int, int]) -> tuple[np.ndarray, int]:

@@ -116,6 +116,9 @@ def test_golden_file_matches_jax(jax_21m_logits):
 def test_port_imports_no_jax():
     code = ("import sys, cream_tpu_torch, cream_tpu_torch.models.tinyvit, "
             "cream_tpu_torch.cli.speed_test, cream_tpu_torch.cli.inference, "
+            "cream_tpu_torch.cli.train, cream_tpu_torch.train.losses, "
+            "cream_tpu_torch.train.metrics, cream_tpu_torch.data.mixup, "
+            "cream_tpu_torch.core.checkpoint, "
             "cream_tpu_torch.zoo.load, cream_tpu_torch.ops.build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'cream_tpu')]; "
@@ -133,13 +136,18 @@ def test_cuda_request_without_cuda_raises():
 
 
 def test_model_rejects_unported_options_and_train_mode():
+    """remat_stem and pin_layouts stay refused. Train mode is ported: it runs
+    without a generator only where it draws nothing (TinyViT-5M has drop
+    path 0), and refuses to draw without one."""
     with pytest.raises(NotImplementedError):
         create_model("tiny_vit_5m_224", device="cpu", pin_layouts=True)
     with pytest.raises(NotImplementedError):
         create_model("tiny_vit_5m_224", device="cpu", remat_stem=True)
-    m = create_model("tiny_vit_5m_224", device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 224, 224, 3))
+    m = create_model("tiny_vit_5m_224", device="cpu", img_size=64).train()
+    assert m(torch.zeros(2, 64, 64, 3)).shape == (2, 1000)
+    m = create_model("tiny_vit_21m_224", device="cpu", img_size=64).train()
+    with pytest.raises(ValueError, match="generator"):
+        m(torch.zeros(2, 64, 64, 3))
 
 
 def test_throughput_needs_a_card():
