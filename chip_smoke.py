@@ -28,6 +28,22 @@ non-zero):
      train.make_train_step: 10 K1 + 10 K2 launches per step, the loss falls
      over 10 steps on one batch, kernel path against plain path on the same
      weights and batch, train img/s of both, peak memory
+ 10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
+     bf16 and fp32, at EfficientViT-M5 bs512's and M0 bs1024's per-head
+     shapes; kernel, plain and one-call library (SDPA) times
+ 11. K4 vs plain: the fused CGA kernel against `fused_cga_ref` on a seeded
+     module's fold at the same stage shapes, bf16 and fp32; kernel, plain
+     and unfused "plain"-route module times (no single library call
+     computes the cascade)
+ 12. EfficientViT golden: M5 fp32 on seeded weights against the JAX
+     package's logits stored in tests/data/torch_port/, on each of the
+     three attention routes
+ 13. main path (EfficientViT eval): M5 bf16 bs512 and M0 bf16 bs1024
+     through cli.inference.predict and cli.speed_test.throughput: the
+     default "cascade" route (one K4 launch per attention block), the
+     "core" route (one K5 launch per head) and the "plain" route on the same
+     weights; top-1 agreement and logits against "plain"; img/s of the
+     three routes, interleaved
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -51,8 +67,9 @@ from cream_tpu_torch.cli.inference import predict  # noqa: E402
 from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
                                             train_throughput)
 from cream_tpu_torch.models import create_model  # noqa: E402
+from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
 from cream_tpu_torch.nn.attention import WindowBiasAttention  # noqa: E402
-from cream_tpu_torch.ops import build  # noqa: E402
+from cream_tpu_torch.ops import build, cga, cga_core  # noqa: E402
 from cream_tpu_torch.ops import window_attention as wa  # noqa: E402
 from cream_tpu_torch.ops.window import window_partition  # noqa: E402
 from cream_tpu_torch.train import TrainState, make_adamw, make_train_step  # noqa: E402
@@ -64,6 +81,7 @@ from cream_tpu_torch.zoo.load import seeded_state_dict  # noqa: E402
 DATA = ROOT / "tests" / "data" / "torch_port"
 GOLDEN = DATA / "tinyvit_21m_224_seed0.npz"
 TRAIN_GOLDEN = DATA / "tinyvit_21m_224_train_seed0.npz"
+EVIT_GOLDEN = DATA / "efficientvit_m5_seed0.npz"
 BATCH = 256
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 and fp32
 # tensor-core FLOP/s (TF32 for fp32 inputs)
@@ -73,6 +91,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 TINYVIT_SHAPES = [("stage1", BATCH, 28, 7, 6, 32, 2),
                   ("stage2", BATCH, 14, 14, 12, 32, 6),
                   ("stage3", BATCH, 7, 7, 18, 32, 2)]
+# EfficientViT main paths: (model, batch) and each attention stage at 224 as
+# (name, windows, ws, C, heads, per-head depthwise kernels, blocks per forward)
+EVIT_PATHS = [("efficientvit_m5", 512), ("efficientvit_m0", 1024)]
+EVIT_STAGES = {
+    "efficientvit_m5": [("m5_s0", 2048, 7, 192, 3, (7, 5, 3), 1),
+                        ("m5_s1", 512, 7, 288, 3, (7, 5, 3), 3),
+                        ("m5_s2", 512, 4, 384, 4, (7, 5, 3, 3), 4)],
+    "efficientvit_m0": [("m0_s0", 4096, 7, 64, 4, (5, 5, 5, 5), 1),
+                        ("m0_s1", 1024, 7, 128, 4, (5, 5, 5, 5), 2),
+                        ("m0_s2", 1024, 4, 192, 4, (5, 5, 5, 5), 3)],
+}
+KD = 16
 
 
 def check(ok: bool, what: str) -> None:
@@ -144,6 +174,12 @@ def bound_ms(B, H, ws, heads, d, dtype, backward: bool) -> tuple[float, str]:
     else:          # out. Q.K^T and P.V
         nbytes += pix * heads * d * e
         flops = windows * heads * 2 * N * N * 2 * d
+    return roofline_ms(nbytes, flops, dtype)
+
+
+def roofline_ms(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The larger of `nbytes` over HBM bandwidth and `flops` over the peak
+    rate for `dtype`, in ms, and which of the two it is."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -492,6 +528,248 @@ def phase_train() -> tuple[int, int]:
     return launches
 
 
+def k5_bound_ms(W: int, N: int, d: int, dtype) -> tuple[float, str]:
+    """K5's least time: q, k, v and the bias read once, out written once;
+    Q.K^T and P.V."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = W * N * (2 * KD + d) * e + N * N * 4 + W * N * d * e
+    return roofline_ms(nbytes, W * 2 * N * N * (KD + d), dtype)
+
+
+def phase_k5(gen) -> tuple[float, dict]:
+    """K5 against its plain version at the EfficientViT per-head shapes;
+    bf16 times of the kernel, the plain version and SDPA."""
+    worst_bf16, times = 0.0, {}
+    for model, _ in EVIT_PATHS:
+        for name, W, ws, C, heads, _, blocks in EVIT_STAGES[model]:
+            N, d = ws * ws, C // heads
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k = (torch.randn(W, N, KD, generator=gen, device="cuda").to(dtype)
+                        for _ in range(2))
+                v = torch.randn(W, N, d, generator=gen, device="cuda").to(dtype)
+                bias = torch.randn(N, N, generator=gen, device="cuda") * 0.5
+                args = (q, k, v, bias, KD ** -0.5)
+                with torch.inference_mode():
+                    out = cga_core.cga_attention(*args)
+                    torch.cuda.synchronize()
+                    ref = cga_core.cga_attention_ref(*args)
+                err = (out.float() - ref.float()).abs().max().item()
+                lim = bound(dtype, ref.float())
+                print(f"k5 {name} W={W} N={N} kd={KD} d={d} {str(dtype).split('.')[-1]}: "
+                      f"max_abs_err={err:.3e} bound={lim:.3e} (elements differing: "
+                      f"{(out != ref).float().mean().item():.2e})")
+                check(err <= lim, f"K5 {name} {dtype} err {err} > {lim}")
+                if dtype != torch.bfloat16:
+                    continue
+                worst_bf16 = max(worst_bf16, err)
+                lq, lk, lv = (t[:, None] for t in (q, k, v))    # (W, 1, N, .)
+                mask = bias.to(dtype)
+                with torch.inference_mode():
+                    k_ms = cuda_ms(lambda: cga_core.cga_attention(*args))
+                    p_ms = cuda_ms(lambda: cga_core.cga_attention_ref(*args))
+                    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv,
+                                                                          attn_mask=mask))
+                b_ms, by = k5_bound_ms(W, N, d, dtype)
+                times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                                   bound_by=by, per_forward=blocks * heads)
+                print(f"k5 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"library (SDPA on (W, 1, N, d), bias as attn_mask) {l_ms:.4f} ms, "
+                      f"bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+    return worst_bf16, times
+
+
+def seeded_cga(C: int, heads: int, ws: int, kernels, dtype, seed: int) -> CascadedGroupAttention:
+    m = CascadedGroupAttention(C, KD, heads, C / (KD * heads), ws, kernels,
+                               device="cuda", dtype=dtype).eval()
+    m.load_state_dict(seeded_state_dict(m, seed))
+    return m
+
+
+def k4_bound_ms(W: int, ws: int, C: int, heads: int, kernels, dtype) -> tuple[float, str]:
+    """K4's least time: x read and out written once, the folded weights and
+    the bias read once; the qkv and proj products, the depthwise taps that
+    fall inside the window (of each head's own kernel), Q.K^T and P.V."""
+    e = torch.finfo(dtype).bits // 8
+    N, d = ws * ws, C // heads
+    L = 2 * KD + d
+    ks_max = max(kernels[:heads])
+    nbytes = (2 * W * N * C * e + (heads * d * L + C * C) * e
+              + (heads * N * N + heads * L + heads * ks_max * ks_max * KD + heads * KD + C) * 4)
+    taps = 0
+    for ks in kernels[:heads]:
+        p = ks // 2
+        inside = [sum(0 <= y + t - p < ws for t in range(ks)) for y in range(ws)]
+        taps += sum(inside) ** 2
+    flops = W * (heads * 2 * N * d * L + 2 * taps * KD + heads * 2 * N * N * (KD + d)
+                 + 2 * N * C * C)
+    return roofline_ms(nbytes, flops, dtype)
+
+
+def k4_bound(dtype, ref: torch.Tensor) -> float:
+    """Max-abs bound of K4 vs plain: bf16, 8 ulps at the largest |out|, four
+    times `bound`'s (an ulp of difference in one head's rounded output feeds
+    the next head's qkv and the projection's sum over C channels); fp32 as
+    `bound` (fp32 sums in other orders through the cascade)."""
+    return bound(dtype, ref) * (4 if dtype == torch.bfloat16 else 1)
+
+
+def phase_k4(gen) -> tuple[float, dict]:
+    """K4 against its plain version on seeded modules' folds at the
+    EfficientViT stage shapes; bf16 times of the kernel, the plain version
+    and the unfused "plain"-route module."""
+    worst_bf16, times = 0.0, {}
+    for model, _ in EVIT_PATHS:
+        for name, W, ws, C, heads, kernels, blocks in EVIT_STAGES[model]:
+            d = C // heads
+            for dtype in (torch.bfloat16, torch.float32):
+                m = seeded_cga(C, heads, ws, kernels, dtype, seed=C + ws)
+                x = torch.randn(W, ws, ws, C, generator=gen, device="cuda").to(dtype)
+                kw = dict(ws=ws, heads=heads, c_in=d, kd=KD, d=d, ks_max=m.ks_max)
+                ops = (x, m.attention_biases, m.attention_bias_idxs, *m.folded())
+                with torch.inference_mode():
+                    out = cga.fused_cga(*ops, **kw)
+                    torch.cuda.synchronize()
+                    ref = cga.fused_cga_ref(*ops, **kw)
+                err = (out.float() - ref.float()).abs().max().item()
+                lim = k4_bound(dtype, ref.float())
+                ulp = bf16_ulp(ref.float().abs().max().clamp_min(1.0)).item()
+                print(f"k4 {name} W={W} ws={ws} C={C} heads={heads} kernels={kernels} "
+                      f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} bound={lim:.3e} "
+                      f"({err / ulp:.2f} bf16 ulps at max |out|; elements differing: "
+                      f"{(out != ref).float().mean().item():.2e})")
+                check(err <= lim, f"K4 {name} {dtype} err {err} > {lim}")
+                if dtype != torch.bfloat16:
+                    continue
+                worst_bf16 = max(worst_bf16, err)
+                with torch.inference_mode():
+                    k_ms = cuda_ms(lambda: cga.fused_cga(*ops, **kw))
+                    p_ms = cuda_ms(lambda: cga.fused_cga_ref(*ops, **kw))
+                    m.attn_kernel = "plain"
+                    u_ms = cuda_ms(lambda: m(x))
+                b_ms, by = k4_bound_ms(W, ws, C, heads, kernels, dtype)
+                times[name] = dict(ms=k_ms, plain_ms=p_ms, module_ms=u_ms, bound_ms=b_ms,
+                                   bound_by=by, per_forward=blocks)
+                print(f"k4 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"unfused plain-route CGA module {u_ms:.4f} ms (no single library call "
+                      f"computes the cascade), bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+    return worst_bf16, times
+
+
+def phase_evit_golden() -> None:
+    """EfficientViT-M5 fp32 B=2 on seeded weights against the JAX logits,
+    on each attention route, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(EVIT_GOLDEN)
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    m = create_model("efficientvit_m5", device="cuda", dtype=torch.float32)
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    # fp32 with TF32 off; cuDNN/cuBLAS/K4/K5 sum in other orders than the
+    # CPU reference (the port matches it to ~1e-6 on the CPU)
+    lim = 1e-3
+    for route in ("cascade", "core", "plain"):
+        m.set_attn_kernel(route)
+        cga.LAUNCHES = cga_core.LAUNCHES = 0
+        logits = predict(m, torch.from_numpy(x)).cpu().numpy()
+        err = float(np.abs(logits - g["logits"]).max())
+        print(f"golden efficientvit_m5 fp32 B=2 route {route} vs JAX logits: "
+              f"max_abs_err={err:.3e} bound={lim:.1e} (K4/K5 launches "
+              f"{cga.LAUNCHES}/{cga_core.LAUNCHES})")
+        check(logits.shape == (2, 1000) and bool(np.isfinite(logits).all()),
+              f"golden logits ({route})")
+        check(err <= lim, f"EfficientViT golden ({route}) err {err} > {lim}")
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |t| (elementwise)."""
+    return 2.0 ** (torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def top1_agreement(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, float]:
+    """(agreement on all images, share of images whose top-2 margin in `ref`
+    is above 4 bf16 ulps at its top logit, agreement on those)."""
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 4 * bf16_ulp(top2[:, 0])
+    same = got.argmax(-1) == ref.argmax(-1)
+    return (same.float().mean().item(), decided.float().mean().item(),
+            same[decided].float().mean().item())
+
+
+def phase_evit_main(name: str, batch: int) -> dict:
+    """An EfficientViT eval main path on its three attention routes; returns
+    each route's (K4, K5) launches in its first run of predict+throughput."""
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(2)
+    model = create_model(name, device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    cgas = [m for m in model.modules() if isinstance(m, CascadedGroupAttention)]
+    blocks, heads = len(cgas), sum(m.heads for m in cgas)
+    want = {"efficientvit_m5": (8, 28), "efficientvit_m0": (6, 24)}[name]
+    check((blocks, heads) == want, f"{name}: {blocks} blocks, {heads} heads, want {want}")
+    x = smooth_images(gen, batch).to(dtype)
+    warmup, iters = 3, 10
+    runs = 1 + warmup + iters
+    launches, logits, ips = {}, {}, {}
+    for route, per in (("cascade", (blocks, 0)), ("core", (0, heads)), ("plain", (0, 0))):
+        model.set_attn_kernel(route)
+        wa.LAUNCHES = wa.BWD_LAUNCHES = cga.LAUNCHES = cga_core.LAUNCHES = 0
+        logits[route] = predict(model, x)
+        per_forward = (cga.LAUNCHES, cga_core.LAUNCHES)
+        ips[route] = [throughput(model, batch, 224, dtype, iters, warmup)]
+        launches[route] = (cga.LAUNCHES, cga_core.LAUNCHES)
+        check(per_forward == per, f"{name} {route}: K4/K5 launches per forward "
+                                  f"{per_forward}, want {per}")
+        check(launches[route] == (runs * per[0], runs * per[1]),
+              f"{name} {route}: K4/K5 launches {launches[route]} in the main path")
+        check(wa.LAUNCHES == wa.BWD_LAUNCHES == 0, f"{name} launched K1/K2")
+        check(logits[route].shape == (batch, 1000) and bool(torch.isfinite(logits[route]).all()),
+              f"{name} {route}: logits not finite")
+    for route in ("plain", "core", "cascade"):
+        model.set_attn_kernel(route)
+        ips[route].append(throughput(model, batch, 224, dtype, iters, warmup))
+    card = card_info()
+    # logits: the routes round at other points (BN folded into bf16 weights
+    # for K4; scores and exp(s - max) rounded to bf16 on the plain route),
+    # and the differences pass ~45 bf16 residual adds: 8 ulps at the largest
+    lim = 8 * bf16_ulp(logits["plain"].abs().max()).item()
+    for route in ("cascade", "core"):
+        # seeded weights give a near-constant classifier (logits vary by
+        # ~0.03 across images, a bf16 ulp is 0.008 at |logit| ~ 2): the
+        # top-1 check counts the images whose plain-route top-2 margin is
+        # above 4 bf16 ulps, where a correct route cannot flip the answer
+        agree, decided, agree_decided = top1_agreement(logits[route], logits["plain"])
+        err = (logits[route] - logits["plain"]).abs().max().item()
+        print(f"main {name} bf16 B={batch} route {route}: K4/K5 launches per forward="
+              f"{launches[route][0] // runs}/{launches[route][1] // runs}, top-1 agreement "
+              f"vs plain={agree_decided:.4f} on the {round(decided * batch)} images with a "
+              f"margin above 4 bf16 ulps (need >= 0.99 on >= 100), {agree:.4f} on all "
+              f"{batch} (not checked), logits max_abs_err={err:.3e} bound={lim:.3e} "
+              f"(max |logit| {logits['plain'].abs().max().item():.3f})")
+        check(decided * batch >= 100 and agree_decided >= 0.99,
+              f"{name} {route}: top-1 agreement {agree_decided} on "
+              f"{round(decided * batch)} images")
+        check(err <= lim, f"{name} {route}: logits err {err} > {lim}")
+    print(f"main throughput {name} bf16 B={batch} (order cascade, core, plain, plain, core, "
+          f"cascade): cascade (K4) {ips['cascade'][0]:.1f} / {ips['cascade'][1]:.1f} img/s, "
+          f"core (K5) {ips['core'][0]:.1f} / {ips['core'][1]:.1f} img/s, plain "
+          f"{ips['plain'][0]:.1f} / {ips['plain'][1]:.1f} img/s [{card}]")
+    return launches
+
+
+def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
+             keys: tuple[str, ...], extra: dict) -> dict:
+    """A kernel row of the JSON line; times summed over one EfficientViT-M5
+    bs512 forward (each stage's time times its launches per forward)."""
+    m5 = [n for n, *_ in EVIT_STAGES["efficientvit_m5"]]
+    total = {k: sum(t[n][k] * t[n]["per_forward"] for n in m5) for k in keys}
+    return {"name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
+            "replaces": f"cream_tpu/ops/pallas/{line}", "launches": launches,
+            "max_abs_err": err, **total,
+            "bound_by": max((t[n] for n in m5), key=lambda r: r["bound_ms"])["bound_by"],
+            **extra}
+
+
 def summed_over_blocks(times: dict, key: str) -> float:
     """A per-shape time summed over the blocks of one TinyViT-21M forward
     (K1) or train step (K2)."""
@@ -519,6 +797,10 @@ def main() -> None:
     phase_train_golden()
     k1_eval = phase_main()
     k1_train, k2_train = phase_train()
+    worst_k5, t5 = phase_k5(gen)
+    worst_k4, t4 = phase_k4(gen)
+    phase_evit_golden()
+    evit = {name: phase_evit_main(name, batch) for name, batch in EVIT_PATHS}
 
     rows = []
     for name, src, line, launches, err, t in (
@@ -533,9 +815,23 @@ def main() -> None:
             **{k: summed_over_blocks(t, k) for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": t["stage2"]["bound_by"],
             "library_ms": summed_over_blocks(t, "library_ms")})
+    rows.append(evit_row(
+        "cga_fused", "cga.cu", "cga.py:56", sum(v["cascade"][0] for v in evit.values()),
+        worst_k4, t4, ("ms", "plain_ms", "module_ms", "bound_ms"),
+        {"library_ms": None, "library_note": "no single PyTorch call computes the whole "
+         "cascade; module_ms is the unfused plain-route CGA module on the same input"}))
+    rows.append(evit_row(
+        "cga_core", "cga_core.cu", "cga_core.py:63", sum(v["core"][1] for v in evit.values()),
+        worst_k5, t5, ("ms", "plain_ms", "library_ms", "bound_ms"), {}))
+    for key, t in (("K4", t4), ("K5", t5)):
+        m0 = {k: sum(t[n][k] * t[n]["per_forward"] for n, *_ in EVIT_STAGES["efficientvit_m0"])
+              for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"{key} per EfficientViT-M0 bf16 bs1024 forward: kernel {m0['ms']:.4f} ms, "
+              f"plain {m0['plain_ms']:.4f} ms, bound {m0['bound_ms']:.4f} ms")
     print(f"kernel times are per TinyViT-21M-224 bf16 bs256 forward (K1) or train "
           f"step (K2), eval path K1 launches {k1_eval}, train path K1/K2 launches "
-          f"{k1_train}/{k2_train}")
+          f"{k1_train}/{k2_train}; per EfficientViT-M5 bf16 bs512 forward (K4, K5), "
+          f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
     python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_224
     python -m cream_tpu_torch.cli.profile_step --train       # AdamW train steps
+    python -m cream_tpu_torch.cli.profile_step --models efficientvit_m5 --batch 512
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -11,7 +12,10 @@ intervals), the device idle share (1 - device/wall), the device time by
 kind of kernel, and the top kernels by name, beside the card's name and
 power limit. The train steps are those of `speed_test.train_throughput`
 (random images, int labels, adamw(1e-3, weight_decay=0.05), the variant's
-drop path). A run without a CUDA device fails.
+drop path). `--plain-attention` swaps every attention kernel for its plain
+PyTorch version (TinyViT's window attention, EfficientViT's CGA route
+"plain"); `key=value` words are model keyword arguments, as in
+`speed_test`. A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from cream_tpu_torch.cli.speed_test import card_info
 KINDS = [
     ("K1 window attention fwd", r"window_attention_fwd_kernel"),
     ("K2 window attention bwd", r"window_attention_bwd_kernel|dbias_reduce"),
+    ("K4 fused CGA", r"cga_fused_kernel"),
+    ("K5 CGA attention core", r"cga_core_kernel"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("convolution (cuDNN)", r"conv|cudnn|implicit|dgrad|wgrad|winograd|fft"),
     ("batch norm", r"batch_norm|batchnorm|bn_"),
@@ -102,8 +108,19 @@ def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25) -> dict:
     }
 
 
+def use_plain_attention(model: torch.nn.Module) -> None:
+    """Swap every attention kernel of `model` for its plain version."""
+    from cream_tpu_torch.models.efficientvit import CascadedGroupAttention
+    from cream_tpu_torch.nn.attention import WindowBiasAttention
+    for m in model.modules():
+        if isinstance(m, WindowBiasAttention):
+            m.use_kernel = False
+        elif isinstance(m, CascadedGroupAttention):
+            m.attn_kernel = "plain"
+
+
 def main(argv=None):
-    from cream_tpu_torch.cli.speed_test import train_step_fn
+    from cream_tpu_torch.cli.speed_test import model_kwargs, train_step_fn
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -117,19 +134,19 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--plain-attention", action="store_true",
                     help="use the plain attention instead of the kernels")
+    ap.add_argument("opts", nargs="*",
+                    help="model keyword arguments as key=value (e.g. attn_kernel=core)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures a CUDA device; none is available")
     dtype = getattr(torch, args.dtype)
+    kw = model_kwargs(args.opts)
     out = {}
     for name in args.models:
-        model = create_model(name, device="cuda", dtype=dtype, img_size=args.img_size)
+        model = create_model(name, device="cuda", dtype=dtype, img_size=args.img_size, **kw)
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
-            from cream_tpu_torch.nn.attention import WindowBiasAttention
-            for m in model.modules():
-                if isinstance(m, WindowBiasAttention):
-                    m.use_kernel = False
+            use_plain_attention(model)
         if args.train:
             fn = train_step_fn(model, args.batch, args.img_size, dtype)
         else:
@@ -143,7 +160,7 @@ def main(argv=None):
         out[name] = res
         print(json.dumps({"model": name, "train": args.train, "batch": args.batch,
                           "dtype": args.dtype, "plain_attention": args.plain_attention,
-                          **res, "card": card_info()}))
+                          **kw, **res, "card": card_info()}))
     return out
 
 

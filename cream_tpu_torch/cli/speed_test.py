@@ -3,6 +3,8 @@
     python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_224 \
         --batch 256 --img-size 224
     python -m cream_tpu_torch.cli.speed_test --train     # train steps/s
+    python -m cream_tpu_torch.cli.speed_test --models efficientvit_m5 \
+        --batch 512 attn_kernel=plain                    # model keyword arguments
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -97,6 +99,19 @@ def train_throughput(model: torch.nn.Module, batch: int, img_size: int,
     return batch * n_iters / (start.elapsed_time(end) / 1e3)
 
 
+def model_kwargs(opts: list[str]) -> dict:
+    """`key=value` words -> keyword arguments for `create_model`, values
+    parsed as config overrides are (numbers, booleans, null, else str)."""
+    from cream_tpu_torch.core.config import _parse_value
+    kw = {}
+    for opt in opts:
+        key, sep, value = opt.partition("=")
+        if not sep:
+            raise ValueError(f"model option {opt!r} is not key=value")
+        kw[key] = _parse_value(value)
+    return kw
+
+
 def main(argv=None):
     from cream_tpu_torch.models import create_model, list_models
     from cream_tpu_torch.zoo.load import seeded_state_dict
@@ -110,15 +125,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--train", action="store_true",
                     help="time train steps instead of forwards")
+    ap.add_argument("opts", nargs="*",
+                    help="model keyword arguments as key=value (e.g. attn_kernel=plain)")
     args = ap.parse_args(argv)
     dtype = getattr(torch, args.dtype)
+    kw = model_kwargs(args.opts)
     results = {}
     for name in args.models:
         if name not in list_models():
             print(f"skip unknown model {name}")
             continue
         model = create_model(name, device=args.device, dtype=dtype,
-                             img_size=args.img_size)
+                             img_size=args.img_size, **kw)
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.train:
             ips = train_throughput(model, args.batch, args.img_size, dtype,
@@ -127,7 +145,7 @@ def main(argv=None):
             ips = throughput(model, args.batch, args.img_size, dtype, args.iters)
         results[name] = ips
         print(json.dumps({"model": name, "img_per_s": ips, "batch": args.batch,
-                          "dtype": args.dtype, "train": args.train,
+                          "dtype": args.dtype, "train": args.train, **kw,
                           "card": card_info()}))
     return results
 

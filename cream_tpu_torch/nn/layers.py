@@ -81,6 +81,29 @@ class ConvBN(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class BNLinear(nn.Module):
+    """BatchNorm1d on the features, then Linear: the EfficientViT classifier
+    head (released names `bn`, `l`). Eval only: the BN uses its running
+    statistics."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.bn = nn.BatchNorm1d(in_features, eps=1e-5, device=device)
+        self.l = nn.Linear(in_features, out_features, device=device)
+        nn.init.trunc_normal_(self.l.weight, std=0.02)
+        nn.init.zeros_(self.l.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("BNLinear is ported for eval only")
+        bn = self.bn
+        x = F.batch_norm(x.to(self.dtype), bn.running_mean, bn.running_var,
+                         bn.weight, bn.bias, False, 0.0, bn.eps)
+        return linear(self.l, x, self.dtype)
+
+
 class MBConv(nn.Module):
     """Inverted-residual MBConv: 1x1 expand → 3x3 depthwise → 1x1 project,
     all Conv+BN with GELU between, drop path (train), residual add then

@@ -3,10 +3,10 @@
 Every `csrc/*.cu` file is compiled, with a plain C interface, by its own
 nvcc process (all started together) and the objects are linked into one
 shared library for Hopper (`sm_90a`) under `build/` at the root of the
-checkout, named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is loaded as it is. The library is opened with
-ctypes; each kernel module declares its functions' `argtypes`. A failed
-build raises.
+checkout, named by a hash of the sources, their `csrc/*.cuh` headers and
+the flags, so an edited source rebuilds and an unchanged one is loaded as
+it is. The library is opened with ctypes; each kernel module declares its
+functions' `argtypes`. A failed build raises.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):        # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"cream_tpu_torch_kernels-{h.hexdigest()[:16]}.so"

@@ -1,10 +1,12 @@
-"""TinyViT weights for the port: released .pth files, the JAX package's
-variables, and seeded random weights.
+"""Weights for the port: released .pth files, the JAX package's variables,
+and seeded random weights.
 
-The port's parameter names are the released microsoft/Cream TinyViT names, so
-a released checkpoint loads with `model.load_state_dict` as it is, and
-`cream_tpu.zoo.import_torch.convert_tinyvit` maps a port state_dict to the
-JAX package's variables. `state_dict_from_jax` is its exact inverse.
+The port's parameter names are the released microsoft/Cream TinyViT and
+EfficientViT names, so a released checkpoint loads with
+`model.load_state_dict` as it is, and the JAX package's
+`cream_tpu.zoo.import_torch.convert_tinyvit` / `convert_efficientvit` map a
+port state_dict to its variables. `state_dict_from_jax` and
+`efficientvit_state_dict_from_jax` are their exact inverses.
 """
 from __future__ import annotations
 
@@ -16,13 +18,16 @@ import torch
 
 
 def load_pth(path: str) -> dict[str, torch.Tensor]:
-    """A released TinyViT .pth -> state_dict for the port's model. The
-    attention index buffers are dropped: the model rebuilds them."""
+    """A released TinyViT or EfficientViT .pth -> state_dict for the port's
+    model. The attention index buffers are dropped (the model rebuilds
+    them), and 1x1 conv weights stored 2-D, as released EfficientViT files
+    store some, get their two unit axes back (the reference's
+    `model/build.py:76-83` does the same)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt:
         ckpt = ckpt["model"]
-    return {k: v for k, v in ckpt.items()
-            if not k.endswith("attention_bias_idxs")}
+    return {k: v[:, :, None, None] if k.endswith(".c.weight") and v.ndim == 2 else v
+            for k, v in ckpt.items() if not k.endswith("attention_bias_idxs")}
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -47,13 +52,7 @@ class _Writer:
 
     def conv_bn(self, fp: str, tp: str):
         self.sd[f"{tp}.c.weight"] = _conv(self._get(self.params, f"{fp}/conv/kernel"))
-        bn = self._get(self.params, f"{fp}/bn")
-        st = self._get(self.stats, f"{fp}/bn")
-        self.sd[f"{tp}.bn.weight"] = np.asarray(bn["scale"])
-        self.sd[f"{tp}.bn.bias"] = np.asarray(bn["bias"])
-        self.sd[f"{tp}.bn.running_mean"] = np.asarray(st["mean"])
-        self.sd[f"{tp}.bn.running_var"] = np.asarray(st["var"])
-        self.sd[f"{tp}.bn.num_batches_tracked"] = np.asarray(0, np.int64)
+        self.bn(f"{fp}/bn", f"{tp}.bn")
 
     def ln(self, fp: str, tp: str):
         node = self._get(self.params, fp)
@@ -65,6 +64,25 @@ class _Writer:
         self.sd[f"{tp}.weight"] = _dense(node["kernel"])
         if "bias" in node:
             self.sd[f"{tp}.bias"] = np.asarray(node["bias"])
+
+    def bn(self, fp: str, tp: str):
+        node, st = self._get(self.params, fp), self._get(self.stats, fp)
+        self.sd[f"{tp}.weight"] = np.asarray(node["scale"])
+        self.sd[f"{tp}.bias"] = np.asarray(node["bias"])
+        self.sd[f"{tp}.running_mean"] = np.asarray(st["mean"])
+        self.sd[f"{tp}.running_var"] = np.asarray(st["var"])
+        self.sd[f"{tp}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def conv_biased(self, fp: str, tp: str):
+        node = self._get(self.params, fp)
+        self.sd[f"{tp}.weight"] = _conv(node["kernel"])
+        self.sd[f"{tp}.bias"] = np.asarray(node["bias"])
+
+    def raw(self, fp: str, tp: str):
+        self.sd[tp] = np.asarray(self._get(self.params, fp))
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.array(v)) for k, v in self.sd.items()}
 
 
 def _depths(params: Mapping) -> tuple[int, ...]:
@@ -106,7 +124,54 @@ def state_dict_from_jax(variables: Mapping, with_head: bool = True
     w.ln("norm_head", "norm_head")
     if with_head and "head" in w.params:
         w.dense("head", "head")
-    return {k: torch.from_numpy(np.array(v)) for k, v in w.sd.items()}
+    return w.state_dict()
+
+
+def efficientvit_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                                     ) -> dict[str, torch.Tensor]:
+    """The JAX package's EfficientViT variables -> the port's state_dict
+    (released names). Inverse of `convert_efficientvit`: each stage after
+    the first opens with the subsample sandwich (`blocks{s}.0` / `.1` /
+    `.2`) and its blocks follow from index 3."""
+    w = _Writer(variables)
+    depths = _depths(w.params)
+    for j, tseq in enumerate((0, 2, 4, 6)):
+        w.conv_bn(f"patch_embed_{j}", f"patch_embed.{tseq}")
+    for s, depth in enumerate(depths):
+        seq, off = f"blocks{s + 1}", 0
+        if s > 0:
+            sub = f"subsamples_{s - 1}"
+            w.conv_bn(f"{sub}/pre_dw", f"{seq}.0.0.m")
+            w.conv_bn(f"{sub}/pre_ffn/pw1", f"{seq}.0.1.m.pw1")
+            w.conv_bn(f"{sub}/pre_ffn/pw2", f"{seq}.0.1.m.pw2")
+            for c in ("conv1", "conv2", "conv3"):
+                w.conv_bn(f"{sub}/merge/{c}", f"{seq}.1.{c}")
+            w.conv_biased(f"{sub}/merge/se/fc1", f"{seq}.1.se.conv_reduce")
+            w.conv_biased(f"{sub}/merge/se/fc2", f"{seq}.1.se.conv_expand")
+            w.conv_bn(f"{sub}/post_dw", f"{seq}.2.0.m")
+            w.conv_bn(f"{sub}/post_ffn/pw1", f"{seq}.2.1.m.pw1")
+            w.conv_bn(f"{sub}/post_ffn/pw2", f"{seq}.2.1.m.pw2")
+            off = 3
+        for i in range(depth):
+            fp, tp = f"stages_{s}_{i}", f"{seq}.{off + i}"
+            for c in ("dw0", "dw1"):
+                w.conv_bn(f"{fp}/{c}", f"{tp}.{c}.m")
+            for c in ("ffn0", "ffn1"):
+                w.conv_bn(f"{fp}/{c}/pw1", f"{tp}.{c}.m.pw1")
+                w.conv_bn(f"{fp}/{c}/pw2", f"{tp}.{c}.m.pw2")
+            a_f, a_t = f"{fp}/mixer/attn", f"{tp}.mixer.m.attn"
+            heads = sum(k.startswith("qkv_") for k in w._get(w.params, a_f))
+            for h in range(heads):
+                w.conv_bn(f"{a_f}/qkv_{h}", f"{a_t}.qkvs.{h}")
+                w.conv_bn(f"{a_f}/dw_{h}", f"{a_t}.dws.{h}")
+            w.conv_bn(f"{a_f}/proj", f"{a_t}.proj.1")
+            w.raw(f"{a_f}/attention_biases", f"{a_t}.attention_biases")
+    if with_head:
+        for head in ("head", "head_dist"):
+            if head in w.params:
+                w.bn(f"{head}/bn", f"{head}.bn")
+                w.dense(f"{head}/linear", f"{head}.l")
+    return w.state_dict()
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0
@@ -117,8 +182,16 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
     Conv/Linear weights ~ N(0, 1/fan_in); biases ~ N(0, 0.02²); BN and LN
     scales (including MBConv.conv3's, which init at 0) ~ U(0.5, 1.5);
     running means ~ N(0, 0.1²), running variances ~ U(0.5, 1.5);
-    attention_biases ~ N(0, 0.5²)."""
+    attention_biases ~ N(0, 0.5²).
+
+    A model whose residual stream has no normalisation (EfficientViT) names
+    the scales of its residual branches' last BNs in `SEEDED_BRANCH_ENDS`
+    (name suffixes) and a factor in `SEEDED_BRANCH_SCALE`; those scales are
+    multiplied by it, so the stream does not grow geometrically with depth.
+    Other models draw the same numbers as without the attributes."""
     rng = np.random.default_rng(seed)
+    branch_scale = getattr(model, "SEEDED_BRANCH_SCALE", 1.0)
+    branch_ends = getattr(model, "SEEDED_BRANCH_ENDS", ())
     out: dict[str, torch.Tensor] = {}
     for name, t in sorted(model.state_dict().items()):
         shape = tuple(t.shape)
@@ -135,6 +208,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
             a = rng.normal(0.0, 0.02, shape)
         elif t.ndim == 1:
             a = rng.uniform(0.5, 1.5, shape)
+            if name.endswith(branch_ends):
+                a = a * branch_scale
         else:
             a = rng.normal(0.0, 1.0 / math.sqrt(math.prod(shape[1:])), shape)
         out[name] = torch.from_numpy(a.astype(np.float32))

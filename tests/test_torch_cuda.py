@@ -1,5 +1,6 @@
-"""The window-attention CUDA kernels (K1 forward, K2 backward) against their
-plain versions, on the card.
+"""The CUDA kernels (K1/K2 window attention forward/backward, K4 fused
+cascaded group attention, K5 CGA attention core) against their plain
+versions, on the card.
 
 These tests need a CUDA card and skip without one. They import no jax, so
 they run on a machine that has only PyTorch and the CUDA toolkit:
@@ -11,14 +12,19 @@ they run on a machine that has only PyTorch and the CUDA toolkit:
 window (256 tokens), small windows, inputs without qkv bias or mask, the
 wrappers' refusals, gradients through the K1+K2 autograd.Function, and a
 narrow TinyViT whose kernel path and plain path agree, in eval and in a
-train step.
+train step; K4 and K5 at every EfficientViT M0–M5 stage shape at 224 and
+at the img-96 windows, their refusals, and a narrow EfficientViT whose
+three attention routes agree.
 """
 import numpy as np
 import pytest
 import torch
 
+from cream_tpu_torch.models.efficientvit import (_CONFIGS, CascadedGroupAttention,
+                                                EfficientViT)
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.nn.attention import WindowBiasAttention
+from cream_tpu_torch.ops import cga, cga_core
 from cream_tpu_torch.ops import window_attention as wa
 from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -235,3 +241,126 @@ def test_narrow_tinyvit_train_kernel_path_matches_plain(card, img, per_step):
         assert err <= 1e-4 * w.norm().item() + floor, (k, err)
     for k, b in m.named_buffers():          # BN running stats of the same batch
         torch.testing.assert_close(b, dict(plain.named_buffers())[k], rtol=1e-5, atol=1e-6)
+
+
+def _evit_stages(img=224):
+    """(name, ws, C, heads, kernels) of every M0-M5 attention stage at `img`
+    (stage resolutions img/16, then halved rounding up; window <= 7)."""
+    out = []
+    for name, cfg in sorted(_CONFIGS.items()):
+        res = img // 16
+        for s, (C, h) in enumerate(zip(cfg["embed_dim"], cfg["num_heads"])):
+            out.append((f"{name}_s{s}", min(7, res), C, h, cfg["kernels"]))
+            res = (res - 1) // 2 + 1
+    return out
+
+
+CGA_STAGES = _evit_stages(224) + [s for s in _evit_stages(96) if s[0].startswith("efficientvit_m0")]
+
+
+def _cga_bound(dtype, ref, ulps):
+    """bf16: `ulps` ulps at the largest |out|; fp32: 1e-5 of the largest."""
+    top = max(1.0, ref.abs().max().item())
+    if dtype == torch.bfloat16:
+        return ulps * 2.0 ** (np.floor(np.log2(top)) - 7)
+    return 1e-5 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", sorted({(ws * ws, C // h) for _, ws, C, h, _ in CGA_STAGES}))
+def test_k5_matches_plain(card, dtype, N, d):
+    g = torch.Generator(card).manual_seed(N * d)
+    W = 37
+    q, k = (torch.randn(W, N, 16, generator=g, device=card).to(dtype) for _ in range(2))
+    v = torch.randn(W, N, d, generator=g, device=card).to(dtype)
+    bias = torch.randn(N, N, generator=g, device=card) * 0.5
+    before = cga_core.LAUNCHES
+    with torch.inference_mode():
+        got = cga_core.cga_attention(q, k, v, bias, 0.25)
+        torch.cuda.synchronize()
+        want = cga_core.cga_attention_ref(q, k, v, bias, 0.25)
+    assert cga_core.LAUNCHES == before + 1
+    assert got.shape == (W, N, d) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    # P and out each round to the type; fp32 sums in other orders
+    assert err <= _cga_bound(dtype, want.float(), 2), err
+
+
+def _seeded_cga(C, heads, ws, kernels, device, dtype):
+    m = CascadedGroupAttention(C, 16, heads, C / (16 * heads), ws, kernels,
+                               device=device, dtype=dtype).eval()
+    m.load_state_dict(seeded_state_dict(m, C + ws))
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,ws,C,heads,kernels", CGA_STAGES)
+def test_k4_matches_plain(card, dtype, name, ws, C, heads, kernels):
+    m = _seeded_cga(C, heads, ws, kernels, card, dtype)
+    g = torch.Generator(card).manual_seed(C)
+    x = torch.randn(6, ws, ws, C, generator=g, device=card).to(dtype)
+    kw = dict(ws=ws, heads=heads, c_in=C // heads, kd=16, d=C // heads, ks_max=m.ks_max)
+    ops = cga.fold_cga_variables(m, dtype)
+    before = cga.LAUNCHES
+    with torch.inference_mode():
+        got = cga.fused_cga(x, m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+        torch.cuda.synchronize()
+        want = cga.fused_cga_ref(x, m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+    assert cga.LAUNCHES == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    # bf16: an ulp of difference in one head's rounded output feeds the next
+    # head and the projection's C-term sums
+    assert err <= _cga_bound(dtype, want.float(), 8), err
+
+
+def test_cga_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(4, 81, 16, device=card)
+    with pytest.raises(ValueError):                          # 81 tokens > 64
+        cga_core.cga_attention(q, q, q, torch.zeros(81, 81, device=card), 0.25)
+    q = torch.zeros(4, 49, 16, device=card)
+    with pytest.raises(TypeError):                           # fp16 is not built
+        cga_core.cga_attention(q.half(), q.half(), q.half(),
+                               torch.zeros(49, 49, device=card), 0.25)
+    with pytest.raises(ValueError):                          # strided v
+        cga_core.cga_attention(q, q, q.transpose(0, 1).contiguous().transpose(0, 1),
+                               torch.zeros(49, 49, device=card), 0.25)
+    m = _seeded_cga(64, 4, 7, (5, 5, 5, 5), card, torch.float32)
+    ops = cga.fold_cga_variables(m, torch.float32)
+    kw = dict(ws=7, heads=4, c_in=16, kd=16, d=16, ks_max=5)
+    x = torch.zeros(2, 7, 7, 64, device=card)
+    with pytest.raises(TypeError):                           # weights of another dtype
+        cga.fused_cga(x.bfloat16(), m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+    with pytest.raises(ValueError):                          # strided x
+        cga.fused_cga(x.transpose(1, 2), m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+    with pytest.raises(ValueError):                          # weights on the CPU
+        cga.fused_cga(x, m.attention_biases, m.attention_bias_idxs, ops[0].cpu(), *ops[1:], **kw)
+    big = _seeded_cga(1024, 2, 7, (3, 3), card, torch.float32)
+    xb = torch.zeros(1, 7, 7, 1024, device=card)
+    with pytest.raises(ValueError):                          # shared memory > 227 KB
+        cga.fused_cga(xb, big.attention_biases, big.attention_bias_idxs, *cga.fold_cga_variables(
+            big, torch.float32), ws=7, heads=2, c_in=512, kd=16, d=512, ks_max=3)
+
+
+EVIT_NARROW = dict(embed_dim=(32, 48, 64), depth=(1, 1, 1), num_heads=(2, 3, 4),
+                   kernels=(7, 5, 3, 3), num_classes=10)
+
+
+@pytest.mark.parametrize("img", [224, 96])
+def test_narrow_efficientvit_routes_agree(card, img):
+    """fp32, TF32 off: the K4 and K5 routes against the plain route on the
+    same weights; one K4 launch per attention block, one K5 per head."""
+    m = EfficientViT(img_size=img, device=card, **EVIT_NARROW).eval()
+    m.load_state_dict(seeded_state_dict(m, 5))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, img, img, 3)).astype(np.float32)).to(card)
+    out = {}
+    for route, k4, k5 in (("cascade", 3, 0), ("core", 0, 9), ("plain", 0, 0)):
+        m.set_attn_kernel(route)
+        before = (cga.LAUNCHES, cga_core.LAUNCHES)
+        with torch.inference_mode():
+            out[route] = m(x)
+        assert (cga.LAUNCHES - before[0], cga_core.LAUNCHES - before[1]) == (k4, k5), route
+    for route in ("cascade", "core"):
+        # fp32 sums in other orders; the plain route divides after P.V
+        torch.testing.assert_close(out[route], out["plain"], atol=1e-4, rtol=1e-4)

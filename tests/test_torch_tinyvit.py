@@ -118,7 +118,9 @@ def test_port_imports_no_jax():
             "cream_tpu_torch.cli.speed_test, cream_tpu_torch.cli.inference, "
             "cream_tpu_torch.cli.train, cream_tpu_torch.train.losses, "
             "cream_tpu_torch.train.metrics, cream_tpu_torch.data.mixup, "
-            "cream_tpu_torch.core.checkpoint, "
+            "cream_tpu_torch.core.checkpoint, cream_tpu_torch.cli.profile_step, "
+            "cream_tpu_torch.models.efficientvit, cream_tpu_torch.ops.cga, "
+            "cream_tpu_torch.ops.cga_core, cream_tpu_torch.ops.fuse, "
             "cream_tpu_torch.zoo.load, cream_tpu_torch.ops.build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'cream_tpu')]; "
