@@ -44,6 +44,23 @@ non-zero):
      "core" route (one K5 launch per head) and the "plain" route on the same
      weights; top-1 agreement and logits against "plain"; img/s of the
      three routes, interleaved
+ 14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
+     versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites
+     and TinyViT-21M bs256's MBConv and PatchMerging sites; dw the same bits
+     on two launches; kernel, plain, library (cuDNN) and bound times per
+     shape, summed per M5 train step
+ 15. grads: at a small fp32 shape, each depthwise autograd.Function's grads
+     against autograd of the plain forward
+ 16. EfficientViT train golden: one fp32 M5 train step (B=8) on each
+     depthwise route against the JAX package's loss and per-param grad
+     norms stored in tests/data/torch_port/
+ 17. main path (EfficientViT train): M5 bf16 bs512 through
+     train.make_train_step on each depthwise route ("library", "fused",
+     "wgrad"): K7/K8/K9 launches per step from the site count, no K4/K5;
+     the loss falls over 10 steps on one batch; kernel routes against
+     "library" on the same weights and batch; train img/s of the three
+     routes interleaved, peak memory; M5 bs512 eval img/s with the
+     depthwise convs on "library" and "fused"
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -69,7 +86,8 @@ from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
 from cream_tpu_torch.models import create_model  # noqa: E402
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
 from cream_tpu_torch.nn.attention import WindowBiasAttention  # noqa: E402
-from cream_tpu_torch.ops import build, cga, cga_core  # noqa: E402
+from cream_tpu_torch.nn.layers import ConvBN, set_dw_kernel  # noqa: E402
+from cream_tpu_torch.ops import build, cga, cga_core, dwconv  # noqa: E402
 from cream_tpu_torch.ops import window_attention as wa  # noqa: E402
 from cream_tpu_torch.ops.window import window_partition  # noqa: E402
 from cream_tpu_torch.train import TrainState, make_adamw, make_train_step  # noqa: E402
@@ -82,6 +100,7 @@ DATA = ROOT / "tests" / "data" / "torch_port"
 GOLDEN = DATA / "tinyvit_21m_224_seed0.npz"
 TRAIN_GOLDEN = DATA / "tinyvit_21m_224_train_seed0.npz"
 EVIT_GOLDEN = DATA / "efficientvit_m5_seed0.npz"
+EVIT_TRAIN_GOLDEN = DATA / "efficientvit_m5_train_seed0.npz"
 BATCH = 256
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 and fp32
 # tensor-core FLOP/s (TF32 for fp32 inputs)
@@ -103,6 +122,16 @@ EVIT_STAGES = {
                         ("m0_s2", 1024, 4, 192, 4, (5, 5, 5, 5), 3)],
 }
 KD = 16
+# the depthwise 3x3 sites of one EfficientViT-M5 bs512 train step at 224:
+# (name, B, H, W, C, stride, sites per step); and TinyViT-21M bs256's
+# MBConv and PatchMerging sites (not on a ported train path; timed alone)
+DW_M5 = [("m5_s0_block", 512, 14, 14, 192, 1, 3), ("m5_s0_cga", 2048, 7, 7, 16, 1, 1),
+         ("m5_s1_block", 512, 7, 7, 288, 1, 8), ("m5_s1_cga", 512, 7, 7, 16, 1, 3),
+         ("m5_s2_block", 512, 4, 4, 384, 1, 9), ("m5_s2_cga", 512, 4, 4, 16, 1, 8),
+         ("m5_merge0", 512, 14, 14, 768, 2, 1)]
+DW_TINYVIT = [("tv21m_mbconv", 256, 56, 56, 384, 1, 2), ("tv21m_merge0", 256, 56, 56, 192, 2, 1),
+              ("tv21m_merge1", 256, 28, 28, 384, 2, 1), ("tv21m_merge2", 256, 14, 14, 576, 2, 1)]
+DW_ROUTES = ("library", "fused", "wgrad")
 
 
 def check(ok: bool, what: str) -> None:
@@ -133,6 +162,31 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph, the median over `reps` replays (CUDA events) over `iters`. The
+    host's cost of issuing each call, which `cuda_ms` measures for a launch
+    shorter than it, is out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -757,6 +811,293 @@ def phase_evit_main(name: str, batch: int) -> dict:
     return launches
 
 
+def dw_inputs(gen, B, H, W, C, stride, dtype):
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
+    w9 = (torch.randn(9, C, generator=gen, device="cuda") / 3).to(dtype)
+    dy = torch.randn(B, Ho, Wo, C, generator=gen, device="cuda").to(dtype)
+    return x, w9, dy
+
+
+def dw_bound(dtype, ref: torch.Tensor, rel: float) -> float:
+    """bf16: one ulp at the largest |ref| (the kernel rounds the plain
+    version's fp32 products and sums, taken in its order, once); fp32: `rel`
+    of the largest |ref|."""
+    top = ref.float().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else rel * top
+
+
+def dw_bound_ms(B, H, W, C, stride, dtype, kind: str) -> tuple[float, str]:
+    """Least time of a depthwise launch: x (and dy) read once, y (or dx, dw)
+    written once; 9 multiply-adds per output element for y, per dy element
+    for dx and for dw."""
+    e = torch.finfo(dtype).bits // 8
+    n_in = B * H * W * C
+    n_out = B * ((H - 1) // stride + 1) * ((W - 1) // stride + 1) * C
+    if kind == "fwd":
+        nbytes, flops = (n_in + n_out + 9 * C) * e, 18 * n_out
+    elif kind == "bwd":
+        nbytes, flops = (2 * n_in + n_out + 9 * C) * e + 9 * C * 4, 36 * n_out
+    else:                                                      # weight grad
+        nbytes, flops = (n_in + n_out) * e + 9 * C * 4, 18 * n_out
+    return roofline_ms(nbytes, flops, dtype)
+
+
+def dw_library(x, w9, dy, stride):
+    """cuDNN's calls for the same functions on the NCHW (channels_last) views:
+    forward, (dx, dw) and dw alone."""
+    C = x.shape[-1]
+    xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    w = w9.t().reshape(C, 1, 3, 3).contiguous()
+
+    def bwd(mask):
+        return torch.ops.aten.convolution_backward(dyn, xn, w, None, [stride, stride], [1, 1],
+                                                   [1, 1], False, [0, 0], C, mask)
+    return (lambda: F.conv2d(xn, w, None, stride, 1, 1, C),
+            lambda: bwd([True, True, False]), lambda: bwd([False, True, False]))
+
+
+def phase_dw(gen) -> tuple[dict, dict]:
+    """K7/K8/K9 against their plain versions at the M5 and TinyViT-21M
+    depthwise shapes, bf16 and fp32; dw bits on two launches; bf16 times.
+    Returns the worst bf16 errors by kernel and the times by shape."""
+    worst = dict.fromkeys(dwconv.LAUNCHES, 0.0)
+    times = {}
+    for name, B, H, W, C, stride, _ in DW_M5 + DW_TINYVIT:
+        fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w9, dy = dw_inputs(gen, B, H, W, C, stride, dtype)
+            with torch.no_grad():
+                y = dwconv.dw_conv3x3_fwd(x, w9, stride)
+                dx, dw = dwconv.dw_conv3x3_bwd(x, dy, w9, stride)
+                dx2, dw2 = dwconv.dw_conv3x3_bwd(x, dy, w9, stride)
+                dw8 = dwconv.dw_wgrad(x, dy) if stride == 1 else None
+                torch.cuda.synchronize()
+                y_ref = dwconv.dw_conv3x3_ref(x, w9, stride)
+                dx_ref, dw_ref = dwconv.dw_conv3x3_bwd_ref(x, dy, w9, stride)
+            errs = {"y": (y.float() - y_ref.float()).abs().max().item(),
+                    "dx": (dx.float() - dx_ref.float()).abs().max().item(),
+                    "dw": (dw - dw_ref).abs().max().item()}
+            lims = {"y": dw_bound(dtype, y_ref, 1e-6), "dx": dw_bound(dtype, dx_ref, 1e-6),
+                    "dw": 1e-5 * dw_ref.abs().max().item()}
+            same = torch.equal(dw, dw2) and torch.equal(dx, dx2)
+            same8 = dw8 is None or torch.equal(dw8, dw)
+            print(f"dw {name} B={B} {H}x{W} C={C} stride={stride} "
+                  f"{str(dtype).split('.')[-1]}: " + ", ".join(
+                      f"{k} max_abs_err={errs[k]:.3e} bound={lims[k]:.3e}" for k in errs)
+                  + f"; (y, dx) bit-identical to plain: {torch.equal(y, y_ref)}, "
+                  f"{torch.equal(dx, dx_ref)}; two launches bit-identical: {same}"
+                  + ("" if dw8 is None else f"; K8 dw == K7 dw: {same8}"))
+            for k in errs:
+                check(errs[k] <= lims[k], f"dw {name} {dtype} {k} err {errs[k]} > {lims[k]}")
+            check(same and same8, f"dw {name} {dtype}: launches differ")
+            if dtype != torch.bfloat16:
+                continue
+            worst[fwd] = max(worst[fwd], errs["y"])
+            worst[bwd] = max(worst[bwd], errs["dx"])
+            if stride == 1:
+                worst["k8"] = max(worst["k8"], errs["dw"])
+            lib_fwd, lib_bwd, lib_wg = dw_library(x, w9, dy, stride)
+            # device times (CUDA graphs): at the 16-channel sites a launch
+            # is shorter than the host's cost of issuing it
+            n0 = dict(dwconv.LAUNCHES)
+            with torch.no_grad():
+                t = {"fwd": dict(ms=graph_ms(lambda: dwconv.dw_conv3x3_fwd(x, w9, stride)),
+                                 host_ms=cuda_ms(lambda: dwconv.dw_conv3x3_fwd(x, w9, stride)),
+                                 plain_ms=graph_ms(lambda: dwconv.dw_conv3x3_ref(x, w9, stride)),
+                                 library_ms=graph_ms(lib_fwd)),
+                     "bwd": dict(ms=graph_ms(lambda: dwconv.dw_conv3x3_bwd(x, dy, w9, stride)),
+                                 host_ms=cuda_ms(lambda: dwconv.dw_conv3x3_bwd(x, dy, w9, stride)),
+                                 plain_ms=graph_ms(lambda: dwconv.dw_conv3x3_bwd_ref(
+                                     x, dy, w9, stride)),
+                                 library_ms=graph_ms(lib_bwd))}
+                if stride == 1:
+                    t["wgrad"] = dict(ms=graph_ms(lambda: dwconv.dw_wgrad(x, dy)),
+                                      host_ms=cuda_ms(lambda: dwconv.dw_wgrad(x, dy)),
+                                      plain_ms=graph_ms(lambda: dwconv.dw_wgrad_ref(x, dy)),
+                                      library_ms=graph_ms(lib_wg))
+            # the graphs captured each wrapper's launch once per call
+            check(dwconv.LAUNCHES[fwd] > n0[fwd], f"dw {name}: the timing did not launch {fwd}")
+            for kind, r in t.items():
+                r["bound_ms"], r["bound_by"] = dw_bound_ms(B, H, W, C, stride, dtype, kind)
+                print(f"dw time {name} {kind} bf16 B={B} (device, CUDA graph): kernel "
+                      f"{r['ms']:.4f} ms ({r['host_ms']:.4f} ms a call issued from the host), "
+                      f"plain {r['plain_ms']:.4f} ms, library (cuDNN) {r['library_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card_info()}]")
+            times[name] = t
+    for key, kind, stride in (("k7_fwd", "fwd", 1), ("k7_bwd", "bwd", 1), ("k8", "wgrad", 1),
+                              ("k9_fwd", "fwd", 2), ("k9_bwd", "bwd", 2)):
+        step = {k: sum(times[n][kind][k] * per for n, *_, s, per in DW_M5 if s == stride)
+                for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"dw {key} per EfficientViT-M5 bf16 bs512 train step: kernel {step['ms']:.4f} ms "
+              f"(issued one by one from the host {step['host_ms']:.4f} ms), plain "
+              f"{step['plain_ms']:.4f} ms, library {step['library_ms']:.4f} ms, bound "
+              f"{step['bound_ms']:.4f} ms")
+    return worst, times
+
+
+def phase_dw_grads(gen) -> None:
+    """fp32 at a small shape: each depthwise autograd.Function's grads
+    against autograd of the plain forward."""
+    for fn, stride in ((dwconv.dw_conv3x3_fused, 1), (dwconv.dw_conv3x3_wg, 1),
+                       (dwconv.dw_conv3x3s2_fused, 2)):
+        x, w9, dy = dw_inputs(gen, 2, 14, 14, 48, stride, torch.float32)
+        leaves = [x.clone().requires_grad_(), w9.clone().requires_grad_()]
+        got = torch.autograd.grad(fn(*leaves), leaves, dy)
+        plain = [x.clone().requires_grad_(), w9.clone().requires_grad_()]
+        want = torch.autograd.grad(dwconv.dw_conv3x3_ref(*plain, stride), plain, dy)
+        errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+        print(f"grads {fn.__name__} fp32 vs autograd of the plain forward: max_abs_err / "
+              f"max |grad| for x, w9 = {', '.join(f'{e:.2e}' for e in errs)} (bound 1e-5)")
+        check(max(errs) <= 1e-5, f"{fn.__name__} grads: {errs}")
+
+
+def m5_dw_launches(route: str) -> dict:
+    """K7/K8/K9 launches of one M5 train step at 224 on `route`: 32 stride-1
+    sites, 1 stride-2 site with an even map."""
+    want = {"fused": {"k7_fwd": 32, "k7_bwd": 32, "k9_fwd": 1, "k9_bwd": 1},
+            "wgrad": {"k8": 32}}.get(route, {})
+    return {k: want.get(k, 0) for k in dwconv.LAUNCHES}
+
+
+def phase_evit_train_golden() -> None:
+    """One fp32 EfficientViT-M5 train step (B=8) on each depthwise route
+    against the JAX package's, stored by tests/test_torch_efficientvit_train.py;
+    TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(EVIT_TRAIN_GOLDEN)
+    n = len(g["names"])
+    rng = np.random.default_rng(int(g["input_seed"]))
+    B = 8
+    x = rng.standard_normal((B, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, B)]
+    batch = {"image": torch.from_numpy(x).cuda(), "label": torch.from_numpy(y).cuda()}
+    sd = None
+    for route in DW_ROUTES:
+        m = create_model("efficientvit_m5", device="cuda", dtype=torch.float32, dw_kernel=route)
+        sd = sd or seeded_state_dict(m, int(g["weight_seed"]))
+        m.load_state_dict(sd)
+        dwconv.reset_launches()
+        loss, _, grads = loss_and_grads(m, batch, soft_target_ce)
+        torch.cuda.synchronize()
+        check(dict(dwconv.LAUNCHES) == m5_dw_launches(route),
+              f"train golden {route}: launches {dwconv.LAUNCHES}")
+        loss_err = abs(float(loss) - float(g["loss"])) / float(g["loss"])
+        gn_err = abs(float(global_norm(grads.values())) - float(g["grad_norm"])) / float(g["grad_norm"])
+        check(sorted(grads) == list(g["names"]), "EfficientViT train golden: param names differ")
+        got = np.asarray([grads[k].norm().item() for k in g["names"]])
+        floor = 1e-7 * float(g["grad_norm"])
+        diff = np.abs(got - g["grad_norms"])
+        above = g["grad_norms"] > 100 * floor
+        worst = float((diff[above] / g["grad_norms"][above]).max())
+        # loss and grad norm: fp32 sums in other orders (the CPU port: 2e-7,
+        # 1e-5); per tensor 5e-3: ReLU inputs within fp32 noise of 0 move
+        # some attention-BN and first-layer grads by ~1e-3 under rounding alone
+        print(f"train golden efficientvit_m5 fp32 B={B} route {route} vs JAX: loss rel err "
+              f"{loss_err:.2e} (bound 1e-4), grad_norm rel err {gn_err:.2e} (bound 1e-4), "
+              f"per-tensor grad norms worst rel err {worst:.2e} over the {int(above.sum())} of "
+              f"{n} tensors above 100x the noise floor (bound 5e-3); K7/K8/K9 launches "
+              f"{dict(dwconv.LAUNCHES)}")
+        check(loss_err <= 1e-4, f"EfficientViT train golden ({route}) loss rel err {loss_err}")
+        check(gn_err <= 1e-4, f"EfficientViT train golden ({route}) grad_norm rel err {gn_err}")
+        check(bool((diff <= 5e-3 * g["grad_norms"] + floor).all()),
+              f"EfficientViT train golden ({route}) per-tensor grad norms")
+
+
+def phase_evit_train() -> dict:
+    """The EfficientViT train main path: M5 bf16 bs512, AdamW as the trainer
+    builds it, on each depthwise route; returns each route's launches."""
+    dtype, batch_size, name = torch.bfloat16, 512, "efficientvit_m5"
+    gen = torch.Generator("cuda").manual_seed(3)
+    sd = None
+    models = {}
+    for route in DW_ROUTES:
+        models[route] = create_model(name, device="cuda", dtype=dtype, dw_kernel=route)
+        sd = sd or seeded_state_dict(models[route], 0)
+        models[route].load_state_dict(sd)
+    s1 = sum(isinstance(c, ConvBN) and c.is_dw3x3() and c.stride == 1
+             for c in models["fused"].modules())
+    check(s1 == 32, f"{name}: {s1} stride-1 depthwise 3x3 sites, want 32")
+    x = smooth_images(gen, batch_size).to(dtype)
+    labels = torch.randint(0, 1000, (batch_size,), generator=gen, device="cuda")
+    batch = {"image": x, "label": F.one_hot(labels, 1000).float()}
+
+    def new_state(m):
+        return TrainState(m, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                        params=dict(m.named_parameters())))
+
+    step = make_train_step(loss_fn=soft_target_ce)
+    n_steps, warmup, iters = 10, 3, 10
+    launches, first, losses, peak, ips = {}, {}, {}, {}, {}
+    for route in DW_ROUTES:
+        state = new_state(models[route])
+        torch.cuda.reset_peak_memory_stats()
+        dwconv.reset_launches()
+        wa.LAUNCHES = wa.BWD_LAUNCHES = cga.LAUNCHES = cga_core.LAUNCHES = 0
+        losses[route] = []
+        for i in range(n_steps):
+            state, metrics = step(state, batch, 0)
+            losses[route].append(float(metrics["loss"]))
+            if i == 0:
+                first[route] = metrics
+                per_step = dict(dwconv.LAUNCHES)
+        peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ips[route] = [train_throughput(models[route], batch_size, 224, dtype, iters, warmup)]
+        launches[route] = dict(dwconv.LAUNCHES)
+        want = m5_dw_launches(route)
+        check(per_step == want, f"{name} {route}: K7/K8/K9 launches per step {per_step}, "
+                                f"want {want}")
+        runs = n_steps + warmup + iters
+        check(launches[route] == {k: v * runs for k, v in want.items()},
+              f"{name} {route}: K7/K8/K9 launches {launches[route]} in the train path")
+        check(cga.LAUNCHES == cga_core.LAUNCHES == wa.LAUNCHES == wa.BWD_LAUNCHES == 0,
+              f"{name} {route}: a train step launched K1/K2/K4/K5")
+        check(all(np.isfinite(losses[route])), f"{name} {route}: train loss not finite")
+        check(losses[route][-1] < losses[route][0], f"{name} {route}: loss did not fall: "
+                                                    f"{losses[route]}")
+    # the host issues ~5,400 launches a step and sets the pace; its noise is
+    # large, so each route is timed four times, interleaved
+    for order in (DW_ROUTES[::-1], DW_ROUTES, DW_ROUTES[::-1]):
+        for route in order:
+            ips[route].append(train_throughput(models[route], batch_size, 224, dtype, iters,
+                                               warmup))
+    card = card_info()
+    l_ref, g_ref = float(first["library"]["loss"]), float(first["library"]["grad_norm"])
+    # bf16 logits and log-softmax: the loss terms sit on a bf16 grid (2 ulps
+    # at the loss); the grads flow through bf16 activations rounded at other
+    # points (2%)
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+    for route in DW_ROUTES:
+        l_k, g_k = float(first[route]["loss"]), float(first[route]["grad_norm"])
+        print(f"train {name} bf16 B={batch_size} dw route {route}: K7/K8/K9 launches per step "
+              f"{m5_dw_launches(route)}, K4/K5 0/0; loss over {n_steps} steps on one batch: "
+              f"{', '.join(f'{v:.4f}' for v in losses[route])}; step 1 vs library: loss "
+              f"{l_k:.5f} vs {l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), "
+              f"grad_norm {g_k:.4f} vs {g_ref:.4f} (rel diff {abs(g_k - g_ref) / g_ref:.2e}, "
+              f"bound 2e-2); peak memory {peak[route]:.2f} GiB")
+        check(abs(l_k - l_ref) <= loss_lim, f"{route} vs library loss {l_k} vs {l_ref}")
+        check(abs(g_k - g_ref) <= 2e-2 * g_ref, f"{route} vs library grad_norm {g_k} vs {g_ref}")
+    median = {r: statistics.median(v) for r, v in ips.items()}
+    print(f"train throughput {name} bf16 B={batch_size} (rounds in the orders library, "
+          f"fused, wgrad / reversed / forward / reversed): " + "; ".join(
+              f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])} img/s (median {median[r]:.1f})"
+              for r in DW_ROUTES) + f"; highest median: {max(median, key=median.get)} [{card}]")
+    # eval with the depthwise convs on the library conv and on K7/K9
+    # (cascade attention route)
+    m = models["library"].eval()
+    eval_ips = {r: [] for r in ("library", "fused", "fused", "library")}
+    for r in ("library", "fused", "fused", "library"):
+        set_dw_kernel(m, r)
+        eval_ips[r].append(throughput(m, batch_size, 224, dtype, 10, 3))
+    set_dw_kernel(m, "library")
+    print(f"eval throughput {name} bf16 B={batch_size} cascade attention (order library, "
+          f"fused, fused, library): dw library {eval_ips['library'][0]:.1f} / "
+          f"{eval_ips['library'][1]:.1f} img/s, dw fused {eval_ips['fused'][0]:.1f} / "
+          f"{eval_ips['fused'][1]:.1f} img/s [{card}]")
+    return launches
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -801,6 +1142,10 @@ def main() -> None:
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
     evit = {name: phase_evit_main(name, batch) for name, batch in EVIT_PATHS}
+    worst_dw, tdw = phase_dw(gen)
+    phase_dw_grads(gen)
+    phase_evit_train_golden()
+    evit_train = phase_evit_train()
 
     rows = []
     for name, src, line, launches, err, t in (
@@ -823,6 +1168,19 @@ def main() -> None:
     rows.append(evit_row(
         "cga_core", "cga_core.cu", "cga_core.py:63", sum(v["core"][1] for v in evit.values()),
         worst_k5, t5, ("ms", "plain_ms", "library_ms", "bound_ms"), {}))
+    for key, src_line, kind, stride, route in (
+            ("k7_fwd", 167, "fwd", 1, "fused"), ("k7_bwd", 183, "bwd", 1, "fused"),
+            ("k8", 338, "wgrad", 1, "wgrad"), ("k9_fwd", 474, "fwd", 2, "fused"),
+            ("k9_bwd", 487, "bwd", 2, "fused")):
+        sites = [(n, per) for n, *_, s, per in DW_M5 if s == stride]
+        rows.append({
+            "name": f"dwconv_{key}", "route": "cuda", "source": "cream_tpu_torch/csrc/dwconv.cu",
+            "replaces": f"cream_tpu/ops/dwconv.py:{src_line}",
+            "launches": evit_train[route][key], "max_abs_err": worst_dw[key],
+            **{k: sum(tdw[n][kind][k] * per for n, per in sites)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": max((tdw[n][kind] for n, _ in sites),
+                            key=lambda r: r["bound_ms"])["bound_by"]})
     for key, t in (("K4", t4), ("K5", t5)):
         m0 = {k: sum(t[n][k] * t[n]["per_forward"] for n, *_ in EVIT_STAGES["efficientvit_m0"])
               for k in ("ms", "plain_ms", "bound_ms")}
@@ -831,7 +1189,9 @@ def main() -> None:
     print(f"kernel times are per TinyViT-21M-224 bf16 bs256 forward (K1) or train "
           f"step (K2), eval path K1 launches {k1_eval}, train path K1/K2 launches "
           f"{k1_train}/{k2_train}; per EfficientViT-M5 bf16 bs512 forward (K4, K5), "
-          f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes")
+          f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes; "
+          f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
+          f"sites), launches on its train path's fused (K7, K9) and wgrad (K8) routes")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

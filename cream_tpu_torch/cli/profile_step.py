@@ -3,6 +3,8 @@
     python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_224
     python -m cream_tpu_torch.cli.profile_step --train       # AdamW train steps
     python -m cream_tpu_torch.cli.profile_step --models efficientvit_m5 --batch 512
+    python -m cream_tpu_torch.cli.profile_step --train --models efficientvit_m5 \
+        --batch 512 dw_kernel=fused                      # model keyword arguments
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -34,6 +36,12 @@ KINDS = [
     ("K2 window attention bwd", r"window_attention_bwd_kernel|dbias_reduce"),
     ("K4 fused CGA", r"cga_fused_kernel"),
     ("K5 CGA attention core", r"cga_core_kernel"),
+    ("K7 depthwise s1 fwd", r"dwconv_s1_fwd_kernel"),
+    ("K7 depthwise s1 bwd", r"dwconv_s1_bwd_kernel"),
+    ("K8 depthwise weight grad", r"dwconv_wgrad_kernel"),
+    ("K9 depthwise s2 fwd", r"dwconv_s2_fwd_kernel"),
+    ("K9 depthwise s2 bwd", r"dwconv_s2_bwd_kernel"),
+    ("K7/K8/K9 dw partial sums", r"dwconv_dw_reduce_kernel"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("convolution (cuDNN)", r"conv|cudnn|implicit|dgrad|wgrad|winograd|fft"),
     ("batch norm", r"batch_norm|batchnorm|bn_"),

@@ -5,6 +5,8 @@
     python -m cream_tpu_torch.cli.speed_test --train     # train steps/s
     python -m cream_tpu_torch.cli.speed_test --models efficientvit_m5 \
         --batch 512 attn_kernel=plain                    # model keyword arguments
+    python -m cream_tpu_torch.cli.speed_test --train --models efficientvit_m5 \
+        --batch 512 dw_kernel=fused                      # or wgrad, library
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on

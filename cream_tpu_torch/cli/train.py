@@ -7,6 +7,9 @@
         model.name=tiny_vit_5m_224 model.img_size=64 data.img_size=64 \
         data.dataset=synthetic data.batch_size=2 train.epochs=1 \
         train.warmup_epochs=0
+    python -m cream_tpu_torch.cli.train model.name=efficientvit_m0 \
+        data.dataset=synthetic train.epochs=1 \
+        'model.extra={"dw_kernel": "fused"}'
 
 AdamW on a warmup + cosine schedule (optionally with gradient accumulation
 and an EMA of the params), mixup/cutmix targets (or one-hot targets without
@@ -35,6 +38,7 @@ from cream_tpu_torch.data.imagenet import (SyntheticDataset, eval_loader,
                                            prefetch, train_loader)
 from cream_tpu_torch.data.mixup import mixup_cutmix
 from cream_tpu_torch.models import create_model
+from cream_tpu_torch.models.registry import accepts
 from cream_tpu_torch.train import (MetricLogger, TrainState, cosine_schedule,
                                    make_adamw, make_eval_step, make_train_step,
                                    topk_accuracy_counts)
@@ -54,6 +58,18 @@ def build_dataset(cfg: Config):
                             num_classes=cfg.model.num_classes)
 
 
+def model_options(cfg: Config) -> dict:
+    """`model.extra`, with `model.drop_path_rate` when it is set. A model
+    whose factory takes no drop path rate (EfficientViT) refuses one."""
+    kw = dict(cfg.model.extra)
+    if cfg.model.drop_path_rate is not None:
+        if not accepts(cfg.model.name, "drop_path_rate"):
+            raise ValueError(f"model.drop_path_rate is set, but {cfg.model.name} "
+                             f"has no drop path")
+        kw["drop_path_rate"] = cfg.model.drop_path_rate
+    return kw
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg", default=None)
@@ -68,9 +84,8 @@ def main(argv=None):
     dtype = getattr(torch, cfg.model.dtype)
 
     model = create_model(cfg.model.name, num_classes=cfg.model.num_classes,
-                         device=device, dtype=dtype,
-                         drop_path_rate=cfg.model.drop_path_rate,
-                         img_size=cfg.model.img_size, **cfg.model.extra)
+                         device=device, dtype=dtype, img_size=cfg.model.img_size,
+                         **model_options(cfg))
     model.load_state_dict(seeded_state_dict(model, cfg.train.seed))
     train_ds = eval_ds = build_dataset(cfg)
     steps_per_epoch = max(len(train_ds) // cfg.data.batch_size, 1)

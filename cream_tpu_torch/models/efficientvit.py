@@ -1,5 +1,5 @@
 """EfficientViT — throughput-optimized 3-stage pyramid with cascaded group
-attention, eval.
+attention, eval and train.
 
 Counterpart of `cream_tpu/models/efficientvit.py` (M0–M5). Everything is
 Conv+BN, NHWC:
@@ -20,7 +20,15 @@ state_dicts load as they are (`zoo.load.load_pth`) and the JAX package's
 
 The window of each stage is min(window_size, stage resolution, map size),
 which follows from `img_size`; a model takes only inputs of that size.
-Train mode is not ported and raises.
+
+Train mode (`model.train()`) is the JAX package's `train=True`: every
+BatchNorm takes the batch's statistics (in the attention, over the
+zero-padded window tokens too, as JAX does), the attention runs its plain
+route whatever `attn_kernel` says (JAX takes its attention kernels in eval
+only), and a distillation model returns `(logits, logits_dist)`. The model
+has no drop path and no dropout. `dw_kernel` picks the route of every
+depthwise 3x3 ConvBN (`nn.layers.ConvBN`): the library conv, or the K7/K9 or
+K8 kernels of `ops/dwconv.py`.
 """
 from __future__ import annotations
 
@@ -31,13 +39,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cream_tpu_torch.models.registry import register_model
-from cream_tpu_torch.nn.layers import BNLinear, ConvBN
+from cream_tpu_torch.nn.layers import BNLinear, ConvBN, set_dw_kernel
 from cream_tpu_torch.ops.cga import fold_cga_variables, fused_cga
 from cream_tpu_torch.ops.cga_core import cga_attention
 from cream_tpu_torch.ops.common import attention_bias_indices
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 
 ATTN_KERNELS = ("cascade", "core", "plain")
+# the depthwise 3x3 route EfficientViT takes unless told otherwise
+DW_KERNEL = "library"
 
 
 def _conv_s2_out(n: int) -> int:
@@ -46,7 +56,8 @@ def _conv_s2_out(n: int) -> int:
 
 
 class Residual(nn.Module):
-    """x + m(x) (the released `Residual`; its drop path is train-only)."""
+    """x + m(x) (the released `Residual`, without the drop path that the
+    released training code can add: the JAX package's model has none)."""
 
     def __init__(self, m: nn.Module):
         super().__init__()
@@ -111,8 +122,8 @@ class CascadedGroupAttention(nn.Module):
     """Per-head chunked input with cascaded feature refinement and bias tables,
     on (B, ws, ws, C) windows.
 
-    `attn_kernel` picks the route (eval only; all three compute the same
-    function, each with its own rounding points):
+    `attn_kernel` picks the eval route (all three compute the same function,
+    each with its own rounding points; train mode takes "plain"):
       "cascade" (default): the whole cascade as one `fused_cga` op on the
           BN-folded weights: one K4 launch per call on the card,
           `fused_cga_ref` on the CPU. The fold is cached per module and
@@ -167,15 +178,14 @@ class CascadedGroupAttention(nn.Module):
         return self._fold
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("EfficientViT training is not ported")
         B, H, W, C = x.shape
         if H != self.resolution or W != self.resolution:
             raise ValueError(f"windows must be {self.resolution}x{self.resolution}, "
                              f"got {H}x{W}")
         x = x.to(self.dtype)
         h, kd, d = self.heads, self.kd, self.d
-        if self.attn_kernel == "cascade":
+        route = "plain" if self.training else self.attn_kernel
+        if route == "cascade":
             return fused_cga(x.contiguous(), self.attention_biases, self.attention_bias_idxs,
                              *self.folded(), ws=H, heads=h, c_in=self.c_in, kd=kd,
                              d=d, ks_max=self.ks_max)
@@ -189,13 +199,14 @@ class CascadedGroupAttention(nn.Module):
             q, k, v = self.qkvs[i](feat).split([kd, kd, d], dim=-1)
             q = self.dws[i](q).reshape(B, N, kd)
             k, v = k.reshape(B, N, kd), v.reshape(B, N, d)
-            if self.attn_kernel == "core":
+            if route == "core":
                 o = cga_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   bias[i], scale)
             else:
                 s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias[i]
                 s = s.to(self.dtype)
-                p = torch.exp((s - s.amax(dim=-1, keepdim=True)).float()).to(self.dtype)
+                # the row max carries no gradient (JAX's stop_gradient)
+                p = torch.exp((s - s.amax(dim=-1, keepdim=True).detach()).float()).to(self.dtype)
                 v1 = torch.cat([v, v.new_ones(B, N, 1)], dim=-1)
                 o = torch.matmul(p.float(), v1.float())
                 o = (o[..., :d] / o[..., d:]).to(self.dtype)
@@ -272,8 +283,8 @@ class EfficientViT(nn.Module):
                  key_dim: Sequence[int] = (16, 16, 16), depth: Sequence[int] = (1, 2, 3),
                  num_heads: Sequence[int] = (4, 4, 4), window_size: Sequence[int] = (7, 7, 7),
                  kernels: Sequence[int] = (5, 5, 5, 5), distillation: bool = False,
-                 attn_kernel: str = "cascade", *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 attn_kernel: str = "cascade", dw_kernel: str = DW_KERNEL, *,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.img_size, self.num_classes, self.dtype = img_size, num_classes, dtype
         self.distillation = distillation
@@ -304,6 +315,7 @@ class EfficientViT(nn.Module):
             self.head = BNLinear(ed[-1], num_classes, **kw)
             if distillation:
                 self.head_dist = BNLinear(ed[-1], num_classes, **kw)
+        set_dw_kernel(self, dw_kernel)
 
     def set_attn_kernel(self, attn_kernel: str) -> None:
         """Switch every CascadedGroupAttention to the route `attn_kernel`."""
@@ -314,8 +326,6 @@ class EfficientViT(nn.Module):
                 m.attn_kernel = attn_kernel
 
     def _stages(self, x: torch.Tensor):
-        if self.training:
-            raise NotImplementedError("EfficientViT training is not ported")
         if tuple(x.shape[1:]) != (self.img_size, self.img_size, 3):
             raise ValueError(f"expected (B, {self.img_size}, {self.img_size}, 3)"
                              f" NHWC input, got {tuple(x.shape)}")
@@ -333,12 +343,18 @@ class EfficientViT(nn.Module):
         blocks and before the next downsample."""
         return tuple(self._stages(x))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`generator` is taken for the train step's sake and not used: the
+        model draws no random numbers."""
         x = self.forward_features(x).mean(dim=(1, 2))
         if self.num_classes == 0:
             return x
         if self.distillation:
-            return (self.head(x) + self.head_dist(x)) / 2
+            logits, logits_dist = self.head(x), self.head_dist(x)
+            if self.training:
+                return logits, logits_dist
+            return (logits + logits_dist) / 2
         return self.head(x)
 
 

@@ -1,6 +1,7 @@
 """Model registry: name -> factory building an eval-mode nn.Module."""
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import torch
@@ -30,6 +31,11 @@ def create_model(name: str, *, device, dtype: torch.dtype = torch.float32,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return _REGISTRY[name](device=device, dtype=dtype, **kwargs).eval()
+
+
+def accepts(name: str, kwarg: str) -> bool:
+    """Whether the factory of model `name` takes the keyword `kwarg` by name."""
+    return kwarg in inspect.signature(_REGISTRY[name]).parameters
 
 
 def list_models(prefix: str = "") -> list[str]:

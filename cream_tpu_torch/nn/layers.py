@@ -15,6 +15,8 @@ Conventions:
     1e-5). train (`module.train()`): the batch's statistics, as flax
     `BatchNorm(use_running_average=False)` does (see `ConvBN`); drop path
     and dropout draw from the generator the caller passes to `forward`
+  * a depthwise 3x3 ConvBN can run its conv through the kernels of
+    `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`)
 """
 from __future__ import annotations
 
@@ -23,7 +25,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cream_tpu_torch.nn.act import gelu
+from cream_tpu_torch.ops import dwconv
 from cream_tpu_torch.ops.common import drop_path, dropout
+
+# depthwise 3x3 conv routes (the JAX package's `ConvBN.dw_vjp` values False,
+# True and "wgrad")
+DW_KERNELS = ("library", "fused", "wgrad")
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -36,55 +43,118 @@ def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x, fc.weight.to(dtype), bias)
 
 
+def _check_dw_kernel(mode: str) -> None:
+    if mode not in DW_KERNELS:
+        raise ValueError(f"dw_kernel must be one of {DW_KERNELS}, got {mode!r}")
+
+
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor,
+                     momentum: float) -> torch.Tensor:
+    """Train-mode BatchNorm over every dim but dim 1, as flax does it:
+    normalise with the batch mean and biased variance, computed in fp32
+    whatever y's dtype (the output stays in y's dtype), and update the
+    running stats as `r = momentum*r + (1-momentum)*batch` with the *biased*
+    variance. (`F.batch_norm(training=True)` would put the unbiased one into
+    `running_var`.)"""
+    y, mean, invstd = torch.native_batch_norm(y, bn.weight, bn.bias, None, None, True,
+                                              0.0, bn.eps)
+    with torch.no_grad():
+        var = invstd.pow(-2) - bn.eps                  # biased variance
+        bn.running_mean.mul_(momentum).add_(mean, alpha=1 - momentum)
+        bn.running_var.mul_(momentum).add_(var, alpha=1 - momentum)
+        bn.num_batches_tracked += 1
+    return y
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm on an NHWC map. `groups=features` gives
     a depthwise conv.
 
     In train mode BatchNorm normalizes with the batch mean and biased
     variance, computed in fp32 whatever the compute dtype, and updates the
-    running stats as flax does: `r = 0.9*r + 0.1*batch` (torch momentum
-    0.1) with the *biased* variance. (`F.batch_norm(training=True)` would put
-    the unbiased one into `running_var`.)"""
+    running stats as flax does (`batch_norm_train`, torch momentum 0.1).
+
+    `dw_kernel` routes a depthwise 3x3 pad-1 conv (stride 1 or 2, groups ==
+    features == input channels) as the JAX package's `dw_vjp` does:
+      "library" (default): `F.conv2d`, forward and autograd backward;
+      "fused": stride 1 through `dwconv.dw_conv3x3_fused` (K7) where
+          `supports_fused`; stride 2 through `dwconv.dw_conv3x3s2_fused`
+          (K9) where `supports_fused_s2`; else the library conv;
+      "wgrad": stride 1 through `dwconv.dw_conv3x3_wg` (library forward and
+          dx, K8 weight grad) where `supports_fused`; stride 2 on the
+          library conv (JAX has no stride-2 wgrad route).
+    The kernels take and return NHWC; BatchNorm runs on the NCHW view."""
 
     MOMENTUM = 0.9        # flax's convention: the weight of the old value
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
-                 bn_weight_init: float = 1.0, *,
+                 bn_weight_init: float = 1.0, *, dw_kernel: str = "library",
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        _check_dw_kernel(dw_kernel)
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
+        self.dw_kernel = dw_kernel
         self.c = nn.Conv2d(in_features, features, kernel_size, stride, padding,
                            groups=groups, bias=False, device=device)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, device=device)
         nn.init.constant_(self.bn.weight, bn_weight_init)
 
+    def is_dw3x3(self) -> bool:
+        """A depthwise 3x3 pad-1 conv of stride 1 or 2: the kernels' sites."""
+        c = self.c
+        return (c.kernel_size == (3, 3) and self.padding == 1 and self.stride in (1, 2)
+                and self.groups == c.out_channels == c.in_channels)
+
+    def _dw_route(self, x: torch.Tensor):
+        """The kernel route's function for this input, or None for the
+        library conv."""
+        if self.dw_kernel == "library" or not self.is_dw3x3() \
+                or x.shape[-1] != self.c.out_channels:
+            return None
+        if self.stride == 1:
+            if not dwconv.supports_fused(x.shape):
+                return None
+            return dwconv.dw_conv3x3_fused if self.dw_kernel == "fused" else dwconv.dw_conv3x3_wg
+        if self.dw_kernel == "fused" and dwconv.supports_fused_s2(x.shape):
+            return dwconv.dw_conv3x3s2_fused
+        return None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
-                     self.c.weight.to(self.dtype), None, self.stride,
-                     self.padding, 1, self.groups)
+        x = x.to(self.dtype)
+        route = self._dw_route(x)
+        if route is None:
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.c.weight.to(self.dtype), None,
+                         self.stride, self.padding, 1, self.groups)
+        else:
+            # the taps in the compute dtype, as the JAX package's _DWConv3x3
+            # hands them over: the weight grad rounds to it too
+            w9 = self.c.weight.to(self.dtype).reshape(-1, 9).t()
+            y = route(x.contiguous(), w9).permute(0, 3, 1, 2)
         bn = self.bn
         if not self.training:
             y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
                              bn.bias, False, 0.0, bn.eps)
-            return y.permute(0, 2, 3, 1)
-        # batch stats in fp32 (the accumulation type for a bf16 input); the
-        # output is in the compute dtype
-        y, mean, invstd = torch.native_batch_norm(y, bn.weight, bn.bias, None,
-                                                  None, True, 0.0, bn.eps)
-        with torch.no_grad():
-            var = invstd.pow(-2) - bn.eps                  # biased variance
-            bn.running_mean.mul_(self.MOMENTUM).add_(mean, alpha=1 - self.MOMENTUM)
-            bn.running_var.mul_(self.MOMENTUM).add_(var, alpha=1 - self.MOMENTUM)
-            bn.num_batches_tracked += 1
+        else:
+            y = batch_norm_train(bn, y, self.MOMENTUM)
         return y.permute(0, 2, 3, 1)
+
+
+def set_dw_kernel(model: nn.Module, mode: str) -> None:
+    """Route every ConvBN of `model` through `mode` (see `ConvBN`): the
+    counterpart of setting the JAX package's `DEFAULT_DW_VJP`. Only the
+    depthwise 3x3 sites change behaviour."""
+    _check_dw_kernel(mode)
+    for m in model.modules():
+        if isinstance(m, ConvBN):
+            m.dw_kernel = mode
 
 
 class BNLinear(nn.Module):
     """BatchNorm1d on the features, then Linear: the EfficientViT classifier
-    head (released names `bn`, `l`). Eval only: the BN uses its running
-    statistics."""
+    head (released names `bn`, `l`). In train mode the BN takes the batch's
+    statistics and updates its running stats as `ConvBN` does."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -96,11 +166,13 @@ class BNLinear(nn.Module):
         nn.init.zeros_(self.l.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("BNLinear is ported for eval only")
         bn = self.bn
-        x = F.batch_norm(x.to(self.dtype), bn.running_mean, bn.running_var,
-                         bn.weight, bn.bias, False, 0.0, bn.eps)
+        x = x.to(self.dtype)
+        if self.training:
+            x = batch_norm_train(bn, x, ConvBN.MOMENTUM)
+        else:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             False, 0.0, bn.eps)
         return linear(self.l, x, self.dtype)
 
 

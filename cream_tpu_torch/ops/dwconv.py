@@ -1,0 +1,300 @@
+"""Depthwise 3x3 convolution (pad 1, stride 1 or 2) with hand-written
+forward and backward kernels.
+
+Counterpart of the JAX package's `cream_tpu/ops/dwconv.py`. Public functions
+take its layout: x is NHWC (B, H, W, C) and the weight is carried as
+w9 = (9, C), tap `3*kh + kw` (the port's (C, 1, 3, 3) conv weight as
+`weight.reshape(C, 9).t()`). Three differentiable routes, the counterparts of
+the JAX package's three custom_vjps:
+
+  `dw_conv3x3_fused`   stride 1: forward and backward are K7
+                       (`csrc/dwconv.cu`; dx and dw in one pass)
+  `dw_conv3x3_wg`      stride 1: the library forward (`F.conv2d`,
+                       groups=C), the library dx (a depthwise conv of dy with
+                       the flipped taps) and K8 for dw
+  `dw_conv3x3s2_fused` stride 2: forward and backward are K9
+
+Like JAX, each returns the weight grad in the dtype of the w9 it received,
+so in bf16 the fp32 sum is rounded to bf16 before autograd casts it to the
+fp32 param. On CUDA tensors the wrappers launch their kernels or raise; on
+CPU tensors they run the plain versions `dw_conv3x3_ref`,
+`dw_conv3x3_bwd_ref` and `dw_wgrad_ref`. The TPU kernels' VMEM budget in
+`supports_fused` is a Mosaic constraint and is not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since import (or since a caller reset them): K7 forward
+# and backward, K8, K9 forward and backward
+LAUNCHES = {"k7_fwd": 0, "k7_bwd": 0, "k8": 0, "k9_fwd": 0, "k9_bwd": 0}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def supports_fused(x_shape) -> bool:
+    """The stride-1 kernels' shape rule (JAX `supports_fused`): W >= 2."""
+    B, H, W, C = x_shape
+    return W >= 2 and H >= 1
+
+
+def supports_fused_s2(x_shape) -> bool:
+    """The stride-2 kernels' shape rule (JAX `supports_fused_s2`): even H
+    and W, W >= 4."""
+    B, H, W, C = x_shape
+    return H % 2 == 0 and W % 2 == 0 and W >= 4
+
+
+def _out_size(n: int, stride: int) -> int:
+    return (n - 1) // stride + 1
+
+
+def _taps(x: torch.Tensor, stride: int):
+    """The nine (kh, kw) taps of the zero-padded x read at each output
+    pixel, in tap order, as (B, Ho, Wo, C) views."""
+    _, H, W, _ = x.shape
+    Ho, Wo = _out_size(H, stride), _out_size(W, stride)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    for kh in range(3):
+        for kw in range(3):
+            yield xp[:, kh:kh + stride * (Ho - 1) + 1:stride,
+                     kw:kw + stride * (Wo - 1) + 1:stride]
+
+
+def dw_conv3x3_ref(x: torch.Tensor, w9: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Plain version of the forward (JAX `_fwd_kernel`, `_fwd2_kernel`):
+    the nine taps multiplied and added in fp32 in tap order (kh outer, kw
+    inner), rounded once to x's dtype."""
+    w = w9.to(x.dtype).float()
+    acc = None
+    for t, xs in enumerate(_taps(x, stride)):
+        term = xs.float() * w[t]
+        acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def dw_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Plain version of the weight grad (JAX `_wgrad_kernel`): (9, C) fp32,
+    dw[t] = sum over (b, ho, wo) of x's tap t times dy, in fp32."""
+    dyf = dy.float()
+    return torch.stack([(xs.float() * dyf).sum(dim=(0, 1, 2)) for xs in _taps(x, stride)])
+
+
+def dw_conv3x3_bwd_ref(x: torch.Tensor, dy: torch.Tensor, w9: torch.Tensor,
+                       stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward (JAX `_bwd_kernel`, `_bwd2_kernel`):
+    dx[h, w] sums w[t] * dy over the taps t whose read reaches (h, w), in fp32
+    in tap order, rounded once to dy's dtype; dw as `dw_wgrad_ref`."""
+    B, H, W, C = x.shape
+    Ho, Wo = dy.shape[1:3]
+    w = w9.to(x.dtype).float()
+    dyf = dy.float()
+    dxp = torch.zeros(B, H + 2, W + 2, C, dtype=torch.float32, device=x.device)
+    for t in range(9):
+        kh, kw = divmod(t, 3)
+        dxp[:, kh:kh + stride * (Ho - 1) + 1:stride,
+            kw:kw + stride * (Wo - 1) + 1:stride] += dyf * w[t]
+    return dxp[:, 1:H + 1, 1:W + 1].to(dy.dtype), dw_wgrad_ref(x, dy, stride)
+
+
+def _check(x: torch.Tensor, dy: torch.Tensor | None, w9: torch.Tensor | None,
+           stride: int) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"x must be NHWC (B, H, W, C), got {tuple(x.shape)}")
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    B, H, W, C = x.shape
+    if w9 is not None and tuple(w9.shape) != (9, C):
+        raise ValueError(f"w9 {tuple(w9.shape)} != {(9, C)}")
+    want = (B, _out_size(H, stride), _out_size(W, stride), C)
+    if dy is not None and tuple(dy.shape) != want:
+        raise ValueError(f"dy {tuple(dy.shape)} != {want}")
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    x = ts[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"no depthwise-conv kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype for t in ts):
+        raise TypeError(f"kernels take float32 or bfloat16 tensors of one dtype, got "
+                        f"{[t.dtype for t in ts]}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("all inputs must be on x's device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("inputs must be contiguous")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"x has {x.numel()} elements, the kernels take < 2**31")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data does not start on a 16-byte boundary
+    (a view with an offset): the kernels move 16 bytes per access."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dw_conv3x3_fwd(x: torch.Tensor, w9: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Depthwise 3x3 pad-1 conv, NHWC x (B, H, W, C) and w9 (9, C) ->
+    (B, Ho, Wo, C) in x's dtype: K7 (stride 1) or K9 (stride 2) on CUDA
+    tensors, `dw_conv3x3_ref` on CPU tensors."""
+    _check(x, None, w9, stride)
+    if x.device.type == "cpu":
+        return dw_conv3x3_ref(x, w9, stride)
+    w9 = w9.to(x.dtype).contiguous()
+    _check_cuda(x, w9)
+    x, w9 = _aligned(x), _aligned(w9)
+    B, H, W, C = x.shape
+    y = torch.empty(B, _out_size(H, stride), _out_size(W, stride), C,
+                    dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().cream_dwconv_fwd(x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C,
+                                     stride, _DTYPE_CODE[x.dtype], _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"depthwise-conv forward launch failed: cudaError {rc}")
+    LAUNCHES["k7_fwd" if stride == 1 else "k9_fwd"] += 1
+    return y
+
+
+def _bwd_launch(x, dy, w9, stride, with_dx):
+    B, H, W, C = x.shape
+    lib = _lib()
+    code = _DTYPE_CODE[x.dtype]
+    groups = lib.cream_dwconv_bwd_groups(B, H, W, C, stride, code)
+    partial = torch.empty(groups, 9, C, dtype=torch.float32, device=x.device)
+    dw9 = torch.empty(9, C, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if with_dx else None
+    with torch.cuda.device(x.device):
+        rc = lib.cream_dwconv_bwd(x.data_ptr(), dy.data_ptr(),
+                                  w9.data_ptr() if with_dx else None,
+                                  dx.data_ptr() if with_dx else None,
+                                  partial.data_ptr(), dw9.data_ptr(), B, H, W, C, stride,
+                                  code, groups, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"depthwise-conv backward launch failed: cudaError {rc}")
+    return dx, dw9
+
+
+def dw_conv3x3_bwd(x: torch.Tensor, dy: torch.Tensor, w9: torch.Tensor,
+                   stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx in dy's dtype, dw (9, C) fp32) of `dw_conv3x3_fwd`: K7 (stride 1)
+    or K9 (stride 2) on CUDA tensors, `dw_conv3x3_bwd_ref` on CPU tensors.
+    dw is summed in a fixed order: the same bits on every launch."""
+    _check(x, dy, w9, stride)
+    if x.device.type == "cpu":
+        return dw_conv3x3_bwd_ref(x, dy, w9, stride)
+    w9 = w9.to(x.dtype).contiguous()
+    _check_cuda(x, dy, w9)
+    out = _bwd_launch(_aligned(x), _aligned(dy), _aligned(w9), stride, with_dx=True)
+    LAUNCHES["k7_bwd" if stride == 1 else "k9_bwd"] += 1
+    return out
+
+
+def dw_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The stride-1 weight grad alone, (9, C) fp32: K8 on CUDA tensors,
+    `dw_wgrad_ref` on CPU tensors."""
+    _check(x, dy, None, 1)
+    if x.device.type == "cpu":
+        return dw_wgrad_ref(x, dy)
+    _check_cuda(x, dy)
+    _, dw9 = _bwd_launch(_aligned(x), _aligned(dy), None, 1, with_dx=False)
+    LAUNCHES["k8"] += 1
+    return dw9
+
+
+def _conv_weight(w9: torch.Tensor) -> torch.Tensor:
+    """(9, C) taps -> the (C, 1, 3, 3) weight of a depthwise `F.conv2d`."""
+    return w9.t().reshape(-1, 1, 3, 3)
+
+
+def _library_conv(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 s1 p1 conv of NHWC x as one library call (its NCHW view
+    has channels_last strides); NHWC out."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), _conv_weight(w9.to(x.dtype)), None, 1, 1, 1,
+                 x.shape[-1])
+    return y.permute(0, 2, 3, 1)
+
+
+class _Fused(torch.autograd.Function):
+    """K7 (stride 1) or K9 (stride 2) forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, w9, stride):
+        ctx.save_for_backward(x, w9)
+        ctx.stride = stride
+        return dw_conv3x3_fwd(x, w9, stride)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w9 = ctx.saved_tensors
+        dx, dw9 = dw_conv3x3_bwd(x, dy.contiguous(), w9, ctx.stride)
+        return dx, dw9.to(w9.dtype), None
+
+
+class _Wgrad(torch.autograd.Function):
+    """Library forward and dx, K8 weight grad (stride 1)."""
+
+    @staticmethod
+    def forward(ctx, x, w9):
+        ctx.save_for_backward(x, w9)
+        return _library_conv(x, w9)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w9 = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _library_conv(dy, w9.flip(0))            # the flipped taps
+        return dx, dw_wgrad(x, dy).to(w9.dtype)
+
+
+def dw_conv3x3_fused(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 s1 p1 conv, NHWC, K7 forward and backward (JAX
+    `dw_conv3x3_fused`). x must pass `supports_fused`."""
+    if not supports_fused(x.shape):
+        raise ValueError(f"dw_conv3x3_fused does not take {tuple(x.shape)} (W < 2)")
+    return _Fused.apply(x, w9, 1)
+
+
+def dw_conv3x3_wg(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 s1 p1 conv, NHWC: library forward and dx, K8 weight
+    grad (JAX `dw_conv3x3_wg`). x must pass `supports_fused`."""
+    if not supports_fused(x.shape):
+        raise ValueError(f"dw_conv3x3_wg does not take {tuple(x.shape)} (W < 2)")
+    return _Wgrad.apply(x, w9)
+
+
+def dw_conv3x3s2_fused(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 s2 p1 conv, NHWC, K9 forward and backward (JAX
+    `dw_conv3x3s2_fused`). x must pass `supports_fused_s2`."""
+    if not supports_fused_s2(x.shape):
+        raise ValueError(f"dw_conv3x3s2_fused does not take {tuple(x.shape)} "
+                         f"(needs even H and W, W >= 4)")
+    return _Fused.apply(x, w9, 2)
+
+
+@lru_cache(maxsize=None)
+def _lib():
+    from cream_tpu_torch.ops import build
+    lib = build.load()
+    lib.cream_dwconv_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.cream_dwconv_fwd.restype = ctypes.c_int
+    lib.cream_dwconv_bwd_groups.argtypes = [ctypes.c_int] * 6
+    lib.cream_dwconv_bwd_groups.restype = ctypes.c_int
+    lib.cream_dwconv_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+    lib.cream_dwconv_bwd.restype = ctypes.c_int
+    return lib

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1/K2 window attention forward/backward, K4 fused
-cascaded group attention, K5 CGA attention core) against their plain
-versions, on the card.
+cascaded group attention, K5 CGA attention core, K7/K8/K9 depthwise 3x3
+convolution) against their plain versions, on the card.
 
 These tests need a CUDA card and skip without one. They import no jax, so
 they run on a machine that has only PyTorch and the CUDA toolkit:
@@ -14,7 +14,11 @@ wrappers' refusals, gradients through the K1+K2 autograd.Function, and a
 narrow TinyViT whose kernel path and plain path agree, in eval and in a
 train step; K4 and K5 at every EfficientViT M0–M5 stage shape at 224 and
 at the img-96 windows, their refusals, and a narrow EfficientViT whose
-three attention routes agree.
+three attention routes agree; K7/K8/K9 at EfficientViT-M5's and
+TinyViT-21M's depthwise shapes (smaller batches), odd channel counts and odd
+stride-2 maps, dw's bits across launches, their refusals, their
+autograd.Functions' grads, and a narrow EfficientViT train step whose three
+depthwise routes agree and launch the kernels the site count says.
 """
 import numpy as np
 import pytest
@@ -24,7 +28,8 @@ from cream_tpu_torch.models.efficientvit import (_CONFIGS, CascadedGroupAttentio
                                                 EfficientViT)
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.nn.attention import WindowBiasAttention
-from cream_tpu_torch.ops import cga, cga_core
+from cream_tpu_torch.nn.layers import ConvBN
+from cream_tpu_torch.ops import cga, cga_core, dwconv
 from cream_tpu_torch.ops import window_attention as wa
 from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -364,3 +369,117 @@ def test_narrow_efficientvit_routes_agree(card, img):
     for route in ("cascade", "core"):
         # fp32 sums in other orders; the plain route divides after P.V
         torch.testing.assert_close(out[route], out["plain"], atol=1e-4, rtol=1e-4)
+
+
+# (B, H, W, C, stride): M5's depthwise sites, TinyViT-21M's MBConv and
+# PatchMerging sites (batches cut), odd C (one bf16 channel per thread), an
+# odd stride-2 map (the kernel takes it; ConvBN routes it to the library)
+DW_CASES = [(4, 14, 14, 192, 1), (16, 7, 7, 16, 1), (4, 7, 7, 288, 1), (4, 4, 4, 384, 1),
+            (8, 4, 4, 16, 1), (2, 56, 56, 384, 1), (4, 14, 14, 768, 2), (2, 56, 56, 192, 2),
+            (2, 14, 14, 576, 2), (3, 9, 6, 15, 1), (3, 8, 6, 15, 2), (2, 7, 7, 16, 2)]
+
+
+def _dw_inputs(card, B, H, W, C, stride, dtype):
+    g = torch.Generator(card).manual_seed(B * H * C + stride)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(B, H, W, C, generator=g, device=card).to(dtype)
+    w9 = (torch.randn(9, C, generator=g, device=card) / 3).to(dtype)
+    dy = torch.randn(B, Ho, Wo, C, generator=g, device=card).to(dtype)
+    return x, w9, dy
+
+
+def _dw_close(got, want, dtype, rel):
+    """bf16: one ulp at the largest |want| (the same rounding points); fp32:
+    `rel` of the largest |want|."""
+    top = want.float().abs().max().item()
+    lim = 2.0 ** (np.floor(np.log2(top)) - 7) if dtype == torch.bfloat16 else rel * top
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= lim, (err, lim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,stride", DW_CASES)
+def test_dw_kernels_match_plain(card, dtype, B, H, W, C, stride):
+    x, w9, dy = _dw_inputs(card, B, H, W, C, stride, dtype)
+    n = dict(dwconv.LAUNCHES)
+    fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
+    y = dwconv.dw_conv3x3_fwd(x, w9, stride)
+    dx, dw = dwconv.dw_conv3x3_bwd(x, dy, w9, stride)
+    dx2, dw2 = dwconv.dw_conv3x3_bwd(x, dy, w9, stride)
+    torch.cuda.synchronize()
+    assert dwconv.LAUNCHES[fwd] == n[fwd] + 1 and dwconv.LAUNCHES[bwd] == n[bwd] + 2
+    y_ref = dwconv.dw_conv3x3_ref(x, w9, stride)
+    dx_ref, dw_ref = dwconv.dw_conv3x3_bwd_ref(x, dy, w9, stride)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    # y and dx: the plain version's products and sums, in its order
+    _dw_close(y, y_ref, dtype, 1e-6)
+    _dw_close(dx, dx_ref, dtype, 1e-6)
+    # dw: up to B*Ho*Wo fp32 terms summed in another order
+    _dw_close(dw, dw_ref, torch.float32, 1e-5)
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)        # the same bits
+    if stride == 1:
+        dw8 = dwconv.dw_wgrad(x, dy)
+        torch.cuda.synchronize()
+        assert dwconv.LAUNCHES["k8"] == n["k8"] + 1
+        assert torch.equal(dw8, dw)                 # K8 is K7's dw pass alone
+
+
+@pytest.mark.parametrize("fn,stride", [(dwconv.dw_conv3x3_fused, 1), (dwconv.dw_conv3x3_wg, 1),
+                                       (dwconv.dw_conv3x3s2_fused, 2)])
+def test_dw_functions_grads_match_autograd_of_plain(card, fn, stride):
+    x, w9, dy = _dw_inputs(card, 2, 10, 12, 24, stride, torch.float32)
+    leaves = [x.clone().requires_grad_(), w9.clone().requires_grad_()]
+    got = torch.autograd.grad(fn(*leaves), leaves, dy)
+    plain = [x.clone().requires_grad_(), w9.clone().requires_grad_()]
+    want = torch.autograd.grad(dwconv.dw_conv3x3_ref(*plain, stride), plain, dy)
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-5
+
+
+def test_dw_kernels_refuse_what_they_do_not_take(card):
+    x = torch.zeros(2, 8, 8, 16, device=card)
+    w9 = torch.zeros(9, 16, device=card)
+    with pytest.raises(TypeError):                            # fp16 is not built
+        dwconv.dw_conv3x3_fwd(x.half(), w9.half())
+    with pytest.raises(ValueError):                           # strided x
+        dwconv.dw_conv3x3_fwd(x.transpose(1, 2), w9)
+    with pytest.raises(ValueError):                           # dy on the CPU
+        dwconv.dw_conv3x3_bwd(x, torch.zeros(2, 8, 8, 16), w9)
+    with pytest.raises(TypeError):                            # dy of another dtype
+        dwconv.dw_wgrad(x, torch.zeros(2, 8, 8, 16, device=card).bfloat16())
+
+
+def test_narrow_efficientvit_train_step_routes_agree(card):
+    """fp32, TF32 off, img 128 (maps 8/4/2: both subsample depthwise convs
+    stride-2 eligible): one train step's loss and grads on the "fused" and
+    "wgrad" routes against "library" on the same weights and batch, and the
+    launches the depthwise sites give."""
+    from cream_tpu_torch.train.losses import soft_target_ce
+    from cream_tpu_torch.train.steps import loss_and_grads
+    m = EfficientViT(img_size=128, device=card, **EVIT_NARROW)
+    sd = seeded_state_dict(m, 5)
+    s1 = sum(isinstance(c, ConvBN) and c.is_dw3x3() and c.stride == 1 for c in m.modules())
+    rng = np.random.default_rng(8)
+    batch = {"image": torch.from_numpy(rng.standard_normal((4, 128, 128, 3)).astype(
+        np.float32)).to(card), "label": torch.from_numpy(np.eye(10, dtype=np.float32)[
+            rng.integers(0, 10, 4)]).to(card)}
+    out = {}
+    for route, want in (("library", {}), ("fused", {"k7_fwd": s1, "k7_bwd": s1, "k9_fwd": 2,
+                                                    "k9_bwd": 2}), ("wgrad", {"k8": s1})):
+        m = EfficientViT(img_size=128, device=card, dw_kernel=route, **EVIT_NARROW)
+        m.load_state_dict(sd)
+        dwconv.reset_launches()
+        out[route] = loss_and_grads(m, batch, soft_target_ce)
+        torch.cuda.synchronize()
+        assert dwconv.LAUNCHES == {k: want.get(k, 0) for k in dwconv.LAUNCHES}, route
+    loss, _, grads = out["library"]
+    norm = torch.sqrt(sum(g.pow(2).sum() for g in grads.values())).item()
+    for route in ("fused", "wgrad"):
+        torch.testing.assert_close(out[route][0], loss, rtol=1e-5, atol=0)
+        got = out[route][2]
+        # relative L2 1e-3 per tensor (ReLU inputs within fp32 noise of 0
+        # move a few grads by ~1e-3), at 1e-6 of the global norm for grads
+        # at float noise
+        for k, w in grads.items():
+            err = (got[k] - w).norm().item()
+            assert err <= 1e-3 * w.norm().item() + 1e-6 * norm, (route, k, err)

@@ -160,16 +160,21 @@ def test_released_layout_loads(tmp_path):
     assert all(torch.equal(m.state_dict()[k], sd[k]) for k in sd)
 
 
-def test_train_mode_and_unknown_route_raise():
-    m = create_model("efficientvit_m0", device="cpu", img_size=96).train()
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 96, 96, 3))
+def test_unknown_route_and_wrong_size_raise():
     with pytest.raises(ValueError):
         create_model("efficientvit_m0", device="cpu", attn_kernel="other")
     with pytest.raises(ValueError):
         create_model("efficientvit_m0", device="cpu").set_attn_kernel("other")
     with pytest.raises(ValueError):                         # not the model's size
         create_model("efficientvit_m0", device="cpu", img_size=96).eval()(torch.zeros(1, 64, 64, 3))
+    with pytest.raises(ValueError):
+        create_model("efficientvit_m0", device="cpu", dw_kernel="other")
+    # train mode runs (tests/test_torch_efficientvit_train.py holds it to JAX)
+    # and refuses a wrong size as eval does
+    m = create_model("efficientvit_m0", device="cpu", img_size=96).train()
+    assert m(torch.zeros(2, 96, 96, 3)).shape == (2, 1000)
+    with pytest.raises(ValueError):
+        m(torch.zeros(2, 64, 64, 3))
 
 
 def test_bf16_plain_cga_matches_jax_module():

@@ -1,6 +1,7 @@
 """cream_tpu_torch's train CLI on the CPU: TinyViT-5M on the synthetic set at
 a 64-pixel image size (stage 1's 16x16 map takes the padded-window path),
-batch 2, so one epoch is 32 steps and takes seconds.
+batch 2, so one epoch is 32 steps and takes seconds; and EfficientViT-M0,
+the JAX CLI's docstring example, at the same small size.
 """
 import pytest
 import torch
@@ -70,3 +71,22 @@ def test_train_cli_nan_budget(tmp_path, monkeypatch):
     with pytest.raises(FloatingPointError):
         train.main(["--device", "cpu", *BASE, f"output={tmp_path}",
                     "train.epochs=1", "train.nan_budget=2"])
+
+
+@pytest.mark.parametrize("dw_kernel", [None, "fused"])
+def test_train_cli_trains_efficientvit(tmp_path, capsys, dw_kernel):
+    """The JAX CLI's example `model.name=efficientvit_m0 data.dataset=synthetic
+    train.epochs=1`, at 64 pixels and batch 2: EfficientViT takes no drop
+    path rate, so none is passed unless the config sets one."""
+    opts = ["--device", "cpu", "model.name=efficientvit_m0", "data.dataset=synthetic",
+            "train.epochs=1", "model.dtype=float32", "model.img_size=64", "data.img_size=64",
+            "data.batch_size=2", "data.num_workers=2", "train.warmup_epochs=0",
+            f"output={tmp_path}"]
+    if dw_kernel:
+        opts.append(f'model.extra={{"dw_kernel": "{dw_kernel}"}}')
+    acc = train.main(opts)
+    assert 0.0 <= acc <= 100.0
+    assert latest_step(str(tmp_path / "efficientvit_m0" / "default" / "ckpt")) == 32
+    assert "epoch 0 done" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="drop path"):
+        train.main([*opts, "model.drop_path_rate=0.1"])
