@@ -61,6 +61,35 @@ non-zero):
      "library" on the same weights and batch; train img/s of the three
      routes interleaved, peak memory; M5 bs512 eval img/s with the
      depthwise convs on "library" and "fused"
+ 18. K6 vs plain: the fused eval MBConv kernel against `fused_mbconv_ref` on
+     a seeded module's fold at TinyViT-21M's and -5M/11M's stage-0 shapes
+     (bs256 bf16; fp32 at bs32); kernel, plain and unfused-module times
+ 19. K3 vs plain: the bias-attention kernel against
+     `fused_bias_attention_ref` at TinyViT-21M's per-window shapes (bs256)
+     and a 16-token window, bf16 and fp32; kernel, plain and SDPA times;
+     then `BiasAttention` at 4,096 windows of 49 tokens, dim 192, 6 heads:
+     one K3 launch per call, against its plain route
+ 20. K10 vs plain: the window partition and reverse kernels at
+     TinyViT-21M-384's stage-2 map (bs64, window 24) and TinyViT-21M-224's
+     stage-1 map (bs256, window 7), bit for bit; kernel, plain and
+     `permute().contiguous()` device times (CUDA graphs)
+ 21. K11 vs plain: the layout-pin copy at TinyViT-21M bs256's three
+     stage-boundary tensors, bit for bit; kernel and `x.clone()` device
+     times (CUDA graphs)
+ 22. main path (TinyViT eval routes): TinyViT-21M-224 bf16 bs256 through
+     cli.inference.predict and cli.speed_test.throughput on four routes —
+     library, mbconv_kernel (2 K6 launches per forward), pin_layouts (3 K11
+     launches, logits bit-identical to library), both; top-1 agreement of
+     the K6 route with library; img/s interleaved; the fp32 golden with
+     both routes on
+ 23. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
+     through forward_windowed: 12 K10 launches per forward, logits bit for
+     bit equal to the same forward with K10's two functions swapped for
+     their plain versions, top-1 agreement with the all-plain model; img/s
+ 24. train check: one TinyViT-21M-224 bf16 bs256 train step with
+     pin_layouts on: 3 K11 launches (none in the backward), the loss bit for
+     bit the unpinned step's, per-tensor grads no further from it than a
+     second unpinned step is
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -85,15 +114,17 @@ from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
                                             train_throughput)
 from cream_tpu_torch.models import create_model  # noqa: E402
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
-from cream_tpu_torch.nn.attention import WindowBiasAttention  # noqa: E402
-from cream_tpu_torch.nn.layers import ConvBN, set_dw_kernel  # noqa: E402
-from cream_tpu_torch.ops import build, cga, cga_core, dwconv  # noqa: E402
+from cream_tpu_torch.nn.attention import BiasAttention, WindowBiasAttention  # noqa: E402
+from cream_tpu_torch.nn.layers import (ConvBN, MBConv, set_dw_kernel,  # noqa: E402
+                                       set_mbconv_kernel)
+from cream_tpu_torch.ops import (bias_attention, build, cga, cga_core, dwconv,  # noqa: E402
+                                 layout_pin, mbconv, window_relayout)
 from cream_tpu_torch.ops import window_attention as wa  # noqa: E402
 from cream_tpu_torch.ops.window import window_partition  # noqa: E402
 from cream_tpu_torch.train import TrainState, make_adamw, make_train_step  # noqa: E402
 from cream_tpu_torch.train.losses import soft_target_ce  # noqa: E402
 from cream_tpu_torch.train.optim import global_norm  # noqa: E402
-from cream_tpu_torch.train.steps import loss_and_grads  # noqa: E402
+from cream_tpu_torch.train.steps import loss_and_grads, step_generator  # noqa: E402
 from cream_tpu_torch.zoo.load import seeded_state_dict  # noqa: E402
 
 DATA = ROOT / "tests" / "data" / "torch_port"
@@ -132,6 +163,19 @@ DW_M5 = [("m5_s0_block", 512, 14, 14, 192, 1, 3), ("m5_s0_cga", 2048, 7, 7, 16, 
 DW_TINYVIT = [("tv21m_mbconv", 256, 56, 56, 384, 1, 2), ("tv21m_merge0", 256, 56, 56, 192, 2, 1),
               ("tv21m_merge1", 256, 28, 28, 384, 2, 1), ("tv21m_merge2", 256, 14, 14, 576, 2, 1)]
 DW_ROUTES = ("library", "fused", "wgrad")
+# K6 sites: TinyViT-21M's stage-0 MBConv (2 per forward) and TinyViT-5M/11M's
+# (name, B, H, W, C, HID, per forward)
+MBCONV_SHAPES = [("tv21m_stage0", BATCH, 56, 56, 96, 384, 2),
+                 ("tv5m_stage0", BATCH, 56, 56, 64, 256, 2)]
+# K3: (name, windows, heads, N, d); the first is BiasAttention's main path
+K3_SHAPES = [("tv21m_s1_windows", 4096, 6, 49, 32), ("tv21m_s3_windows", BATCH, 18, 49, 32),
+             ("tv21m_s2_windows", BATCH, 12, 196, 32), ("evit_4x4_windows", 4096, 4, 16, 16)]
+# K10: (name, B, map, window, C, launches per forward of TinyViT-21M-384)
+K10_SHAPES = [("tv21m384_stage2", 64, 24, 24, 384, 12), ("tv21m224_stage1", BATCH, 28, 7, 192, 0)]
+# K11: TinyViT-21M bs256's stage-boundary tensors (B, map, C)
+K11_SHAPES = [("stage1_in", BATCH, 28, 192), ("stage2_in", BATCH, 14, 384),
+              ("stage3_in", BATCH, 7, 576)]
+TV_ROUTES = ("library", "mbconv_kernel", "pin_layouts", "both")
 
 
 def check(ok: bool, what: str) -> None:
@@ -1098,6 +1142,404 @@ def phase_evit_train() -> dict:
     return launches
 
 
+def seeded_mbconv(C: int, hid: int, dtype, seed: int) -> MBConv:
+    m = MBConv(C, hid / C, device="cuda", dtype=dtype).eval()
+    m.load_state_dict(seeded_state_dict(m, seed))
+    return m
+
+
+def k6_bound_ms(B, H, W, C, hid, dtype) -> tuple[float, str]:
+    """K6's least time: x read and y written once, the folded weights read
+    once; the expand and project products and the nine depthwise taps."""
+    e = torch.finfo(dtype).bits // 8
+    pix = B * H * W
+    nbytes = 2 * pix * C * e + 2 * C * hid * e + (11 * hid + C) * 4
+    return roofline_ms(nbytes, pix * (4 * C * hid + 18 * hid), dtype)
+
+
+def phase_k6(gen) -> tuple[float, dict]:
+    """K6 against its plain version on seeded modules' folds at the stage-0
+    shapes (bf16 at bs256, fp32 at bs32); bf16 times of the kernel, the
+    plain version and the unfused eval module."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst_bf16, times = 0.0, {}
+    for name, B, H, W, C, hid, per in MBCONV_SHAPES:
+        for dtype, batch in ((torch.bfloat16, B), (torch.float32, 32)):
+            m = seeded_mbconv(C, hid, dtype, seed=C)
+            ops = mbconv.fold_mbconv(m, dtype)
+            x = torch.randn(batch, H, W, C, generator=gen, device="cuda").to(dtype)
+            with torch.inference_mode():
+                out = mbconv.fused_mbconv(x, *ops)
+                torch.cuda.synchronize()
+                ref = mbconv.fused_mbconv_ref(x, *ops)
+            err = (out.float() - ref.float()).abs().max().item()
+            lim = bound(dtype, ref.float())
+            ulp = bf16_ulp(ref.float().abs().max().clamp_min(1.0)).item()
+            print(f"k6 {name} B={batch} {H}x{W} C={C} HID={hid} "
+                  f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} bound={lim:.3e} "
+                  f"({err / ulp:.2f} bf16 ulps at max |y|; elements differing: "
+                  f"{(out != ref).float().mean().item():.2e})")
+            check(err <= lim, f"K6 {name} {dtype} err {err} > {lim}")
+            check(out.shape == x.shape and bool(torch.isfinite(out).all()), f"K6 {name} output")
+            if dtype != torch.bfloat16:
+                continue
+            worst_bf16 = max(worst_bf16, err)
+            with torch.inference_mode():
+                k_ms = cuda_ms(lambda: mbconv.fused_mbconv(x, *ops))
+                p_ms = cuda_ms(lambda: mbconv.fused_mbconv_ref(x, *ops))
+                u_ms = cuda_ms(lambda: m(x))
+            b_ms, by = k6_bound_ms(B, H, W, C, hid, dtype)
+            times[name] = dict(ms=k_ms, plain_ms=p_ms, module_ms=u_ms, bound_ms=b_ms,
+                               bound_by=by, per_forward=per)
+            print(f"k6 time {name} bf16 B={B}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"unfused eval MBConv module (cuDNN 1x1 and depthwise convs, BN, GELU; no "
+                  f"single library call computes the block) {u_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({by}) [{card_info()}]")
+    return worst_bf16, times
+
+
+def k3_bound_ms(W, h, N, d, dtype) -> tuple[float, str]:
+    """K3's least time: q, k, v and the bias read once, out written once;
+    Q.K^T and P.V."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = 4 * W * h * N * d * e + h * N * N * 4
+    return roofline_ms(nbytes, W * h * 2 * N * N * 2 * d, dtype)
+
+
+def phase_k3(gen) -> tuple[float, dict, int]:
+    """K3 against its plain version at the per-window shapes, bf16 and
+    fp32; bf16 times of the kernel, the plain version and SDPA; then the
+    BiasAttention main path. Returns the worst bf16 error, the times and
+    the main path's K3 launches."""
+    worst_bf16, times = 0.0, {}
+    for name, W, h, N, d in K3_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(W, h, N, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            bias = torch.randn(h, N, N, generator=gen, device="cuda") * 0.5
+            with torch.inference_mode():
+                out = bias_attention.fused_bias_attention(q, k, v, bias)
+                torch.cuda.synchronize()
+                ref = bias_attention.fused_bias_attention_ref(q, k, v, bias)
+            err = (out.float() - ref.float()).abs().max().item()
+            lim = bound(dtype, ref.float())
+            print(f"k3 {name} W={W} heads={h} N={N} d={d} {str(dtype).split('.')[-1]}: "
+                  f"max_abs_err={err:.3e} bound={lim:.3e} (elements differing: "
+                  f"{(out != ref).float().mean().item():.2e})")
+            check(err <= lim, f"K3 {name} {dtype} err {err} > {lim}")
+            if dtype != torch.bfloat16:
+                continue
+            worst_bf16 = max(worst_bf16, err)
+            mask = bias.to(dtype)
+            with torch.inference_mode():
+                k_ms = cuda_ms(lambda: bias_attention.fused_bias_attention(q, k, v, bias))
+                p_ms = cuda_ms(lambda: bias_attention.fused_bias_attention_ref(q, k, v, bias))
+                l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            b_ms, by = k3_bound_ms(W, h, N, d, dtype)
+            times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                               bound_by=by)
+            print(f"k3 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"library (SDPA, bias as attn_mask) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({by}) [{card_info()}]")
+
+    # BiasAttention at TinyViT-21M stage 1's windows: 4,096 windows of 7x7
+    # tokens, dim 192, 6 heads of key_dim 32 (attn_ratio 1, as TinyViT's)
+    _, W, h, N, d = K3_SHAPES[0]
+    dim = h * d
+    out = {}
+    for dtype, batch in ((torch.bfloat16, W), (torch.float32, 256)):
+        m = BiasAttention(dim, d, h, attn_ratio=1.0, resolution=(7, 7), device="cuda",
+                          dtype=dtype).eval()
+        m.load_state_dict(seeded_state_dict(m, 7))
+        x = torch.randn(batch, N, dim, generator=gen, device="cuda").to(dtype)
+        bias_attention.LAUNCHES = 0
+        with torch.inference_mode():
+            got = m(x)
+            per_call = bias_attention.LAUNCHES
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: m(x))
+                launches = bias_attention.LAUNCHES
+            m.use_kernel = False
+            want = m(x)
+            if dtype == torch.bfloat16:
+                plain_ms = cuda_ms(lambda: m(x))
+        check(per_call == 1, f"BiasAttention {dtype}: {per_call} K3 launches per call, want 1")
+        top = want.float().abs().max().item()
+        # bf16: the plain route rounds P and P.V where K3 does, its sums run
+        # in other orders, and the projection sums 192 such channels: 4 ulps
+        # at the largest |out|; fp32: 1e-5 of it
+        lim = 4 * bf16_ulp(torch.tensor(max(top, 1.0))).item() \
+            if dtype == torch.bfloat16 else 1e-5 * max(top, 1.0)
+        err = (got.float() - want.float()).abs().max().item()
+        out[dtype] = (err, lim)
+        print(f"BiasAttention B={batch} N={N} dim={dim} heads={h} key_dim={d} "
+              f"{str(dtype).split('.')[-1]}: K3 launches per call {per_call}, kernel route vs "
+              f"plain route max_abs_err={err:.3e} bound={lim:.3e}"
+              + (f"; {ms:.4f} ms a call (plain route {plain_ms:.4f} ms) [{card_info()}]"
+                 if dtype == torch.bfloat16 else ""))
+        check(err <= lim, f"BiasAttention {dtype}: err {err} > {lim}")
+        check(bool(torch.isfinite(got).all()), "BiasAttention output not finite")
+    return worst_bf16, times, launches
+
+
+def phase_k10(gen) -> tuple[dict, dict]:
+    """K10 against its plain versions, bit for bit, bf16 and fp32; bf16
+    times of partition and reverse, plain and permute().contiguous()."""
+    times = {}
+    for name, B, Hm, ws, C, _ in K10_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(B, Hm, Hm, C, generator=gen, device="cuda").to(dtype)
+            w = window_relayout.window_partition_kernel(x, ws)
+            back = window_relayout.window_reverse_kernel(w, ws, (Hm, Hm))
+            torch.cuda.synchronize()
+            w_ref = window_relayout.window_partition_ref(x, ws)
+            same = torch.equal(w, w_ref) and torch.equal(back, x) and \
+                torch.equal(window_relayout.window_reverse_ref(w_ref, ws, (Hm, Hm)), back)
+            print(f"k10 {name} B={B} {Hm}x{Hm} window={ws} C={C} "
+                  f"{str(dtype).split('.')[-1]}: partition and reverse bit-identical to "
+                  f"plain: {same}; contiguous: {w.is_contiguous() and back.is_contiguous()}")
+            check(same and w.is_contiguous() and back.is_contiguous(), f"K10 {name} {dtype}")
+            if dtype != torch.bfloat16:
+                continue
+            n = Hm // ws
+
+            def lib_part():
+                return x.view(B, n, ws, n, ws, C).permute(0, 1, 3, 2, 4, 5).contiguous()
+
+            def lib_rev():
+                return w.view(B, n, n, ws, ws, C).permute(0, 1, 3, 2, 4, 5).contiguous()
+            def part():
+                return window_relayout.window_partition_kernel(x, ws)
+
+            def rev():
+                return window_relayout.window_reverse_kernel(w, ws, (Hm, Hm))
+            # device times (CUDA graphs): a launch here is about as short as
+            # the host's cost of issuing it; a view captures no kernel
+            t = {"partition": dict(ms=graph_ms(part), host_ms=cuda_ms(part),
+                                   plain_ms=graph_ms(lambda: window_relayout.window_partition_ref(x, ws)),
+                                   library_ms=graph_ms(lib_part)),
+                 "reverse": dict(ms=graph_ms(rev), host_ms=cuda_ms(rev),
+                                 plain_ms=graph_ms(lambda: window_relayout.window_reverse_ref(w, ws, (Hm, Hm))),
+                                 library_ms=graph_ms(lib_rev))}
+            b_ms, by = roofline_ms(2 * x.numel() * x.element_size(), 0, dtype)
+            for kind, r in t.items():
+                r["bound_ms"], r["bound_by"] = b_ms, by
+                print(f"k10 time {name} {kind} bf16 B={B} (device, CUDA graph): kernel "
+                      f"{r['ms']:.4f} ms ({r['host_ms']:.4f} ms a call issued from the host), "
+                      f"plain {r['plain_ms']:.4f} ms, library (permute().contiguous()) "
+                      f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+            times[name] = t
+    return times
+
+
+def phase_k11(gen) -> dict:
+    """K11 against its plain version (x.clone()), bit for bit, at the three
+    stage-boundary tensors; bf16 times."""
+    times = {}
+    for name, B, Hm, C in K11_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(B, Hm, Hm, C, generator=gen, device="cuda").to(dtype)
+            y = layout_pin.layout_pin(x)
+            torch.cuda.synchronize()
+            same = torch.equal(y, layout_pin.layout_pin_ref(x)) and y.data_ptr() != x.data_ptr()
+            print(f"k11 {name} B={B} {Hm}x{Hm} C={C} {str(dtype).split('.')[-1]}: copy "
+                  f"bit-identical to plain: {same}")
+            check(same and y.is_contiguous(), f"K11 {name} {dtype}")
+            if dtype != torch.bfloat16:
+                continue
+            b_ms, by = roofline_ms(2 * x.numel() * x.element_size(), 0, dtype)
+            # device times (CUDA graphs), as for K10
+            t = dict(ms=graph_ms(lambda: layout_pin.layout_pin(x)),
+                     host_ms=cuda_ms(lambda: layout_pin.layout_pin(x)),
+                     plain_ms=graph_ms(lambda: layout_pin.layout_pin_ref(x)),
+                     library_ms=graph_ms(lambda: x.clone()), bound_ms=b_ms, bound_by=by)
+            print(f"k11 time {name} bf16 B={B} (device, CUDA graph): kernel {t['ms']:.4f} ms "
+                  f"({t['host_ms']:.4f} ms a call issued from the host), plain "
+                  f"{t['plain_ms']:.4f} ms, library (x.clone()) {t['library_ms']:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+            times[name] = t
+    return times
+
+
+def set_tv_route(model: torch.nn.Module, route: str) -> None:
+    set_mbconv_kernel(model, route in ("mbconv_kernel", "both"))
+    model.pin_layouts = route in ("pin_layouts", "both")
+
+
+def phase_tv_routes() -> tuple[int, int]:
+    """TinyViT-21M-224 bf16 bs256 eval on the library, mbconv_kernel,
+    pin_layouts and both routes; returns the K6 and K11 launches of the
+    routes' main-path runs."""
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(4)
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    n_mb = sum(isinstance(m, MBConv) for m in model.modules())
+    check(n_mb == 2, f"{n_mb} MBConvs in TinyViT-21M, want 2")
+    x = smooth_images(gen, BATCH).to(dtype)
+    warmup, iters = 3, 20
+    runs = 1 + warmup + iters
+    logits, ips, k6, k11 = {}, {r: [] for r in TV_ROUTES}, 0, 0
+    for route in TV_ROUTES:
+        set_tv_route(model, route)
+        mbconv.LAUNCHES = layout_pin.LAUNCHES = wa.LAUNCHES = 0
+        logits[route] = predict(model, x)
+        per = (mbconv.LAUNCHES, layout_pin.LAUNCHES)
+        ips[route].append(throughput(model, BATCH, 224, dtype, iters, warmup))
+        want = (2 if route in ("mbconv_kernel", "both") else 0,
+                3 if route in ("pin_layouts", "both") else 0)
+        check(per == want, f"{route}: K6/K11 launches per forward {per}, want {want}")
+        check((mbconv.LAUNCHES, layout_pin.LAUNCHES) == (want[0] * runs, want[1] * runs),
+              f"{route}: K6/K11 launches {mbconv.LAUNCHES}/{layout_pin.LAUNCHES} in the main path")
+        check(wa.LAUNCHES == 10 * runs, f"{route}: K1 launches {wa.LAUNCHES}")
+        check(logits[route].shape == (BATCH, 1000) and bool(torch.isfinite(logits[route]).all()),
+              f"{route}: logits not finite")
+        k6, k11 = k6 + mbconv.LAUNCHES, k11 + layout_pin.LAUNCHES
+    # the host and the card share the pace; each route is timed 4 times in
+    # interleaved rounds and the medians compared
+    for order in (TV_ROUTES[::-1], TV_ROUTES, TV_ROUTES[::-1]):
+        for route in order:
+            set_tv_route(model, route)
+            ips[route].append(throughput(model, BATCH, 224, dtype, iters, warmup))
+    set_tv_route(model, "library")
+    card = card_info()
+    pin_same = torch.equal(logits["pin_layouts"], logits["library"]) and \
+        torch.equal(logits["both"], logits["mbconv_kernel"])
+    agree = (logits["mbconv_kernel"].argmax(-1) == logits["library"].argmax(-1)).float().mean().item()
+    err = (logits["mbconv_kernel"] - logits["library"]).abs().max().item()
+    print(f"main tiny_vit_21m_224 bf16 B={BATCH} routes: K6 launches per forward 2 "
+          f"(mbconv_kernel, both), K11 3 (pin_layouts, both); pin_layouts logits bit-identical "
+          f"to library (and both to mbconv_kernel): {pin_same}; mbconv_kernel vs library top-1 "
+          f"agreement {agree:.4f} (need >= 0.99), logits max_abs_err={err:.3e} (not checked: "
+          f"BN folded into bf16 weights rounds at other points)")
+    check(pin_same, "pin_layouts changed the logits")
+    check(agree >= 0.99, f"mbconv_kernel top-1 agreement {agree} < 0.99")
+    median = {r: statistics.median(v) for r, v in ips.items()}
+    print(f"main throughput tiny_vit_21m_224 bf16 B={BATCH} (rounds in the orders "
+          f"{', '.join(TV_ROUTES)} / reversed / forward / reversed): " + "; ".join(
+              f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])} img/s (median {median[r]:.1f})"
+              for r in TV_ROUTES) + f"; highest median: {max(median, key=median.get)} [{card}]")
+
+    # fp32 golden with both routes on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(GOLDEN)
+    xg = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    m = create_model("tiny_vit_21m_224", device="cuda", dtype=torch.float32,
+                     mbconv_kernel=True, pin_layouts=True)
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    mbconv.LAUNCHES = layout_pin.LAUNCHES = 0
+    out = predict(m, torch.from_numpy(xg)).cpu().numpy()
+    gerr = float(np.abs(out - g["logits"]).max())
+    print(f"golden tiny_vit_21m_224 fp32 B=2 mbconv_kernel + pin_layouts vs JAX logits: "
+          f"max_abs_err={gerr:.3e} bound=1.0e-03 (K6/K11 launches "
+          f"{mbconv.LAUNCHES}/{layout_pin.LAUNCHES})")
+    check((mbconv.LAUNCHES, layout_pin.LAUNCHES) == (2, 3), "golden: K6/K11 launches")
+    check(bool(np.isfinite(out).all()) and gerr <= 1e-3, f"golden (K6, K11) err {gerr}")
+    return k6, k11
+
+
+def phase_tv384() -> int:
+    """TinyViT-21M-384 bf16 bs64 eval: stage 2's single 24x24 window takes
+    forward_windowed, whose partition and reverse run through K10. Returns
+    the K10 launches of the main-path run."""
+    dtype, batch = torch.bfloat16, 64
+    gen = torch.Generator("cuda").manual_seed(5)
+    model = create_model("tiny_vit_21m_384", device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    x = smooth_images(gen, batch, size=384).to(dtype)
+    warmup, iters = 3, 10
+    runs = 1 + warmup + iters
+    window_relayout.LAUNCHES = wa.LAUNCHES = 0
+    logits = predict(model, x)
+    per = window_relayout.LAUNCHES
+    ips = [throughput(model, batch, 384, dtype, iters, warmup)]
+    launches = window_relayout.LAUNCHES
+    check(per == 12, f"tiny_vit_21m_384: {per} K10 launches per forward, want 12")
+    check(launches == 12 * runs, f"tiny_vit_21m_384: {launches} K10 launches in the main path")
+    check(wa.LAUNCHES == 4 * runs, f"tiny_vit_21m_384: {wa.LAUNCHES} K1 launches (stages 1, 3)")
+    check(logits.shape == (batch, 1000) and bool(torch.isfinite(logits).all()),
+          "tiny_vit_21m_384 logits not finite")
+    # the same forward with K10's two functions swapped for their plain
+    # versions (K1 stays on in stages 1 and 3)
+    kernels = (window_relayout.window_partition_kernel, window_relayout.window_reverse_kernel)
+    window_relayout.window_partition_kernel = window_relayout.window_partition_ref
+    window_relayout.window_reverse_kernel = window_relayout.window_reverse_ref
+    try:
+        swapped = predict(model, x)
+        ips_swapped = [throughput(model, batch, 384, dtype, iters, warmup)]
+    finally:
+        window_relayout.window_partition_kernel, window_relayout.window_reverse_kernel = kernels
+    check(window_relayout.LAUNCHES == launches, "the swapped forward launched K10")
+    ips.append(throughput(model, batch, 384, dtype, iters, warmup))
+    set_kernel(model, False)
+    plain = predict(model, x)
+    ips_plain = throughput(model, batch, 384, dtype, iters, warmup)
+    set_kernel(model, True)
+    check(window_relayout.LAUNCHES == launches + 12 * (warmup + iters),
+          "the all-plain model launched K10, or the K10 route did not")
+    same = torch.equal(logits, swapped)
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"main tiny_vit_21m_384 bf16 B={batch}: K10 launches per forward {per} (6 partitions "
+          f"+ 6 reverses), K1 4; logits bit-identical to K10 swapped for its plain versions: "
+          f"{same}; top-1 agreement with the all-plain model {agree:.4f} (need >= 0.99), "
+          f"logits max_abs_err {(logits - plain).abs().max().item():.3e}")
+    print(f"main throughput tiny_vit_21m_384 bf16 B={batch} (order K10, swapped, K10, "
+          f"all-plain): K10 route {ips[0]:.1f} / {ips[1]:.1f} img/s, K10 swapped for plain "
+          f"{ips_swapped[0]:.1f} img/s, all-plain {ips_plain:.1f} img/s [{card_info()}]")
+    check(same, "K10 route logits differ from the plain relayout's")
+    check(agree >= 0.99, f"tiny_vit_21m_384 top-1 agreement {agree} < 0.99")
+    return launches
+
+
+def phase_pin_train() -> int:
+    """One TinyViT-21M-224 bf16 bs256 train step with pin_layouts on,
+    against two unpinned ones from the same weights, batch and generator;
+    deterministic algorithms on, so that run-to-run differences are what
+    the library leaves. Returns the K11 launches."""
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(6)
+    base = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+    sd = seeded_state_dict(base, 0)
+    x = smooth_images(gen, BATCH).to(dtype)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    batch = {"image": x, "label": F.one_hot(labels, 1000).float()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    try:
+        for key, pin in (("a", False), ("b", False), ("pinned", True)):
+            m = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype,
+                             pin_layouts=pin).train()
+            m.load_state_dict(sd)
+            layout_pin.LAUNCHES = 0
+            loss, _, grads = loss_and_grads(m, batch, soft_target_ce,
+                                            step_generator(0, 0, "cuda"))
+            torch.cuda.synchronize()
+            results[key] = (float(loss), grads, layout_pin.LAUNCHES)
+            del m
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    (la, ga, _), (lb, gb, _), (lp, gp, launches) = (results[k] for k in ("a", "b", "pinned"))
+    check(launches == 3, f"pinned train step: {launches} K11 launches, want 3")
+    d_run = {n: (gb[n] - ga[n]).abs().max().item() for n in ga}
+    d_pin = {n: (gp[n] - ga[n]).abs().max().item() for n in ga}
+    worse = [n for n in ga if d_pin[n] > d_run[n]]
+    print(f"train tiny_vit_21m_224 bf16 B={BATCH} pin_layouts: K11 launches {launches} (3 in the "
+          f"forward, none in the backward); loss {lp!r} vs unpinned {la!r} / {lb!r} "
+          f"(bit-identical: {lp == la}); per-tensor max |grad diff| vs the first unpinned step: "
+          f"pinned {max(d_pin.values()):.3e}, second unpinned {max(d_run.values()):.3e} "
+          f"(largest), tensors where pinned differs more: {len(worse)} of {len(ga)}; "
+          f"tensors bit-identical: pinned {sum(v == 0 for v in d_pin.values())}, second "
+          f"unpinned {sum(v == 0 for v in d_run.values())}")
+    check(lp == la, f"pinned loss {lp} != unpinned {la}")
+    check(not worse, f"pinned grads differ more than two unpinned steps: {worse[:5]}")
+    return launches
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -1146,6 +1588,13 @@ def main() -> None:
     phase_dw_grads(gen)
     phase_evit_train_golden()
     evit_train = phase_evit_train()
+    worst_k6, t6 = phase_k6(gen)
+    worst_k3, t3, k3_launches = phase_k3(gen)
+    t10 = phase_k10(gen)
+    t11 = phase_k11(gen)
+    k6_launches, k11_eval = phase_tv_routes()
+    k10_launches = phase_tv384()
+    k11_train = phase_pin_train()
 
     rows = []
     for name, src, line, launches, err, t in (
@@ -1181,6 +1630,43 @@ def main() -> None:
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": max((tdw[n][kind] for n, _ in sites),
                             key=lambda r: r["bound_ms"])["bound_by"]})
+    name, *_ = K3_SHAPES[0]
+    rows.append({"name": "bias_attention", "route": "cuda",
+                 "source": "cream_tpu_torch/csrc/bias_attention.cu",
+                 "replaces": "cream_tpu/ops/pallas/bias_attention.py:27",
+                 "launches": k3_launches, "max_abs_err": worst_k3, **t3[name]})
+    name, *_, per = MBCONV_SHAPES[0]
+    rows.append({"name": "mbconv_fused", "route": "cuda", "source": "cream_tpu_torch/csrc/mbconv.cu",
+                 "replaces": "cream_tpu/ops/pallas/mbconv.py:37", "launches": k6_launches,
+                 "max_abs_err": worst_k6,
+                 **{k: t6[name][k] * per for k in ("ms", "plain_ms", "module_ms", "bound_ms")},
+                 "bound_by": t6[name]["bound_by"], "library_ms": None,
+                 "library_note": "no single PyTorch call computes the MBConv block; module_ms "
+                 "is the unfused eval MBConv module on the same input"})
+    name, *_, per = K10_SHAPES[0]
+    rows.append({"name": "window_relayout", "route": "cuda",
+                 "source": "cream_tpu_torch/csrc/window_relayout.cu",
+                 "replaces": "cream_tpu/ops/pallas/window_relayout.py:29",
+                 "launches": k10_launches, "max_abs_err": 0.0,
+                 # per forward: per // 2 partitions and as many reverses
+                 **{k: per // 2 * sum(t10[name][kind][k] for kind in ("partition", "reverse"))
+                    for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_ms")},
+                 "bound_by": t10[name]["partition"]["bound_by"]})
+    rows.append({"name": "layout_pin", "route": "cuda", "source": "cream_tpu_torch/csrc/layout_pin.cu",
+                 "replaces": "cream_tpu/ops/pallas/layout_pin.py:39",
+                 "launches": k11_eval + k11_train, "max_abs_err": 0.0,
+                 **{k: sum(t[k] for t in t11.values())
+                    for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_ms")},
+                 "bound_by": "bytes"})
+    ids = {"window_attention_fwd": "K1", "window_attention_bwd": "K2", "bias_attention": "K3",
+           "cga_fused": "K4", "cga_core": "K5", "mbconv_fused": "K6", "dwconv_k7_fwd": "K7",
+           "dwconv_k7_bwd": "K7", "dwconv_k8": "K8", "dwconv_k9_fwd": "K9",
+           "dwconv_k9_bwd": "K9", "window_relayout": "K10", "layout_pin": "K11"}
+    for row in rows:
+        row.update(id=ids[row["name"]], status="ported")
+    rows.sort(key=lambda r: int(r["id"][1:]))
+    check(sorted({r["id"] for r in rows}, key=lambda k: int(k[1:])) ==
+          [f"K{i}" for i in range(1, 12)], "the kernels line does not list K1-K11")
     for key, t in (("K4", t4), ("K5", t5)):
         m0 = {k: sum(t[n][k] * t[n]["per_forward"] for n, *_ in EVIT_STAGES["efficientvit_m0"])
               for k in ("ms", "plain_ms", "bound_ms")}
@@ -1191,7 +1677,11 @@ def main() -> None:
           f"{k1_train}/{k2_train}; per EfficientViT-M5 bf16 bs512 forward (K4, K5), "
           f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes; "
           f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
-          f"sites), launches on its train path's fused (K7, K9) and wgrad (K8) routes")
+          f"sites), launches on its train path's fused (K7, K9) and wgrad (K8) routes; "
+          f"per BiasAttention call at 4,096 windows (K3); per TinyViT-21M-224 bf16 bs256 "
+          f"forward (K6: its 2 MBConvs; K11: its 3 stage inputs), launches on the "
+          f"mbconv_kernel/pin_layouts/both routes (and the pinned train step for K11); per "
+          f"TinyViT-21M-384 bf16 bs64 forward (K10: 6 partitions + 6 reverses)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

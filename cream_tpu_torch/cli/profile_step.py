@@ -5,6 +5,8 @@
     python -m cream_tpu_torch.cli.profile_step --models efficientvit_m5 --batch 512
     python -m cream_tpu_torch.cli.profile_step --train --models efficientvit_m5 \
         --batch 512 dw_kernel=fused                      # model keyword arguments
+    python -m cream_tpu_torch.cli.profile_step mbconv_kernel=true pin_layouts=true
+    python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_384 --batch 64
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -17,7 +19,8 @@ power limit. The train steps are those of `speed_test.train_throughput`
 drop path). `--plain-attention` swaps every attention kernel for its plain
 PyTorch version (TinyViT's window attention, EfficientViT's CGA route
 "plain"); `key=value` words are model keyword arguments, as in
-`speed_test`. A run without a CUDA device fails.
+`speed_test`; `--img-size` defaults to each model's own. A run without a
+CUDA device fails.
 """
 from __future__ import annotations
 
@@ -35,13 +38,17 @@ KINDS = [
     ("K1 window attention fwd", r"window_attention_fwd_kernel"),
     ("K2 window attention bwd", r"window_attention_bwd_kernel|dbias_reduce"),
     ("K4 fused CGA", r"cga_fused_kernel"),
+    ("K3 bias attention", r"bias_attention_kernel"),
     ("K5 CGA attention core", r"cga_core_kernel"),
+    ("K6 fused MBConv", r"mbconv_(bf16|fp32)_kernel"),
     ("K7 depthwise s1 fwd", r"dwconv_s1_fwd_kernel"),
     ("K7 depthwise s1 bwd", r"dwconv_s1_bwd_kernel"),
     ("K8 depthwise weight grad", r"dwconv_wgrad_kernel"),
     ("K9 depthwise s2 fwd", r"dwconv_s2_fwd_kernel"),
     ("K9 depthwise s2 bwd", r"dwconv_s2_bwd_kernel"),
     ("K7/K8/K9 dw partial sums", r"dwconv_dw_reduce_kernel"),
+    ("K10 window relayout", r"partition_kernel|reverse_kernel"),
+    ("K11 layout pin", r"copy_kernel<"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|sm90_"),
     ("convolution (cuDNN)", r"conv|cudnn|implicit|dgrad|wgrad|winograd|fft"),
     ("batch norm", r"batch_norm|batchnorm|bn_"),
@@ -135,7 +142,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--models", nargs="+", default=["tiny_vit_21m_224"])
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--img-size", type=int, default=224)
+    ap.add_argument("--img-size", type=int, default=None,
+                    help="input size (default: the model's own)")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
@@ -151,14 +159,15 @@ def main(argv=None):
     kw = model_kwargs(args.opts)
     out = {}
     for name in args.models:
-        model = create_model(name, device="cuda", dtype=dtype, img_size=args.img_size, **kw)
+        size = {} if args.img_size is None else {"img_size": args.img_size}
+        model = create_model(name, device="cuda", dtype=dtype, **size, **kw)
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
             use_plain_attention(model)
         if args.train:
-            fn = train_step_fn(model, args.batch, args.img_size, dtype)
+            fn = train_step_fn(model, args.batch, model.img_size, dtype)
         else:
-            x = torch.randn(args.batch, args.img_size, args.img_size, 3,
+            x = torch.randn(args.batch, model.img_size, model.img_size, 3,
                             device="cuda").to(dtype)
 
             def fn():

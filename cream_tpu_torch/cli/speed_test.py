@@ -7,12 +7,15 @@
         --batch 512 attn_kernel=plain                    # model keyword arguments
     python -m cream_tpu_torch.cli.speed_test --train --models efficientvit_m5 \
         --batch 512 dw_kernel=fused                      # or wgrad, library
+    python -m cream_tpu_torch.cli.speed_test mbconv_kernel=true pin_layouts=true
+    python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_384 --batch 64
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
 every param with no clipping, random images and int labels, the variant's
 drop path, bf16 compute with fp32 params.
 
+`--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
 printed as one JSON line beside the card's name and power limit. There is no
 CPU timing: a run without a CUDA device fails.
@@ -121,7 +124,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--models", nargs="+", default=["tiny_vit_21m_224"])
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--img-size", type=int, default=224)
+    ap.add_argument("--img-size", type=int, default=None,
+                    help="input size (default: the model's own)")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--device", default="cuda")
@@ -137,16 +141,17 @@ def main(argv=None):
         if name not in list_models():
             print(f"skip unknown model {name}")
             continue
-        model = create_model(name, device=args.device, dtype=dtype,
-                             img_size=args.img_size, **kw)
+        size = {} if args.img_size is None else {"img_size": args.img_size}
+        model = create_model(name, device=args.device, dtype=dtype, **size, **kw)
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.train:
-            ips = train_throughput(model, args.batch, args.img_size, dtype,
+            ips = train_throughput(model, args.batch, model.img_size, dtype,
                                    args.iters)
         else:
-            ips = throughput(model, args.batch, args.img_size, dtype, args.iters)
+            ips = throughput(model, args.batch, model.img_size, dtype, args.iters)
         results[name] = ips
         print(json.dumps({"model": name, "img_per_s": ips, "batch": args.batch,
+                          "img_size": model.img_size,
                           "dtype": args.dtype, "train": args.train, **kw,
                           "card": card_info()}))
     return results

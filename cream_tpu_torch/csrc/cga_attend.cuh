@@ -1,5 +1,6 @@
-// Shared pieces of the two cascaded-group-attention kernels (cga_core.cu,
-// cga.cu): dtype conversions and the per-window attention core.
+// Shared pieces of the cascaded-group-attention kernels (cga_core.cu, cga.cu)
+// and the bias-attention kernel (bias_attention.cu): dtype conversions and
+// the per-window attention core.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,30 +25,31 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Attention of one window, N <= 64 tokens, one warp per query row:
+// Attention of one window, N <= 32 * KPL tokens (KPL keys per lane; 2 for
+// the CGA kernels' 64), one warp per query row:
 //   s[n][m] = (q[n] . k[m]) * scale + bias[n][m]   (fp32)
 //   P = softmax_m(s) with the exact row max, exp and division by the fp32
 //       row sum, then rounded to T
 //   o[n][c] = sum_m P[n][m] v[m][c] accumulated in fp32, rounded to T
 // q, k, v are fp32 rows in shared memory (row strides qs, ks, vs; ks odd, so
 // the lanes' key rows fall in distinct banks); bias is (N, N) fp32 in device
-// memory; p_s holds kMaxTokens floats per warp. `emit(n, c, o)` receives
+// memory; p_s holds 32 * KPL floats per warp. `emit(n, c, o)` receives
 // each output element, already rounded to T. Each lane keeps its keys'
 // scores in registers and its share (c = lane + 32 t) of the output row.
-template <typename T, typename Emit>
+template <typename T, int KPL = 2, typename Emit>
 __device__ __forceinline__ void attend_rows(const float* q, int qs, const float* k, int ks,
                                             const float* v, int vs, const float* bias,
                                             float scale, int N, int kd, int d, float* p_s,
                                             Emit emit) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
-  float* p_w = p_s + warp * kMaxTokens;
+  float* p_w = p_s + warp * 32 * KPL;
   for (int n = warp; n < N; n += warps) {
     const float* qr = q + n * qs;
-    float s[2];
+    float s[KPL];
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < KPL; ++i) {
       const int m = lane + 32 * i;
       s[i] = -INFINITY;
       if (m < N) {
@@ -62,14 +64,14 @@ __device__ __forceinline__ void attend_rows(const float* q, int qs, const float*
     for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < KPL; ++i) {
       s[i] = (lane + 32 * i < N) ? expf(s[i] - mx) : 0.f;
       sum += s[i];
     }
 #pragma unroll
     for (int off = 16; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < KPL; ++i) {
       const int m = lane + 32 * i;
       if (m < N) p_w[m] = round_to<T>(s[i] / sum);
     }

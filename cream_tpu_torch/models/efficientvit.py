@@ -43,6 +43,7 @@ from cream_tpu_torch.nn.layers import BNLinear, ConvBN, set_dw_kernel
 from cream_tpu_torch.ops.cga import fold_cga_variables, fused_cga
 from cream_tpu_torch.ops.cga_core import cga_attention
 from cream_tpu_torch.ops.common import attention_bias_indices
+from cream_tpu_torch.ops.fuse import cached_fold
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 
 ATTN_KERNELS = ("cascade", "core", "plain")
@@ -163,19 +164,11 @@ class CascadedGroupAttention(nn.Module):
         self.register_buffer("attention_bias_idxs",
                              torch.as_tensor(idxs, dtype=torch.long, device=device),
                              persistent=False)
-        self._fold_key, self._fold = None, None
 
     def folded(self) -> tuple[torch.Tensor, ...]:
         """`fold_cga_variables(self, self.dtype)`, cached until a parameter
         or buffer changes."""
-        key = (self.dtype, tuple((t.data_ptr(), t._version)
-                                 for t in (*self.parameters(), *self.buffers())))
-        if key != self._fold_key:
-            # plain tensors, not inference tensors, whatever mode the caller is in
-            with torch.inference_mode(False), torch.no_grad():
-                self._fold = fold_cga_variables(self, self.dtype)
-            self._fold_key = key
-        return self._fold
+        return cached_fold(self, fold_cga_variables)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape

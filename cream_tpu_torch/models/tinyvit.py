@@ -19,6 +19,12 @@ drop path (per block, rate growing linearly from 0 at the first MBConv to
 `drop_path_rate` at the last block) and MLP dropout (`drop_rate`) draw from
 the `generator` passed to `forward`, the counterpart of the JAX package's
 "drop_path"/"dropout" rngs.
+
+Two routes of the JAX package, both off by default: `mbconv_kernel` runs the
+stage-0 MBConvs' eval forward as one fused op (K6, `MBConv.use_kernel`, the
+JAX `MBConv.use_pallas`), and `pin_layouts` passes each PatchMerging's output
+through `ops.layout_pin.layout_pin` (K11, an identity copy, in eval and in
+train).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from cream_tpu_torch.nn.act import gelu
 from cream_tpu_torch.nn.attention import WindowBiasAttention
 from cream_tpu_torch.nn.layers import ConvBN, MBConv, MlpLN, layer_norm, linear
 from cream_tpu_torch.ops.common import drop_path
+from cream_tpu_torch.ops.layout_pin import layout_pin
 
 
 def _conv_s2_out(n: int) -> int:
@@ -127,13 +134,13 @@ class TinyViT(nn.Module):
                  mlp_ratio: float = 4.0, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, mbconv_expand_ratio: float = 4.0,
                  local_conv_size: int = 3, remat_stem: bool = False,
-                 pin_layouts: bool = False, *,
+                 pin_layouts: bool = False, mbconv_kernel: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if remat_stem or pin_layouts:
-            raise NotImplementedError("remat_stem and pin_layouts are not "
-                                      "ported to cream_tpu_torch")
+        if remat_stem:
+            raise NotImplementedError("remat_stem is not ported to cream_tpu_torch")
         self.img_size, self.num_classes, self.dtype = img_size, num_classes, dtype
+        self.pin_layouts = pin_layouts
         total_depth = sum(depths)
         dpr = [drop_path_rate * i / max(total_depth - 1, 1)
                for i in range(total_depth)]
@@ -144,7 +151,8 @@ class TinyViT(nn.Module):
         for s, depth in enumerate(depths):
             rates = dpr[sum(depths[:s]):sum(depths[:s + 1])]
             if s == 0:
-                blocks = [MBConv(embed_dims[0], mbconv_expand_ratio, r, **kw)
+                blocks = [MBConv(embed_dims[0], mbconv_expand_ratio, r,
+                                 use_kernel=mbconv_kernel, **kw)
                           for r in rates]
             else:
                 ws = min(window_sizes[s], res)
@@ -171,6 +179,8 @@ class TinyViT(nn.Module):
         x = self.patch_embed(x)
         for layer in self.layers:
             x = layer(x, generator)
+            if self.pin_layouts and layer.downsample is not None:
+                x = layout_pin(x)
         return x
 
     def forward(self, x: torch.Tensor,

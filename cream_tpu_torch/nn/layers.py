@@ -16,7 +16,9 @@ Conventions:
     `BatchNorm(use_running_average=False)` does (see `ConvBN`); drop path
     and dropout draw from the generator the caller passes to `forward`
   * a depthwise 3x3 ConvBN can run its conv through the kernels of
-    `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`)
+    `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`); an eval MBConv
+    can run as one fused op, `ops/mbconv.py` (`MBConv.use_kernel`,
+    `set_mbconv_kernel`)
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cream_tpu_torch.nn.act import gelu
-from cream_tpu_torch.ops import dwconv
+from cream_tpu_torch.ops import dwconv, mbconv
 from cream_tpu_torch.ops.common import drop_path, dropout
+from cream_tpu_torch.ops.fuse import cached_fold
 
 # depthwise 3x3 conv routes (the JAX package's `ConvBN.dw_vjp` values False,
 # True and "wgrad")
@@ -179,27 +182,58 @@ class BNLinear(nn.Module):
 class MBConv(nn.Module):
     """Inverted-residual MBConv: 1x1 expand → 3x3 depthwise → 1x1 project,
     all Conv+BN with GELU between, drop path (train), residual add then
-    GELU."""
+    GELU.
+
+    `use_kernel` (the JAX package's `use_pallas`, off by default): in eval
+    and outside autograd, when x has `features` channels and K6 takes the
+    shape (`ops.mbconv.supports_shape`), the block runs as one op,
+    `ops.mbconv.fused_mbconv` on the BN-folded weights (`folded`, cached
+    until a parameter or buffer changes): K6 on CUDA tensors, its plain
+    version on CPU tensors. The fused op has no backward, as in JAX."""
 
     def __init__(self, features: int, expand_ratio: float = 4.0,
-                 drop_path_rate: float = 0.0, *,
+                 drop_path_rate: float = 0.0, use_kernel: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.features = features
         self.drop_path_rate = drop_path_rate
-        hidden = int(features * expand_ratio)
+        self.use_kernel = use_kernel
+        self.dtype = dtype
+        self.hidden = int(features * expand_ratio)
         kw = dict(dtype=dtype, device=device)
-        self.conv1 = ConvBN(features, hidden, 1, **kw)
-        self.conv2 = ConvBN(hidden, hidden, 3, 1, 1, groups=hidden, **kw)
-        self.conv3 = ConvBN(hidden, features, 1, bn_weight_init=0.0, **kw)
+        self.conv1 = ConvBN(features, self.hidden, 1, **kw)
+        self.conv2 = ConvBN(self.hidden, self.hidden, 3, 1, 1, groups=self.hidden, **kw)
+        self.conv3 = ConvBN(self.hidden, features, 1, bn_weight_init=0.0, **kw)
+
+    def kernel_path(self, x: torch.Tensor) -> bool:
+        """Whether `forward(x)` runs the fused op."""
+        return (self.use_kernel and not self.training and not torch.is_grad_enabled()
+                and x.shape[-1] == self.features
+                and mbconv.supports_shape(x.shape, self.hidden, self.dtype))
+
+    def folded(self) -> tuple[torch.Tensor, ...]:
+        """`ops.mbconv.fold_mbconv(self, self.dtype)`, cached until a
+        parameter or buffer changes."""
+        return cached_fold(self, mbconv.fold_mbconv)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.kernel_path(x):
+            return mbconv.fused_mbconv(x.to(self.dtype).contiguous(), *self.folded())
         shortcut = x
         x = gelu(self.conv1(x))
         x = gelu(self.conv2(x))
         x = self.conv3(x)
         x = drop_path(x, self.drop_path_rate, not self.training, generator)
         return gelu(x + shortcut)
+
+
+def set_mbconv_kernel(model: nn.Module, on: bool) -> None:
+    """Turn the fused route of every MBConv of `model` on or off (see
+    `MBConv.use_kernel`)."""
+    for m in model.modules():
+        if isinstance(m, MBConv):
+            m.use_kernel = on
 
 
 class MlpLN(nn.Module):

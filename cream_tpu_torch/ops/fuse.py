@@ -3,7 +3,9 @@
 Counterpart of `cream_tpu/ops/fuse.py` (`fold_conv_bn`, `fold_bn_linear`)
 and of `cream_tpu/ops/pallas/mbconv.py:fold_convbn`, in the JAX package's
 layouts: conv kernels HWIO (kh, kw, I, O), linear kernels (in, out). The
-folded operands feed the fused CGA kernel (`ops/cga.py`).
+folded operands feed the fused CGA and MBConv kernels (`ops/cga.py`,
+`ops/mbconv.py`); `cached_fold` keeps a module's fold until its weights
+change.
 """
 from __future__ import annotations
 
@@ -41,3 +43,16 @@ def fold_convbn(kernel: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     f = scale·rsqrt(var + eps) on the last (output-channel) axis."""
     f = scale.float() * torch.rsqrt(var.float() + eps)
     return kernel.float() * f, bias.float() - mean.float() * f
+
+
+def cached_fold(module: torch.nn.Module, fold) -> tuple[torch.Tensor, ...]:
+    """`fold(module, module.dtype)`, cached on the module (`_fold_key`,
+    `_fold`) until a parameter or buffer changes (its storage or version)."""
+    key = (module.dtype, tuple((t.data_ptr(), t._version)
+                               for t in (*module.parameters(), *module.buffers())))
+    if key != getattr(module, "_fold_key", None):
+        # plain tensors, not inference tensors, whatever mode the caller is in
+        with torch.inference_mode(False), torch.no_grad():
+            module._fold = fold(module, module.dtype)
+        module._fold_key = key
+    return module._fold

@@ -6,7 +6,9 @@ EfficientViT names, so a released checkpoint loads with
 `model.load_state_dict` as it is, and the JAX package's
 `cream_tpu.zoo.import_torch.convert_tinyvit` / `convert_efficientvit` map a
 port state_dict to its variables. `state_dict_from_jax` and
-`efficientvit_state_dict_from_jax` are their exact inverses.
+`efficientvit_state_dict_from_jax` are their exact inverses;
+`bias_attention_state_dict_from_jax` carries a JAX `BiasAttention`'s
+variables to the port's module.
 """
 from __future__ import annotations
 
@@ -124,6 +126,18 @@ def state_dict_from_jax(variables: Mapping, with_head: bool = True
     w.ln("norm_head", "norm_head")
     if with_head and "head" in w.params:
         w.dense("head", "head")
+    return w.state_dict()
+
+
+def bias_attention_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's `BiasAttention` variables ({"params": {norm, qkv,
+    proj, attention_biases}}) -> the port's `nn.attention.BiasAttention`
+    state_dict (the released TinyViT `Attention` names)."""
+    w = _Writer(variables)
+    w.ln("norm", "norm")
+    w.dense("qkv", "qkv")
+    w.dense("proj", "proj")
+    w.raw("attention_biases", "attention_biases")
     return w.state_dict()
 
 

@@ -68,3 +68,19 @@ def test_inference_cli_top5(tmp_path, capsys):
     # the CLI is predict() on the preprocessed image with the checkpoint's weights
     np.testing.assert_array_equal(top5, torch.topk(logits[0], 5).indices.numpy())
     assert capsys.readouterr().out.count("top") == 5
+
+
+def test_profiler_names_every_cuda_kernel():
+    """`cli.profile_step` files each `__global__` function of `csrc/` under
+    its kernel's K number, not under a library kind, in the name the
+    profiler records (`void (anonymous namespace)::name<T>(...)`)."""
+    import re
+    from pathlib import Path
+
+    from cream_tpu_torch.cli.profile_step import kind_of
+    csrc = Path(__file__).resolve().parent.parent / "cream_tpu_torch" / "csrc"
+    text = "\n".join(p.read_text() for p in sorted(csrc.glob("*.cu")))
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", text)
+    assert len(names) >= 16, names
+    kinds = {n: kind_of(f"void (anonymous namespace)::{n}<float>(float const*)") for n in names}
+    assert all(k.startswith("K") for k in kinds.values()), kinds

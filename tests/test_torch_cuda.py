@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1/K2 window attention forward/backward, K4 fused
-cascaded group attention, K5 CGA attention core, K7/K8/K9 depthwise 3x3
-convolution) against their plain versions, on the card.
+"""The CUDA kernels (K1/K2 window attention forward/backward, K3 bias
+attention, K4 fused cascaded group attention, K5 CGA attention core, K6 fused
+eval MBConv, K7/K8/K9 depthwise 3x3 convolution, K10 window relayout, K11
+layout pin) against their plain versions, on the card.
 
 These tests need a CUDA card and skip without one. They import no jax, so
 they run on a machine that has only PyTorch and the CUDA toolkit:
@@ -18,7 +19,14 @@ three attention routes agree; K7/K8/K9 at EfficientViT-M5's and
 TinyViT-21M's depthwise shapes (smaller batches), odd channel counts and odd
 stride-2 maps, dw's bits across launches, their refusals, their
 autograd.Functions' grads, and a narrow EfficientViT train step whose three
-depthwise routes agree and launch the kernels the site count says.
+depthwise routes agree and launch the kernels the site count says; K6 at
+TinyViT's stage-0 shapes (smaller batches), ragged tiles and every built
+channel count, its zero-padded hidden tensor and the MBConv route; K3 at
+TinyViT's and EfficientViT's window sizes up to 256 tokens and kd != dv, the
+BiasAttention route; K10 bit for bit at 16-, 8-, 4- and 2-byte accesses and
+inside forward_windowed; K11 bit for bit with its identity backward; and a
+narrow TinyViT whose pin_layouts and mbconv_kernel routes agree with the
+plain one.
 """
 import numpy as np
 import pytest
@@ -483,3 +491,214 @@ def test_narrow_efficientvit_train_step_routes_agree(card):
         for k, w in grads.items():
             err = (got[k] - w).norm().item()
             assert err <= 1e-3 * w.norm().item() + 1e-6 * norm, (route, k, err)
+
+
+# ---- K6 fused eval MBConv, K3 bias attention, K10 window relayout, K11 layout pin
+
+def _seeded_mbconv(card, C, hid, seed):
+    from cream_tpu_torch.nn.layers import MBConv
+    m = MBConv(C, hid / C, device=card).eval()
+    m.load_state_dict(seeded_state_dict(m, seed))
+    return m
+
+
+# (B, H, W, C, HID): TinyViT-21M's and -5M/11M's stage-0 maps (batches cut),
+# maps that are not whole 8x8 tiles, the other built channel counts
+K6_CASES = [(2, 56, 56, 96, 384), (2, 56, 56, 64, 256), (3, 9, 13, 32, 64),
+            (1, 20, 12, 128, 512), (2, 7, 7, 96, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,HID", K6_CASES)
+def test_k6_matches_plain(card, dtype, B, H, W, C, HID):
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, C, HID, seed=C + H)
+    ops = mbconv.fold_mbconv(m, dtype)
+    g = torch.Generator(card).manual_seed(B * H * W)
+    x = torch.randn(B, H, W, C, generator=g, device=card).to(dtype)
+    n = mbconv.LAUNCHES
+    out = mbconv.fused_mbconv(x, *ops)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES == n + 1 and out.dtype == dtype and out.shape == x.shape
+    ref = mbconv.fused_mbconv_ref(x, *ops)
+    # bf16: h, h2 and y round at the same points, the fp32 products sum in
+    # other orders (2 ulps at max); fp32: 1e-5 of the largest |y|
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref.float())
+
+
+def test_k6_zero_pads_the_hidden_tensor(card):
+    """A large b1: taps outside the image must read 0, not GELU(b1)."""
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, 32, 128, seed=3)
+    w1, b1, dw, bdw, w2, b2 = mbconv.fold_mbconv(m, torch.float32)
+    b1 = torch.full_like(b1, 3.0)
+    x = torch.randn(2, 8, 8, 32, device=card)
+    out = mbconv.fused_mbconv(x, w1, b1, dw, bdw, w2, b2)
+    ref = mbconv.fused_mbconv_ref(x, w1, b1, dw, bdw, w2, b2)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_k6_takes_an_offset_view(card):
+    """bf16 x that does not start on a 16-byte boundary (the tensor-core
+    path reads x 16 bytes at a time): the wrapper copies it first."""
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, 96, 384, seed=2)
+    ops = mbconv.fold_mbconv(m, torch.bfloat16)
+    flat = torch.randn(2 * 9 * 9 * 96 + 1, device=card).bfloat16()
+    x = flat[1:].view(2, 9, 9, 96)
+    ref = mbconv.fused_mbconv_ref(x, *ops)
+    out = mbconv.fused_mbconv(x, *ops)
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(torch.bfloat16, ref.float())
+
+
+def test_k6_module_route_and_refusals(card):
+    from cream_tpu_torch.nn.layers import set_mbconv_kernel
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, 64, 256, seed=1)
+    x = torch.randn(2, 14, 14, 64, device=card)
+    with torch.inference_mode():
+        want = m(x)
+        set_mbconv_kernel(m, True)
+        n = mbconv.LAUNCHES
+        got = m(x)
+        assert mbconv.LAUNCHES == n + 1
+    # fp32, TF32 off: BN folded vs applied, sums in other orders
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    ops = mbconv.fold_mbconv(m, torch.float32)
+    with pytest.raises(ValueError):                       # strided x
+        mbconv.fused_mbconv(x.transpose(1, 2), *ops)
+    with pytest.raises(ValueError):                       # C = 48 is not built
+        mbconv.fused_mbconv(torch.zeros(1, 4, 4, 48, device=card),
+                            *mbconv.fold_mbconv(_seeded_mbconv(card, 48, 192, 0), torch.float32))
+
+
+# (W, heads, N, d): TinyViT-21M's per-window shapes at bs256 cut, the
+# 196-token window, EfficientViT's 16-token window, 256 tokens, kd != dv
+K3_CASES = [(64, 6, 49, 32, 32), (16, 12, 196, 32, 32), (40, 3, 16, 16, 16),
+            (4, 2, 256, 32, 32), (8, 4, 49, 16, 64), (5, 2, 100, 64, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,h,N,kd,dv", K3_CASES)
+def test_k3_matches_plain(card, dtype, W, h, N, kd, dv):
+    from cream_tpu_torch.ops import bias_attention as ba
+    g = torch.Generator(card).manual_seed(W * N + kd)
+    q, k = (torch.randn(W, h, N, kd, generator=g, device=card).to(dtype) for _ in range(2))
+    v = torch.randn(W, h, N, dv, generator=g, device=card).to(dtype)
+    bias = torch.randn(h, N, N, generator=g, device=card)
+    n = ba.LAUNCHES
+    out = ba.fused_bias_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES == n + 1 and out.shape == (W, h, N, dv) and out.dtype == dtype
+    ref = ba.fused_bias_attention_ref(q, k, v, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref.float())
+
+
+def test_k3_module_route_and_refusals(card):
+    from cream_tpu_torch.nn.attention import BiasAttention
+    from cream_tpu_torch.ops import bias_attention as ba
+    m = BiasAttention(64, 16, 4, device=card).eval()
+    m.load_state_dict(seeded_state_dict(m, 2))
+    x = torch.randn(8, 49, 64, device=card)
+    with torch.inference_mode():
+        n = ba.LAUNCHES
+        got = m(x)
+        assert ba.LAUNCHES == n + 1
+        m.use_kernel = False
+        want = m(x)
+        assert ba.LAUNCHES == n + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    q = torch.zeros(2, 2, 16, 8, device=card)
+    with pytest.raises(TypeError):                        # fp16 is not built
+        ba.fused_bias_attention(q.half(), q.half(), q.half(), torch.zeros(2, 16, 16, device=card))
+    with pytest.raises(ValueError):                       # 257 tokens
+        z = torch.zeros(1, 1, 257, 8, device=card)
+        ba.fused_bias_attention(z, z, z, torch.zeros(1, 257, 257, device=card))
+    with pytest.raises(ValueError):                       # strided q
+        ba.fused_bias_attention(q.transpose(0, 1), q, q, torch.zeros(2, 16, 16, device=card))
+
+
+# (B, H, W, ws, C, dtype): TinyViT-21M-384's stage-2 map, a stage-1 map, a
+# channel count that allows only 4-byte (bf16) or 8-byte accesses
+K10_CASES = [(4, 24, 24, 24, 384, torch.bfloat16), (8, 28, 28, 7, 192, torch.bfloat16),
+             (2, 12, 8, 4, 6, torch.bfloat16), (3, 14, 21, 7, 10, torch.float32),
+             (2, 16, 16, 8, 64, torch.float32)]
+
+
+@pytest.mark.parametrize("B,H,W,ws,C,dtype", K10_CASES)
+def test_k10_matches_plain_exactly(card, B, H, W, ws, C, dtype):
+    from cream_tpu_torch.ops import window_relayout as wr
+    x = torch.randn(B, H, W, C, device=card).to(dtype)
+    n = wr.LAUNCHES
+    w = wr.window_partition_kernel(x, ws)
+    back = wr.window_reverse_kernel(w, ws, (H, W))
+    torch.cuda.synchronize()
+    assert wr.LAUNCHES == n + 2
+    assert w.is_contiguous() and back.is_contiguous()
+    assert torch.equal(w, wr.window_partition_ref(x, ws))
+    assert torch.equal(back, x)
+    # an offset view: 2-byte aligned only
+    flat = torch.randn(B * H * W * C + 1, device=card).to(dtype)
+    xo = flat[1:].view(B, H, W, C)
+    assert torch.equal(wr.window_partition_kernel(xo, ws), wr.window_partition_ref(xo, ws))
+
+
+def test_k10_route_in_forward_windowed(card):
+    """A whole-window map beyond 256 tokens: eval on the card partitions and
+    reverses through K10, and matches the plain partition bit for bit."""
+    from cream_tpu_torch.ops import window_relayout as wr
+    m = WindowBiasAttention(64, 32, 2, 18, device=card).eval()
+    m.load_state_dict(seeded_state_dict(m, 4))
+    x = torch.randn(2, 18, 18, 64, device=card)
+    with torch.inference_mode():
+        n = wr.LAUNCHES
+        got = m(x)
+        assert wr.LAUNCHES == n + 2
+        m.use_kernel = False
+        want = m(x)
+        assert wr.LAUNCHES == n + 2
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        wr.window_partition_kernel(torch.zeros(1, 13, 14, 8, device=card), 7)
+
+
+@pytest.mark.parametrize("shape,dtype", [((4, 28, 28, 192), torch.bfloat16),
+                                         ((4, 7, 7, 576), torch.float32),
+                                         ((3, 5, 7), torch.bfloat16), ((7,), torch.float32)])
+def test_k11_copies_exactly(card, shape, dtype):
+    from cream_tpu_torch.ops import layout_pin as lp
+    x = torch.randn(shape, device=card).to(dtype)
+    n = lp.LAUNCHES
+    y = lp.layout_pin(x)
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES == n + 1 and y.data_ptr() != x.data_ptr() and torch.equal(y, x)
+    xr = x.clone().requires_grad_() if dtype == torch.float32 else None
+    if xr is not None:
+        dy = torch.randn_like(x)
+        (g,) = torch.autograd.grad(lp.layout_pin(xr), xr, dy)
+        assert torch.equal(g, dy) and lp.LAUNCHES == n + 2     # no copy in the backward
+    with pytest.raises(ValueError):
+        lp.layout_pin(torch.zeros(4, 6, device=card).t())
+
+
+def test_narrow_tinyvit_pin_and_mbconv_routes(card):
+    """fp32, TF32 off: pin_layouts gives the same logits bit for bit with 3
+    K11 launches; mbconv_kernel agrees with the module path with one K6
+    launch per MBConv."""
+    from cream_tpu_torch.ops import layout_pin as lp
+    from cream_tpu_torch.ops import mbconv
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 112, 112, 3)).astype(np.float32)).to(card)
+    out = {}
+    for key, kw in (("plain", {}), ("pin", {"pin_layouts": True}),
+                    ("mbconv", {"mbconv_kernel": True})):
+        m = TinyViT(img_size=112, device=card, **kw, **NARROW).eval()
+        m.load_state_dict(seeded_state_dict(m, 5))
+        n = (lp.LAUNCHES, mbconv.LAUNCHES)
+        with torch.inference_mode():
+            out[key] = m(x)
+        want = {"plain": (0, 0), "pin": (3, 0),
+                "mbconv": (0, NARROW["depths"][0])}[key]
+        assert (lp.LAUNCHES - n[0], mbconv.LAUNCHES - n[1]) == want, key
+    assert torch.equal(out["pin"], out["plain"])
+    torch.testing.assert_close(out["mbconv"], out["plain"], atol=1e-4, rtol=1e-4)
