@@ -8,13 +8,18 @@ non-zero):
   1. device: requires CUDA; prints the card's name and power limit
   2. build: compiles the CUDA kernels from csrc/ into build/
   3. K1 vs plain: the window-attention forward kernel against
-     `window_attention_ref` on the card, bf16 and fp32, at TinyViT-21M's
-     three stage shapes (bs256) and a Swin-T stage-0 qkv_major + shift-mask
-     case; kernel, plain and one-call library (SDPA) times
+     `window_attention_ref` on the card, bf16 (tensor cores) and fp32 (CUDA
+     cores), at TinyViT-21M-224's three stage shapes (bs256),
+     TinyViT-21M-384's two 144-token stages (bs64) and a Swin-T stage-0
+     qkv_major + shift-mask case; kernel and one-call library (SDPA) device
+     times by CUDA-graph replay with their CUDA-events times beside them,
+     plain times, per stage and summed over a TinyViT-21M-224 forward
   4. K2 vs plain: the backward kernel against `window_attention_bwd_ref` at
-     the same shapes, bf16 and fp32; dbias the same bits on two launches;
-     kernel, plain and library (SDPA backward) times, and the K1+K2
-     autograd.Function pair against SDPA forward+backward
+     the same shapes, bf16 and fp32; dqkv and dbias the same bits on two
+     launches; kernel and library (SDPA backward: its fwd+bwd graph less
+     its fwd graph, or CUDA events where that cannot be captured) times as
+     for K1, summed over a train step, and the K1+K2 autograd.Function pair
+     against SDPA forward+backward
   5. grads: at a small fp32 shape, the autograd.Function's grads against
      autograd of the plain forward
   6. golden: TinyViT-21M-224 fp32 on seeded weights against the JAX
@@ -141,6 +146,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 TINYVIT_SHAPES = [("stage1", BATCH, 28, 7, 6, 32, 2),
                   ("stage2", BATCH, 14, 14, 12, 32, 6),
                   ("stage3", BATCH, 7, 7, 18, 32, 2)]
+# TinyViT-21M-384 bs64's K1 shapes (window 12, 144 tokens; stage 2's
+# 576-token window takes the plain attention): correctness and times only
+TINYVIT384_SHAPES = [("384_stage1", 64, 48, 12, 6, 32, 2),
+                     ("384_stage3", 64, 12, 12, 18, 32, 2)]
 # EfficientViT main paths: (model, batch) and each attention stage at 224 as
 # (name, windows, ws, C, heads, per-head depthwise kernels, blocks per forward)
 EVIT_PATHS = [("efficientvit_m5", 512), ("efficientvit_m0", 1024)]
@@ -298,13 +307,51 @@ def sdpa_windows(qkv, bias, dout, kw):
     return (q, k, v, mask), do
 
 
+def k1_cases():
+    """(name, B, map, window, heads, d, mask, layout) of the K1/K2 checks:
+    TinyViT-21M-224's three stages, TinyViT-21M-384's two windowed stages
+    and Swin-T's stage 0 (qkv_major with the shift mask)."""
+    cases = [(n, B, H, ws, h, d, False, "head_major")
+             for n, B, H, ws, h, d, _ in TINYVIT_SHAPES + TINYVIT384_SHAPES]
+    cases.append(("swin_t_stage0", 64, 56, 7, 3, 32, True, "qkv_major"))
+    return cases
+
+
+def capturable(fn) -> bool:
+    """Whether fn can be captured in a CUDA graph: it is first run on a side
+    stream, as a capture of autograd's backward needs, and a failed capture
+    is tried once more."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    for attempt in range(2):
+        try:
+            graph_ms(fn, iters=1, reps=1)
+            return True
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            print(f"  (capture {attempt + 1} in a CUDA graph failed: "
+                  f"{str(e).splitlines()[0][:120]})")
+    return False
+
+
+def interleaved_graph_ms(*fns, rounds: int = 3) -> list[float]:
+    """The median over `rounds` of each fn's `graph_ms`, the fns timed in
+    turn each round, so a drift of the card's clock falls on all of them."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(graph_ms(fn))
+    return [statistics.median(t) for t in times]
+
+
 def phase_k1(gen) -> tuple[float, dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst_bf16, times = 0.0, {}
-    cases = [(n, B, H, ws, h, d, False, "head_major") for n, B, H, ws, h, d, _ in TINYVIT_SHAPES]
-    cases.append(("swin_t_stage0", 64, 56, 7, 3, 32, True, "qkv_major"))
-    for name, B, H, ws, heads, d, mask, layout in cases:
+    for name, B, H, ws, heads, d, mask, layout in k1_cases():
         for dtype in (torch.bfloat16, torch.float32):
             args, kw = k1_case(gen, B, H, ws, heads, d, dtype, layout, mask)
             with torch.inference_mode():
@@ -319,20 +366,41 @@ def phase_k1(gen) -> tuple[float, dict]:
                   f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} bound={lim:.3e} "
                   f"(elements differing: {differ:.2e})")
             check(err <= lim, f"K1 {name} {dtype} err {err} > {lim}")
-            if dtype == torch.bfloat16 and name.startswith("stage"):
+            if dtype == torch.bfloat16 and not mask:
                 worst_bf16 = max(worst_bf16, err)
                 (q, k, v, m), _ = sdpa_windows(args[0], args[1], None, kw)
                 with torch.inference_mode():
-                    k_ms = cuda_ms(lambda: wa.fused_window_attention(*args, **kw))
-                    p_ms = cuda_ms(lambda: wa.window_attention_ref(*args, **kw))
-                    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m))
-                b_ms, by = bound_ms(B, H, ws, heads, d, dtype, backward=False)
-                times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                   bound_ms=b_ms, bound_by=by)
-                print(f"k1 time {name} bf16 B={B}: kernel {k_ms:.4f} ms, "
-                      f"plain {p_ms:.4f} ms, library (SDPA fwd on windows) {l_ms:.4f} ms, "
-                      f"bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+                    def kern():
+                        return wa.fused_window_attention(*args, **kw)
+
+                    def lib():
+                        return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+                    k_ms, l_ms = interleaved_graph_ms(kern, lib)
+                    t = dict(ms=k_ms, host_ms=cuda_ms(kern),
+                             plain_ms=cuda_ms(lambda: wa.window_attention_ref(*args, **kw)),
+                             library_ms=l_ms, library_host_ms=cuda_ms(lib))
+                t["bound_ms"], t["bound_by"] = bound_ms(B, H, ws, heads, d, dtype, backward=False)
+                times[name] = t
+                print(f"k1 time {name} bf16 B={B}: kernel {t['ms']:.4f} ms (device, CUDA graph; "
+                      f"{t['host_ms']:.4f} ms by CUDA events), plain {t['plain_ms']:.4f} ms, "
+                      f"library (SDPA fwd on windows) {t['library_ms']:.4f} ms "
+                      f"({t['library_host_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+                      f"({t['bound_by']}) [{card_info()}]")
+    print_per_pass("k1", "forward", times)
     return worst_bf16, times
+
+
+def print_per_pass(tag: str, what: str, times: dict) -> None:
+    """The K1 (K2) times of one TinyViT-21M-224 bs256 forward (train step):
+    each stage's time times its blocks, and their sum."""
+    parts = ", ".join(f"{n} {times[n]['ms']:.4f} x {blocks}"
+                      for n, *_, blocks in TINYVIT_SHAPES)
+    sums = {k: summed_over_blocks(times, k)
+            for k in ("ms", "host_ms", "library_ms", "library_host_ms", "bound_ms")}
+    print(f"{tag} per TinyViT-21M-224 bf16 bs256 {what}: kernel {sums['ms']:.4f} ms "
+          f"({parts}; {sums['host_ms']:.4f} by CUDA events), library {sums['library_ms']:.4f} "
+          f"({sums['library_host_ms']:.4f} by CUDA events), bound {sums['bound_ms']:.4f} ms "
+          f"[{card_info()}]")
 
 
 def bwd_bound(dtype, ref: torch.Tensor) -> float:
@@ -348,9 +416,7 @@ def bwd_bound(dtype, ref: torch.Tensor) -> float:
 def phase_k2(gen) -> tuple[float, dict]:
     """K2 against its plain version; dbias bits on two launches; times."""
     worst_bf16, times = 0.0, {}
-    cases = [(n, B, H, ws, h, d, False, "head_major") for n, B, H, ws, h, d, _ in TINYVIT_SHAPES]
-    cases.append(("swin_t_stage0", 64, 56, 7, 3, 32, True, "qkv_major"))
-    for name, B, H, ws, heads, d, mask, layout in cases:
+    for name, B, H, ws, heads, d, mask, layout in k1_cases():
         for dtype in (torch.bfloat16, torch.float32):
             args, kw = k1_case(gen, B, H, ws, heads, d, dtype, layout, mask)
             dout = torch.randn(B, H, H, heads * d, generator=gen, device="cuda").to(dtype)
@@ -377,23 +443,26 @@ def phase_k2(gen) -> tuple[float, dict]:
             check(db_err <= db_lim, f"K2 {name} {dtype} dbias err {db_err} > {db_lim}")
             check(qb_err <= qb_lim, f"K2 {name} {dtype} d(qkv_bias) err {qb_err} > {qb_lim}")
             check(same, f"K2 {name} {dtype}: two launches differ")
-            if dtype == torch.bfloat16 and name.startswith("stage"):
+            if dtype == torch.bfloat16 and not mask:
                 worst_bf16 = max(worst_bf16, err)
                 times[name] = k2_times(args, kw, dout, B, H, ws, heads, d, dtype)
                 t = times[name]
-                print(f"k2 time {name} bf16 B={B}: kernel {t['ms']:.4f} ms, plain "
-                      f"{t['plain_ms']:.4f} ms, library (SDPA backward on windows) "
-                      f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                      f"({t['bound_by']}); fwd+bwd: K1+K2 autograd.Function "
-                      f"{t['pair_ms']:.4f} ms, SDPA {t['library_pair_ms']:.4f} ms "
-                      f"[{card_info()}]")
+                print(f"k2 time {name} bf16 B={B}: kernel {t['ms']:.4f} ms (device, CUDA graph; "
+                      f"{t['host_ms']:.4f} ms by CUDA events), plain {t['plain_ms']:.4f} ms, "
+                      f"library (SDPA backward on windows) {t['library_ms']:.4f} ms "
+                      f"({t['library_how']}; {t['library_host_ms']:.4f} by CUDA events), bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}); fwd+bwd: K1+K2 "
+                      f"autograd.Function {t['pair_ms']:.4f} ms, SDPA "
+                      f"{t['library_pair_ms']:.4f} ms (CUDA events) [{card_info()}]")
+    print_per_pass("k2", "train step", times)
     return worst_bf16, times
 
 
 def k2_times(args, kw, dout, B, H, ws, heads, d, dtype) -> dict:
     qkv, bias, _ = args
-    k_ms = cuda_ms(lambda: wa.fused_window_attention_bwd(qkv, bias, None, dout, **kw))
-    p_ms = cuda_ms(lambda: wa.window_attention_bwd_ref(qkv, bias, None, dout, **kw))
+
+    def kern():
+        return wa.fused_window_attention_bwd(qkv, bias, None, dout, **kw)
     kw_leaf = {k: v for k, v in kw.items() if k != "qkv_bias"}
     leaves = [t.clone().requires_grad_() for t in (qkv, bias, kw["qkv_bias"])]
 
@@ -403,15 +472,31 @@ def k2_times(args, kw, dout, B, H, ws, heads, d, dtype) -> dict:
 
     ops, do = sdpa_windows(qkv, bias, dout, kw)
     out = F.scaled_dot_product_attention(*ops[:3], attn_mask=ops[3])
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, ops, do, retain_graph=True))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(*ops[:3], attn_mask=ops[3])
+
+    def lib_bwd():
+        return torch.autograd.grad(out, ops, do, retain_graph=True)
 
     def lib_pair():
-        o = F.scaled_dot_product_attention(*ops[:3], attn_mask=ops[3])
-        torch.autograd.grad(o, ops, do)
+        torch.autograd.grad(lib_fwd(), ops, do)
 
+    # autograd runs a backward on its forward's stream, so a CUDA graph
+    # holds SDPA's backward only with its forward: the backward's device
+    # time is the forward+backward graph's less the forward graph's
+    if capturable(lib_pair):
+        k_ms, pair_ms, fwd_ms = interleaved_graph_ms(kern, lib_pair, lib_fwd)
+        lib_ms, how = pair_ms - fwd_ms, "CUDA graph of fwd+bwd less fwd"
+    else:
+        (k_ms,) = interleaved_graph_ms(kern)
+        lib_ms, how = cuda_ms(lib_bwd), "CUDA events: SDPA's backward was not captured"
     b_ms, by = bound_ms(B, H, ws, heads, d, dtype, backward=True)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_bwd, bound_ms=b_ms,
-                bound_by=by, pair_ms=cuda_ms(pair), library_pair_ms=cuda_ms(lib_pair))
+    return dict(ms=k_ms, host_ms=cuda_ms(kern),
+                plain_ms=cuda_ms(lambda: wa.window_attention_bwd_ref(qkv, bias, None, dout, **kw)),
+                library_ms=lib_ms, library_how=how, library_host_ms=cuda_ms(lib_bwd),
+                bound_ms=b_ms, bound_by=by, pair_ms=cuda_ms(pair),
+                library_pair_ms=cuda_ms(lib_pair))
 
 
 def phase_grads(gen) -> None:
@@ -1606,7 +1691,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
             "replaces": f"cream_tpu/ops/pallas/window_attention.py:{line}",
             "launches": launches, "max_abs_err": err,
-            **{k: summed_over_blocks(t, k) for k in ("ms", "plain_ms", "bound_ms")},
+            **{k: summed_over_blocks(t, k)
+               for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_host_ms")},
             "bound_by": t["stage2"]["bound_by"],
             "library_ms": summed_over_blocks(t, "library_ms")})
     rows.append(evit_row(

@@ -35,8 +35,8 @@ from cream_tpu_torch.cli.speed_test import card_info
 
 # kind of kernel by name, first match wins
 KINDS = [
-    ("K1 window attention fwd", r"window_attention_fwd_kernel"),
-    ("K2 window attention bwd", r"window_attention_bwd_kernel|dbias_reduce"),
+    ("K1 window attention fwd", r"window_attention_fwd_(mma_)?kernel"),
+    ("K2 window attention bwd", r"window_attention_bwd_(mma_)?kernel|dbias_reduce"),
     ("K4 fused CGA", r"cga_fused_kernel"),
     ("K3 bias attention", r"bias_attention_kernel"),
     ("K5 CGA attention core", r"cga_core_kernel"),

@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int kTile = 8;                     // output tile kTile x kTile pixels
@@ -218,19 +220,8 @@ mbconv_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 // ---------------------------------------------------------------- bfloat16
 
-// d += a (16x16, row-major) . b (16x8, k-major): bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using tc::ld32;
+using tc::mma_bf16;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)

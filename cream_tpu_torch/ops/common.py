@@ -1,4 +1,5 @@
-"""Shared small ops: stochastic depth, dropout, attention-bias index tables.
+"""Shared small ops: stochastic depth, dropout, attention-bias index tables,
+and the 16-byte alignment the CUDA kernels' vector accesses need.
 
 The random draws take an explicit `torch.Generator` (the counterpart of the
 JAX package's rng keys); they cannot give JAX's bits, only its
@@ -9,6 +10,12 @@ import itertools
 
 import numpy as np
 import torch
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data does not start on a 16-byte boundary
+    (a view with an offset): kernels that move 16 bytes per access need it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from cream_tpu_torch.ops.common import aligned16
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since import (or since a caller reset them): K7 forward
@@ -136,12 +138,6 @@ def _check_cuda(*ts: torch.Tensor) -> None:
         raise ValueError(f"x has {x.numel()} elements, the kernels take < 2**31")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it when its data does not start on a 16-byte boundary
-    (a view with an offset): the kernels move 16 bytes per access."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -155,7 +151,7 @@ def dw_conv3x3_fwd(x: torch.Tensor, w9: torch.Tensor, stride: int = 1) -> torch.
         return dw_conv3x3_ref(x, w9, stride)
     w9 = w9.to(x.dtype).contiguous()
     _check_cuda(x, w9)
-    x, w9 = _aligned(x), _aligned(w9)
+    x, w9 = aligned16(x), aligned16(w9)
     B, H, W, C = x.shape
     y = torch.empty(B, _out_size(H, stride), _out_size(W, stride), C,
                     dtype=x.dtype, device=x.device)
@@ -197,7 +193,7 @@ def dw_conv3x3_bwd(x: torch.Tensor, dy: torch.Tensor, w9: torch.Tensor,
         return dw_conv3x3_bwd_ref(x, dy, w9, stride)
     w9 = w9.to(x.dtype).contiguous()
     _check_cuda(x, dy, w9)
-    out = _bwd_launch(_aligned(x), _aligned(dy), _aligned(w9), stride, with_dx=True)
+    out = _bwd_launch(aligned16(x), aligned16(dy), aligned16(w9), stride, with_dx=True)
     LAUNCHES["k7_bwd" if stride == 1 else "k9_bwd"] += 1
     return out
 
@@ -209,7 +205,7 @@ def dw_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return dw_wgrad_ref(x, dy)
     _check_cuda(x, dy)
-    _, dw9 = _bwd_launch(_aligned(x), _aligned(dy), None, 1, with_dx=False)
+    _, dw9 = _bwd_launch(aligned16(x), aligned16(dy), None, 1, with_dx=False)
     LAUNCHES["k8"] += 1
     return dw9
 

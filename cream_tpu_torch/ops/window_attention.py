@@ -8,7 +8,9 @@ projection. It is differentiable through `FusedWindowAttention`, whose
 forward is the kernel in `csrc/window_attention.cu` (K1) and whose backward
 is the kernel in `csrc/window_attention_bwd.cu` (K2), as the JAX package's
 custom_vjp pairs `_kernel` with `_bwd_kernel`. On CUDA tensors the kernels
-run; on CPU tensors their plain PyTorch versions `window_attention_ref` and
+run, their bf16 instantiations on the tensor cores and their fp32 ones on
+the CUDA cores (the dtype picks, inside the kernels' C entry points); on CPU
+tensors their plain PyTorch versions `window_attention_ref` and
 `window_attention_bwd_ref` run instead.
 
 Two lane packings of L:
@@ -23,6 +25,7 @@ from functools import lru_cache
 import torch
 from torch.autograd.function import once_differentiable
 
+from cream_tpu_torch.ops.common import aligned16
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 
 LAYOUTS = ("head_major", "qkv_major")
@@ -161,8 +164,9 @@ def _check(qkv, bias, mask, qkv_bias, window, heads, kd, dv, layout):
 
 
 def _kernel_operands(qkv, bias, mask, qkv_bias, kd, dv, extra=()):
-    """Checks what only the kernels need and returns bias, mask and qkv_bias
-    as the kernels take them (fp32, fp32, qkv's dtype; contiguous)."""
+    """Checks what only the kernels need and returns qkv, bias, mask and
+    qkv_bias as the kernels take them (qkv's dtype, fp32, fp32, qkv's dtype;
+    contiguous; 16-byte aligned)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"no window-attention kernel for device {qkv.device}")
     if qkv.dtype not in _DTYPE_CODE:
@@ -175,12 +179,12 @@ def _kernel_operands(qkv, bias, mask, qkv_bias, kd, dv, extra=()):
     others = [t for t in (bias, mask, qkv_bias, *extra) if t is not None]
     if any(t.device != qkv.device for t in others):
         raise ValueError("all inputs must be on qkv's device")
-    bias = bias.to(torch.float32).contiguous()
+    bias = aligned16(bias.to(torch.float32).contiguous())
     if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
+        mask = aligned16(mask.to(torch.float32).contiguous())
     if qkv_bias is not None:
-        qkv_bias = qkv_bias.to(qkv.dtype).contiguous()
-    return bias, mask, qkv_bias
+        qkv_bias = aligned16(qkv_bias.to(qkv.dtype).contiguous())
+    return aligned16(qkv), bias, mask, qkv_bias
 
 
 def _ptr(t: torch.Tensor | None):
@@ -193,7 +197,7 @@ def _forward(qkv, bias, mask, qkv_bias, *, window, heads, kd, dv, layout):
         return window_attention_ref(qkv, bias, mask, window=window,
                                     heads=heads, kd=kd, dv=dv, layout=layout,
                                     qkv_bias=qkv_bias)
-    bias, mask, qkv_bias = _kernel_operands(qkv, bias, mask, qkv_bias, kd, dv)
+    qkv, bias, mask, qkv_bias = _kernel_operands(qkv, bias, mask, qkv_bias, kd, dv)
     B, H, W, _ = qkv.shape
     out = torch.empty((B, H, W, heads * dv), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -213,10 +217,10 @@ def _forward(qkv, bias, mask, qkv_bias, *, window, heads, kd, dv, layout):
 def _bwd_groups(n_windows: int, heads: int, N: int, device) -> tuple[int, int]:
     """(windows per block, blocks per head) of a K2 launch.
 
-    Each block (8 warps) walks a run of consecutive windows of one head and
-    keeps its own fp32 dbias partial, so the sum over windows needs no
-    atomics and comes out the same on every launch. Enough blocks to give
-    every SM a full load of threads, but partials under
+    Each block walks a run of consecutive windows of one head and keeps its
+    own fp32 dbias partial, so the sum over windows needs no atomics and
+    comes out the same on every launch. Enough blocks to give every SM a
+    full load of threads (counted in blocks of 8 warps), but partials under
     `_BWD_PARTIAL_BYTES` in all."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     target = sms * (2048 // 256)
@@ -243,12 +247,13 @@ def fused_window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
         return window_attention_bwd_ref(qkv, bias, mask, dout, window=window,
                                         heads=heads, kd=kd, dv=dv,
                                         layout=layout, qkv_bias=qkv_bias)
-    bias, mask, qkv_bias = _kernel_operands(qkv, bias, mask, qkv_bias, kd, dv,
-                                            extra=(dout,))
+    qkv, bias, mask, qkv_bias = _kernel_operands(qkv, bias, mask, qkv_bias,
+                                                 kd, dv, extra=(dout,))
     if dout.dtype != qkv.dtype:
         raise TypeError(f"dout is {dout.dtype}, qkv is {qkv.dtype}")
     if not dout.is_contiguous():
         raise ValueError("dout must be contiguous")
+    dout = aligned16(dout)
     N = window * window
     n_windows = B * (H // window) * (W // window)
     per_group, groups = _bwd_groups(n_windows, heads, N, qkv.device)
@@ -274,9 +279,10 @@ def fused_window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                            f"cudaError {rc}")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
-    # d(qkv bias) is the token sum of dqkv, outside the kernel as in JAX
+    # d(qkv bias) is the token sum of dqkv, outside the kernel as in JAX:
+    # fp32 sums of the rounded dqkv, without an fp32 copy of it
     dqb = None if qkv_bias is None else \
-        dqkv.float().sum(dim=(0, 1, 2)).to(qkv.dtype)
+        dqkv.sum(dim=(0, 1, 2), dtype=torch.float32).to(qkv.dtype)
     return dqkv, dbias, dqb
 
 

@@ -81,6 +81,9 @@ CASES = [
     (2, 14, 21, 7, 3, 16, 64, "head_major", True, True),     # kd != dv, rectangular
     (1, 14, 14, 14, 2, 64, 64, "qkv_major", False, False),   # no qkv bias
     (3, 8, 12, 4, 4, 64, 16, "qkv_major", True, True),       # 16 tokens < one warp
+    (1, 24, 24, 12, 3, 32, 32, "head_major", False, True),   # 144 tokens (TinyViT-384)
+    (1, 12, 24, 12, 2, 16, 64, "qkv_major", True, True),     # 144 tokens, kd != dv
+    (2, 21, 14, 7, 2, 16, 64, "qkv_major", False, True),     # 49 tokens, kd 16, dv 64
 ]
 
 
@@ -194,6 +197,66 @@ def test_grads_flow_through_k1_and_k2(card, layout, use_mask):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         torch.testing.assert_close(g, w, atol=1e-5 * w.abs().max().item(), rtol=0)
+
+
+def _offset_view(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte
+    boundary (a view with a storage offset)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_unaligned_views(card, dtype):
+    """qkv, qkv_bias and dout as contiguous views that do not start on a
+    16-byte boundary: the same results as on aligned copies, and the plain
+    version's within the bounds."""
+    B, H, W, ws, heads, kd, dv = 2, 14, 14, 7, 3, 32, 32
+    rng = np.random.default_rng(4)
+    qkv, bias, _, qb = _inputs(rng, B, H, W, ws, heads, kd, dv, False, True, card)
+    qkv, qb = qkv.to(dtype), qb.to(dtype)
+    dout = torch.from_numpy(rng.standard_normal((B, H, W, heads * dv)).astype(
+        np.float32)).to(card, dtype)
+    kw = dict(window=ws, heads=heads, kd=kd, dv=dv)
+    with torch.inference_mode():
+        got = wa.fused_window_attention(_offset_view(qkv), bias, qkv_bias=_offset_view(qb), **kw)
+        aligned = wa.fused_window_attention(qkv, bias, qkv_bias=qb, **kw)
+        want = wa.window_attention_ref(qkv, bias, qkv_bias=qb, **kw)
+    assert torch.equal(got, aligned)
+    assert (got.float() - want.float()).abs().max().item() <= _bound(dtype, want.float())
+    got = wa.fused_window_attention_bwd(_offset_view(qkv), bias, None, _offset_view(dout),
+                                        qkv_bias=_offset_view(qb), **kw)
+    aligned = wa.fused_window_attention_bwd(qkv, bias, None, dout, qkv_bias=qb, **kw)
+    want = wa.window_attention_bwd_ref(qkv, bias, None, dout, qkv_bias=qb, **kw)
+    assert torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1])
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    assert err <= _bwd_bound(dtype, want[0].float()), err
+
+
+def test_bwd_bf16_same_bits_on_two_launches_at_196_tokens(card):
+    """bf16 K2 at TinyViT-21M's stage-2 window (N = 196) with enough windows
+    that a block walks several of them (its dbias partial is added to, not
+    only stored): dqkv and dbias are the same bits on two launches."""
+    B, H, W, ws, heads, kd, dv = 128, 14, 14, 14, 12, 32, 32
+    rng = np.random.default_rng(5)
+    qkv, bias, _, qb = _inputs(rng, B, H, W, ws, heads, kd, dv, False, True, card)
+    qkv = qkv.bfloat16()
+    dout = torch.from_numpy(rng.standard_normal((B, H, W, heads * dv)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    kw = dict(window=ws, heads=heads, kd=kd, dv=dv, qkv_bias=qb)
+    per_group, _ = wa._bwd_groups(B, heads, ws * ws, qkv.device)
+    assert per_group > 1
+    first = wa.fused_window_attention_bwd(qkv, bias, None, dout, **kw)
+    second = wa.fused_window_attention_bwd(qkv, bias, None, dout, **kw)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want = wa.window_attention_bwd_ref(qkv, bias, None, dout, **kw)
+    err = (first[0].float() - want[0].float()).abs().max().item()
+    assert err <= _bwd_bound(torch.bfloat16, want[0].float()), err
+    torch.testing.assert_close(first[1], want[1], atol=1e-4 * want[1].abs().max().item(),
+                               rtol=0)
 
 
 NARROW = dict(embed_dims=(32, 32, 64, 64), depths=(1, 2, 1, 1),

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from cream_tpu.ops.pallas.window_attention import \
     fused_window_attention as jax_fused_window_attention
 from cream_tpu_torch.ops import window_attention as wa
+from cream_tpu_torch.ops.window import window_partition, window_reverse
 from test_torch_window_attention import CASES, _shift_mask
 
 
@@ -132,3 +133,57 @@ def test_bwd_wrapper_checks_the_cotangent():
         wa.fused_window_attention_bwd(qkv, bias, None, torch.zeros(1, 14, 14, 32), **kw)
     got = wa.fused_window_attention_bwd(qkv, bias, None, torch.zeros(1, 14, 14, 64), **kw)
     assert got[0].shape == qkv.shape and got[1].shape == bias.shape and got[2] is None
+
+
+def _hi_lo(x):
+    """x as the tensor-core K2 feeds it to a product: hi = bf16(x),
+    lo = bf16(x - hi), both back in fp32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _emulate_k2(qkv, bias, mask, dout, qb, *, split, window, heads, kd, dv, layout):
+    """fp32 dqkv (B, H, W, L) of K2 before its rounding to bf16, in torch.
+    S and dP are bf16 x bf16 products with fp32 sums (exact on the tensor
+    cores); P and dS are fp32. With `split`, the three products with an fp32
+    operand (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO) take it as hi + lo, two
+    products summed in fp32, as the kernel's two mma passes into one
+    accumulator do; without it, they take the fp32 values, as
+    `window_attention_bwd_ref` does."""
+    B, H, W, _ = qkv.shape
+    xb = qkv if qb is None else qkv + qb.to(qkv.dtype)
+    w, padded = window_partition(xb, window)
+    q, k, v = (t.float() for t in wa.split_qkv(w, layout, heads, kd, dv))
+    do = window_partition(dout, window)[0].unflatten(-1, (heads, dv)).float()
+    p = torch.softmax(wa._scores(q, k, bias, mask), dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    terms = (_hi_lo(p), _hi_lo(ds)) if split else ((p,), (ds,))
+    scale = kd ** -0.5
+    dq = sum(torch.einsum("bhnm,bmhk->bnhk", t, k) for t in terms[1]) * scale
+    dk = sum(torch.einsum("bhnm,bnhk->bmhk", t, q) for t in terms[1]) * scale
+    dvv = sum(torch.einsum("bhnm,bnhd->bmhd", t, do) for t in terms[0])
+    return window_reverse(wa.pack_qkv(dq, dk, dvv, layout), window, padded, (H, W))
+
+
+@pytest.mark.parametrize("B,H,W,ws,heads,kd,dv,layout,use_mask,use_qb", CASES)
+def test_k2_hi_lo_products_match_jax_kernel(B, H, W, ws, heads, kd, dv, layout,
+                                            use_mask, use_qb):
+    """The tensor-core K2's products with an fp32 operand split hi/lo: in bf16
+    within two ulps at the largest |dqkv| of the JAX kernel pair (the bound
+    the card holds K2 to), and before the rounding to bf16 within a quarter
+    of that bound of the fp32 products `window_attention_bwd_ref` rounds."""
+    qkv, bias, mask, qb, dout = _inputs(4, B, H, W, ws, heads, kd, dv, use_mask, use_qb)
+    kw = dict(window=ws, heads=heads, kd=kd, dv=dv, layout=layout)
+    want = _jax_grads(qkv, bias, mask, qb, dout, jnp.bfloat16, **kw)[0]
+    args = (_t(qkv, torch.bfloat16), _t(bias), _t(mask), _t(dout, torch.bfloat16), _t(qb))
+    got = _emulate_k2(*args, split=True, **kw)
+    exact = _emulate_k2(*args, split=False, **kw)
+    top = np.abs(want).max()
+    two_ulps = 2.0 ** (np.floor(np.log2(top)) - 6)
+    np.testing.assert_allclose(got.bfloat16().float().numpy(), want, atol=two_ulps, rtol=0)
+    assert (got - exact).abs().max().item() <= 0.25 * two_ulps
+    # without the split, the emulation is the plain version, bit for bit
+    ref = wa.window_attention_bwd_ref(args[0], args[1], args[2], args[3], qkv_bias=args[4], **kw)
+    assert torch.equal(exact.bfloat16(), ref[0])
+
