@@ -34,8 +34,10 @@ non-zero):
      over 10 steps on one batch, kernel path against plain path on the same
      weights and batch, train img/s of both, peak memory
  10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
-     bf16 and fp32, at EfficientViT-M5 bs512's and M0 bs1024's per-head
-     shapes; kernel, plain and one-call library (SDPA) times
+     bf16 (tensor cores) and fp32 (CUDA cores), at EfficientViT-M5 bs512's
+     and M0 bs1024's per-head shapes, bf16 the same bits on two launches;
+     kernel, plain and one-call library (SDPA) device times by CUDA-graph
+     replay, with their CUDA-events times beside them
  11. K4 vs plain: the fused CGA kernel against `fused_cga_ref` on a seeded
      module's fold at the same stage shapes, bf16 and fp32; kernel, plain
      and unfused "plain"-route module times (no single library call
@@ -71,9 +73,10 @@ non-zero):
      (bs256 bf16; fp32 at bs32); kernel, plain and unfused-module times
  19. K3 vs plain: the bias-attention kernel against
      `fused_bias_attention_ref` at TinyViT-21M's per-window shapes (bs256)
-     and a 16-token window, bf16 and fp32; kernel, plain and SDPA times;
-     then `BiasAttention` at 4,096 windows of 49 tokens, dim 192, 6 heads:
-     one K3 launch per call, against its plain route
+     and a 16-token window, bf16 (tensor cores; the same bits on two
+     launches) and fp32 (CUDA cores); kernel, plain and SDPA times as for
+     K5; then `BiasAttention` at 4,096 windows of 49 tokens, dim 192, 6
+     heads: one K3 launch per call, against its plain route
  20. K10 vs plain: the window partition and reverse kernels at
      TinyViT-21M-384's stage-2 map (bs64, window 24) and TinyViT-21M-224's
      stage-1 map (bs256, window 7), bit for bit; kernel, plain and
@@ -345,6 +348,27 @@ def interleaved_graph_ms(*fns, rounds: int = 3) -> list[float]:
         for t, fn in zip(times, fns):
             t.append(graph_ms(fn))
     return [statistics.median(t) for t in times]
+
+
+def kernel_plain_library_ms(kern, plain, lib) -> dict:
+    """Device times of a kernel, its plain version and the one-call library
+    yardstick by CUDA-graph replay, timed in turn (`interleaved_graph_ms`),
+    with each one's CUDA-events time (`cuda_ms`, the host's issue included)
+    beside it; under inference mode."""
+    with torch.inference_mode():
+        k_ms, p_ms, l_ms = interleaved_graph_ms(kern, plain, lib)
+        return dict(ms=k_ms, host_ms=cuda_ms(kern), plain_ms=p_ms, plain_host_ms=cuda_ms(plain),
+                    library_ms=l_ms, library_host_ms=cuda_ms(lib))
+
+
+def format_times(t: dict) -> str:
+    """A kernel_plain_library_ms dict (and its bound) as one phrase: device
+    times by CUDA-graph replay, CUDA-events times in parentheses."""
+    return (f"kernel {t['ms']:.4f} ms ({t['host_ms']:.4f} by CUDA events), plain "
+            f"{t['plain_ms']:.4f} ({t['plain_host_ms']:.4f}), library {t['library_ms']:.4f} "
+            f"({t['library_host_ms']:.4f}), bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"kernel / library {t['ms'] / t['library_ms']:.2f}x, kernel / bound "
+            f"{t['ms'] / t['bound_ms']:.1f}x")
 
 
 def phase_k1(gen) -> tuple[float, dict]:
@@ -744,20 +768,28 @@ def phase_k5(gen) -> tuple[float, dict]:
                 check(err <= lim, f"K5 {name} {dtype} err {err} > {lim}")
                 if dtype != torch.bfloat16:
                     continue
+                with torch.inference_mode():
+                    check(torch.equal(cga_core.cga_attention(*args), out),
+                          f"K5 {name}: other bits on a second launch")
                 worst_bf16 = max(worst_bf16, err)
                 lq, lk, lv = (t[:, None] for t in (q, k, v))    # (W, 1, N, .)
                 mask = bias.to(dtype)
-                with torch.inference_mode():
-                    k_ms = cuda_ms(lambda: cga_core.cga_attention(*args))
-                    p_ms = cuda_ms(lambda: cga_core.cga_attention_ref(*args))
-                    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv,
-                                                                          attn_mask=mask))
-                b_ms, by = k5_bound_ms(W, N, d, dtype)
-                times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                   bound_by=by, per_forward=blocks * heads)
-                print(f"k5 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"library (SDPA on (W, 1, N, d), bias as attn_mask) {l_ms:.4f} ms, "
-                      f"bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+                t = kernel_plain_library_ms(
+                    lambda: cga_core.cga_attention(*args),
+                    lambda: cga_core.cga_attention_ref(*args),
+                    lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask))
+                t["bound_ms"], t["bound_by"] = k5_bound_ms(W, N, d, dtype)
+                times[name] = dict(t, per_forward=blocks * heads)
+                print(f"k5 time {name} bf16 W={W}: {format_times(t)}, library = SDPA on "
+                      f"(W, 1, N, d), bias as attn_mask [{card_info()}]")
+    for model, batch in EVIT_PATHS:
+        tot = {k: sum(times[n][k] * times[n]["per_forward"] for n, *_ in EVIT_STAGES[model])
+               for k in ("ms", "host_ms", "plain_ms", "library_ms", "library_host_ms",
+                         "bound_ms")}
+        print(f"k5 per {model} bf16 bs{batch} forward: kernel {tot['ms']:.4f} ms "
+              f"({tot['host_ms']:.4f} by CUDA events), plain {tot['plain_ms']:.4f}, library "
+              f"{tot['library_ms']:.4f} ({tot['library_host_ms']:.4f}), bound "
+              f"{tot['bound_ms']:.4f} ms")
     return worst_bf16, times
 
 
@@ -1315,18 +1347,19 @@ def phase_k3(gen) -> tuple[float, dict, int]:
             check(err <= lim, f"K3 {name} {dtype} err {err} > {lim}")
             if dtype != torch.bfloat16:
                 continue
+            with torch.inference_mode():
+                check(torch.equal(bias_attention.fused_bias_attention(q, k, v, bias), out),
+                      f"K3 {name}: other bits on a second launch")
             worst_bf16 = max(worst_bf16, err)
             mask = bias.to(dtype)
-            with torch.inference_mode():
-                k_ms = cuda_ms(lambda: bias_attention.fused_bias_attention(q, k, v, bias))
-                p_ms = cuda_ms(lambda: bias_attention.fused_bias_attention_ref(q, k, v, bias))
-                l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-            b_ms, by = k3_bound_ms(W, h, N, d, dtype)
-            times[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                               bound_by=by)
-            print(f"k3 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"library (SDPA, bias as attn_mask) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({by}) [{card_info()}]")
+            t = kernel_plain_library_ms(
+                lambda: bias_attention.fused_bias_attention(q, k, v, bias),
+                lambda: bias_attention.fused_bias_attention_ref(q, k, v, bias),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            t["bound_ms"], t["bound_by"] = k3_bound_ms(W, h, N, d, dtype)
+            times[name] = t
+            print(f"k3 time {name} bf16 W={W}: {format_times(t)}, library = SDPA with the "
+                  f"bias as attn_mask [{card_info()}]")
 
     # BiasAttention at TinyViT-21M stage 1's windows: 4,096 windows of 7x7
     # tokens, dim 192, 6 heads of key_dim 32 (attn_ratio 1, as TinyViT's)
@@ -1702,7 +1735,8 @@ def main() -> None:
          "cascade; module_ms is the unfused plain-route CGA module on the same input"}))
     rows.append(evit_row(
         "cga_core", "cga_core.cu", "cga_core.py:63", sum(v["core"][1] for v in evit.values()),
-        worst_k5, t5, ("ms", "plain_ms", "library_ms", "bound_ms"), {}))
+        worst_k5, t5, ("ms", "host_ms", "plain_ms", "plain_host_ms", "library_ms",
+                       "library_host_ms", "bound_ms"), {}))
     for key, src_line, kind, stride, route in (
             ("k7_fwd", 167, "fwd", 1, "fused"), ("k7_bwd", 183, "bwd", 1, "fused"),
             ("k8", 338, "wgrad", 1, "wgrad"), ("k9_fwd", 474, "fwd", 2, "fused"),

@@ -38,8 +38,8 @@ KINDS = [
     ("K1 window attention fwd", r"window_attention_fwd_(mma_)?kernel"),
     ("K2 window attention bwd", r"window_attention_bwd_(mma_)?kernel|dbias_reduce"),
     ("K4 fused CGA", r"cga_fused_kernel"),
-    ("K3 bias attention", r"bias_attention_kernel"),
-    ("K5 CGA attention core", r"cga_core_kernel"),
+    ("K3 bias attention", r"bias_attention_(mma_)?kernel"),
+    ("K5 CGA attention core", r"cga_core_(mma_)?kernel"),
     ("K6 fused MBConv", r"mbconv_(bf16|fp32)_kernel"),
     ("K7 depthwise s1 fwd", r"dwconv_s1_fwd_kernel"),
     ("K7 depthwise s1 bwd", r"dwconv_s1_bwd_kernel"),

@@ -150,13 +150,15 @@ __global__ void __launch_bounds__(kWarps * 32) cga_fused_kernel(Params p) {
 
     const bool last = h + 1 == p.heads;
     const float* bias = p.bias + static_cast<size_t>(h) * N * N;
-    cga::attend_rows<T>(qd, kd, qkv + kd, S, qkv + 2 * kd, S, bias, 1.f, N, kd, d, p_s,
-                        [&](int n, int c, float o) {
-                          T* row = buf + n * C;
-                          if (!last)
-                            feat[n * d + c] = cga::round_to<T>(o + cga::to_f(row[(h + 1) * d + c]));
-                          row[h * d + c] = cga::from_f<T>(fmaxf(o, 0.f));
-                        });
+    // q is already scaled: the scores are q.k + bias
+    cga::attend_rows<T, 2, false>(
+        qd, kd, qkv + kd, S, qkv + 2 * kd, S, bias, 1.f, N, kd, d, p_s,
+        [&](int n, int c, float o) {
+          T* row = buf + n * C;
+          if (!last)
+            feat[n * d + c] = cga::round_to<T>(o + cga::to_f(row[(h + 1) * d + c]));
+          row[h * d + c] = cga::from_f<T>(fmaxf(o, 0.f));
+        });
     __syncthreads();
   }
 

@@ -1,6 +1,7 @@
-// Shared pieces of the cascaded-group-attention kernels (cga_core.cu, cga.cu)
-// and the bias-attention kernel (bias_attention.cu): dtype conversions and
-// the per-window attention core.
+// Shared pieces of the cascaded-group-attention kernel (cga.cu, K4) and the
+// float32 paths of the CGA attention-core (cga_core.cu, K5) and
+// bias-attention (bias_attention.cu, K3) kernels: dtype conversions and the
+// per-window CUDA-core attention core.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,7 +28,8 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 
 // Attention of one window, N <= 32 * KPL tokens (KPL keys per lane; 2 for
 // the CGA kernels' 64), one warp per query row:
-//   s[n][m] = (q[n] . k[m]) * scale + bias[n][m]   (fp32)
+//   s[n][m] = (q[n] . k[m]) * scale + bias[n][m]   (fp32; the product and
+//             the sum each rounded, as the plain versions round them: no FMA)
 //   P = softmax_m(s) with the exact row max, exp and division by the fp32
 //       row sum, then rounded to T
 //   o[n][c] = sum_m P[n][m] v[m][c] accumulated in fp32, rounded to T
@@ -36,7 +38,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 // memory; p_s holds 32 * KPL floats per warp. `emit(n, c, o)` receives
 // each output element, already rounded to T. Each lane keeps its keys'
 // scores in registers and its share (c = lane + 32 t) of the output row.
-template <typename T, int KPL = 2, typename Emit>
+// kScaled false drops the product: s = q . k + bias for a q already
+// scaled (K4's), with no multiply by a scale of 1.
+template <typename T, int KPL = 2, bool kScaled = true, typename Emit>
 __device__ __forceinline__ void attend_rows(const float* q, int qs, const float* k, int ks,
                                             const float* v, int vs, const float* bias,
                                             float scale, int N, int kd, int d, float* p_s,
@@ -56,7 +60,7 @@ __device__ __forceinline__ void attend_rows(const float* q, int qs, const float*
         const float* kr = k + m * ks;
         float acc = 0.f;
         for (int c = 0; c < kd; ++c) acc = fmaf(qr[c], kr[c], acc);
-        s[i] = fmaf(acc, scale, bias[n * N + m]);
+        s[i] = __fadd_rn(kScaled ? __fmul_rn(acc, scale) : acc, bias[n * N + m]);
         mx = fmaxf(mx, s[i]);
       }
     }

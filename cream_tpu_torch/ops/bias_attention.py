@@ -4,8 +4,9 @@
 `cream_tpu.ops.pallas.bias_attention.fused_bias_attention`:
 softmax(q·kᵀ·dk^-0.5 + bias[h])·v for q, k (W, h, N, dk), v (W, h, N, dv)
 and bias (h, N, N). On CUDA tensors it launches the kernel in
-`csrc/bias_attention.cu` (K3); on CPU tensors it runs its plain PyTorch
-version `fused_bias_attention_ref`. The JAX wrapper pads N > 128 to a
+`csrc/bias_attention.cu` (K3: bf16 on the tensor cores, fp32 on the CUDA
+cores); on CPU tensors it runs its plain PyTorch version
+`fused_bias_attention_ref`. The JAX wrapper pads N > 128 to a
 multiple of 128 with a -1e9 bias, a Mosaic compile-time workaround that
 changes nothing on the real rows; neither version here pads.
 """
@@ -16,6 +17,8 @@ from functools import lru_cache
 
 import torch
 
+from cream_tpu_torch.ops.common import aligned16
+
 MAX_TOKENS = 256                      # tokens per window the kernel takes
 _SMEM_BYTES = 227 * 1024              # shared memory a Hopper block can use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -24,16 +27,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 
 
-def _keys_per_lane(N: int) -> int:
-    return 2 if N <= 64 else 4 if N <= 128 else 8
+def _smem_bytes(N: int, dk: int, dv: int) -> int:
+    """Shared memory of K3's block at one (window, head) in each of its two
+    kernels, the larger: fp32 q, k (odd row stride) and v with the warps' P
+    rows (CUDA cores), or bf16 q, k and v with rows and head dims padded to
+    multiples of 16 and row strides 16 bytes over that (tensor cores)."""
+    keys_per_lane = 2 if N <= 64 else 4 if N <= 128 else 8
+    fp32 = 4 * (N * (dk + (dk | 1) + dv) + 4 * 32 * keys_per_lane)
+    pad = lambda n: -(-n // 16) * 16
+    bf16 = 2 * pad(N) * (2 * (pad(dk) + 8) + pad(dv) + 8)
+    return max(fp32, bf16)
 
 
 def supports_shape(N: int, dk: int, dv: int) -> bool:
     """Whether K3 takes windows of N tokens with head dims dk, dv: N <= 256
-    and q, k, v of one (window, head) staged in fp32 within a block's shared
-    memory."""
-    smem = 4 * (N * (dk + (dk | 1) + dv) + 4 * 32 * _keys_per_lane(N))
-    return 1 <= N <= MAX_TOKENS and dk >= 1 and dv >= 1 and smem <= _SMEM_BYTES
+    and q, k, v of one (window, head) within a block's shared memory in
+    either dtype's kernel."""
+    return (1 <= N <= MAX_TOKENS and dk >= 1 and dv >= 1
+            and _smem_bytes(N, dk, dv) <= _SMEM_BYTES)
 
 
 def fused_bias_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,8 +65,8 @@ def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor) -> torch.Tensor:
     """q, k: (W, h, N, dk); v: (W, h, N, dv); bias: (h, N, N). Returns
     (W, h, N, dv) in q's dtype: K3 on CUDA tensors (`supports_shape`,
-    float32 or bfloat16, contiguous), `fused_bias_attention_ref` on CPU
-    tensors."""
+    float32 or bfloat16, contiguous; copied first where they do not start
+    on a 16-byte boundary), `fused_bias_attention_ref` on CPU tensors."""
     if q.ndim != 4 or k.shape != q.shape or v.ndim != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"q, k must be (W, h, N, dk) and v (W, h, N, dv); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -76,6 +87,7 @@ def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be contiguous")
     if any(t.device != q.device for t in (k, v, bias)):
         raise ValueError("all inputs must be on q's device")
+    q, k, v = (aligned16(t) for t in (q, k, v))      # 16-byte loads (bf16)
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty((W, h, N, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):

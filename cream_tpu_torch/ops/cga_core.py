@@ -3,9 +3,11 @@
 `cga_attention` has the contract of the JAX package's
 `cream_tpu.ops.pallas.cga_core.cga_attention`: softmax(q·kᵀ·scale + bias)·v
 per window. On CUDA tensors it launches the kernel in `csrc/cga_core.cu`
-(K5); on CPU tensors it runs its plain PyTorch version `cga_attention_ref`.
-The TPU kernel's block-diagonal packing of G windows (−1e9 cross terms) is a
-Mosaic schedule choice the CUDA kernel does not need: it works per window.
+(K5: bf16 on the tensor cores, fp32 on the CUDA cores); on CPU tensors it
+runs its plain PyTorch version `cga_attention_ref`. The TPU kernel's
+block-diagonal packing of G windows (−1e9 cross terms) is a Mosaic schedule
+choice the CUDA kernel does not need: it works per window, with four
+16-token windows to a block.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import ctypes
 from functools import lru_cache
 
 import torch
+
+from cream_tpu_torch.ops.common import aligned16
 
 MAX_TOKENS = 64                       # tokens per window the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,7 +50,8 @@ def cga_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, scale: float) -> torch.Tensor:
     """q, k: (W, N, kd); v: (W, N, d); bias: (N, N) fp32, already gathered
     for this head. Returns softmax(q·kᵀ·scale + bias)·v as (W, N, d) in q's
-    dtype: K5 on CUDA tensors (N ≤ 64, float32 or bfloat16, contiguous),
+    dtype: K5 on CUDA tensors (N ≤ 64, float32 or bfloat16, contiguous;
+    copied first where they do not start on a 16-byte boundary),
     `cga_attention_ref` on CPU tensors."""
     _check(q, k, v, bias)
     if q.device.type == "cpu":
@@ -64,6 +69,7 @@ def cga_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must be contiguous")
     if any(t.device != q.device for t in (k, v, bias)):
         raise ValueError("all inputs must be on q's device")
+    q, k, v = (aligned16(t) for t in (q, k, v))      # 16-byte loads (bf16)
     bias = bias.to(torch.float32).contiguous()
     out = torch.empty((W, N, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):

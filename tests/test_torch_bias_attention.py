@@ -42,14 +42,21 @@ def _qkvb(W, h, N, dk, dv, seed):
 
 # the shapes of the JAX package's own kernel tests (test_pallas_kernels.py):
 # TinyViT's 49-token window, EfficientViT's 4x4 window, a 196-token window
-# (lane-padded to 256 inside the JAX wrapper) and W = 7 (not a window tile)
-@pytest.mark.parametrize("W,h,N,d", [(8, 4, 49, 32), (5, 3, 16, 16), (4, 2, 196, 32),
-                                     (7, 2, 49, 32)])
-def test_plain_matches_jax_kernel(W, h, N, d):
-    q, k, v, bias = _qkvb(W, h, N, d, d, seed=W + N)
+# (lane-padded to 256 inside the JAX wrapper) and W = 7 (not a window tile);
+# then dk != dv (BiasAttention's attn_ratio); (W, h, N, dk, dv), named
+# W-h-N-d where dk = dv = d
+PLAIN_CASES = [pytest.param(*c, id="-".join(map(str, c[:4] if c[3] == c[4] else c)))
+               for c in [(8, 4, 49, 32, 32), (5, 3, 16, 16, 16), (4, 2, 196, 32, 32),
+                         (7, 2, 49, 32, 32), (4, 3, 49, 16, 64), (3, 2, 100, 64, 32),
+                         (5, 2, 16, 8, 16), (2, 2, 196, 16, 64)]]
+
+
+@pytest.mark.parametrize("W,h,N,dk,dv", PLAIN_CASES)
+def test_plain_matches_jax_kernel(W, h, N, dk, dv):
+    q, k, v, bias = _qkvb(W, h, N, dk, dv, seed=W + N)
     want = np.asarray(jax_fused(*(jnp.asarray(a) for a in (q, k, v, bias)), interpret=True))
     got = bias_attention.fused_bias_attention_ref(*(torch.from_numpy(a) for a in (q, k, v, bias)))
-    assert tuple(got.shape) == (W, h, N, d)
+    assert tuple(got.shape) == (W, h, N, dv)
     # fp32: the same rounding points, sums in other orders
     np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=1e-5)
 

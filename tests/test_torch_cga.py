@@ -32,8 +32,16 @@ def _bf16_ulp_bound(ref, ulps):
     return ulps * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
+# every (N, d) of EfficientViT M0-M5 (N 49 at the 7x7 windows, 16 at stage
+# 2's 4x4; d = C / heads in 16..112); W = 16 at N = 49, the JAX kernel's
+# smallest block of whole windows (G = 16)
+CORE_CASES = [(32, 49, 16, 16), (64, 16, 16, 64), (16, 49, 16, 32)] + [
+    (16 if N == 49 else 8, N, 16, d) for N in (16, 49) for d in range(16, 113, 16)
+    if (N, d) not in ((49, 16), (16, 64), (49, 32))]
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("W,N,kd,d", [(32, 49, 16, 16), (64, 16, 16, 64), (16, 49, 16, 32)])
+@pytest.mark.parametrize("W,N,kd,d", CORE_CASES)
 def test_core_ref_matches_jax_kernel(W, N, kd, d, dtype):
     rng = np.random.default_rng(W + N + d)
     q, k = (rng.standard_normal((W, N, kd)).astype(np.float32) for _ in range(2))

@@ -22,9 +22,10 @@ autograd.Functions' grads, and a narrow EfficientViT train step whose three
 depthwise routes agree and launch the kernels the site count says; K6 at
 TinyViT's stage-0 shapes (smaller batches), ragged tiles and every built
 channel count, its zero-padded hidden tensor and the MBConv route; K3 at
-TinyViT's and EfficientViT's window sizes up to 256 tokens and kd != dv, the
-BiasAttention route; K10 bit for bit at 16-, 8-, 4- and 2-byte accesses and
-inside forward_windowed; K11 bit for bit with its identity backward; and a
+TinyViT's and EfficientViT's window sizes up to 256 tokens, kd != dv and
+head dims that are not multiples of 16 or 8, the BiasAttention route; K3
+and K5 on offset views and the same bf16 bits on two launches; K10 bit for
+bit at 16-, 8-, 4- and 2-byte accesses and inside forward_windowed; K11 bit for bit with its identity backward; and a
 narrow TinyViT whose pin_layouts and mbconv_kernel routes agree with the
 plain one.
 """
@@ -342,8 +343,13 @@ def _cga_bound(dtype, ref, ulps):
     return 1e-5 * top
 
 
+# every (N, d) of M0-M5's heads (16..112 at 49 and 16 tokens) and the img-96 windows
+K5_CASES = sorted({(ws * ws, C // h) for _, ws, C, h, _ in CGA_STAGES}
+                  | {(N, d) for N in (16, 49) for d in range(16, 113, 16)})
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,d", sorted({(ws * ws, C // h) for _, ws, C, h, _ in CGA_STAGES}))
+@pytest.mark.parametrize("N,d", K5_CASES)
 def test_k5_matches_plain(card, dtype, N, d):
     g = torch.Generator(card).manual_seed(N * d)
     W = 37
@@ -635,10 +641,14 @@ def test_k6_module_route_and_refusals(card):
                             *mbconv.fold_mbconv(_seeded_mbconv(card, 48, 192, 0), torch.float32))
 
 
-# (W, heads, N, d): TinyViT-21M's per-window shapes at bs256 cut, the
-# 196-token window, EfficientViT's 16-token window, 256 tokens, kd != dv
+# (W, heads, N, kd, dv): TinyViT-21M's per-window shapes at bs256 cut, the
+# 196-token window, EfficientViT's 16-token window, 256 tokens, kd != dv;
+# then head dims that are not multiples of 16 (the tensor-core path pads
+# them) or of 8 (element loads and stores), items that do not fill the
+# last block (4 a block at 16 tokens, 2 at 32)
 K3_CASES = [(64, 6, 49, 32, 32), (16, 12, 196, 32, 32), (40, 3, 16, 16, 16),
-            (4, 2, 256, 32, 32), (8, 4, 49, 16, 64), (5, 2, 100, 64, 32)]
+            (4, 2, 256, 32, 32), (8, 4, 49, 16, 64), (5, 2, 100, 64, 32),
+            (6, 2, 30, 12, 20), (7, 3, 32, 24, 7), (9, 3, 16, 8, 8), (3, 2, 144, 48, 80)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -655,6 +665,43 @@ def test_k3_matches_plain(card, dtype, W, h, N, kd, dv):
     assert ba.LAUNCHES == n + 1 and out.shape == (W, h, N, dv) and out.dtype == dtype
     ref = ba.fused_bias_attention_ref(q, k, v, bias)
     assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k5_take_offset_views(card, dtype):
+    """q, k and v that do not start on a 16-byte boundary (the bf16 path
+    stages them 16 bytes at a time): the wrappers copy them first."""
+    from cream_tpu_torch.ops import bias_attention as ba
+    g = torch.Generator(card).manual_seed(3)
+
+    def view(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, generator=g, device=card).to(dtype)
+        return flat[1:].view(*shape)
+    q, k, v = view(8, 3, 49, 32), view(8, 3, 49, 32), view(8, 3, 49, 16)
+    bias = torch.randn(3, 49, 49, generator=g, device=card)
+    ref = ba.fused_bias_attention_ref(q, k, v, bias)
+    out = ba.fused_bias_attention(q, k, v, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref.float())
+    q, k, v = view(37, 49, 16), view(37, 49, 16), view(37, 49, 64)
+    ref = cga_core.cga_attention_ref(q, k, v, bias[0], 0.25)
+    out = cga_core.cga_attention(q, k, v, bias[0], 0.25)
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref.float())
+
+
+@pytest.mark.parametrize("N,d", [(49, 32), (196, 32), (16, 16)])
+def test_k3_k5_bf16_same_bits_on_two_launches(card, N, d):
+    """No sum in either kernel depends on the launch: two launches on the
+    same inputs give the same bits."""
+    from cream_tpu_torch.ops import bias_attention as ba
+    g = torch.Generator(card).manual_seed(N)
+    q, k, v = (torch.randn(32, 4, N, d, generator=g, device=card).bfloat16() for _ in range(3))
+    bias = torch.randn(4, N, N, generator=g, device=card)
+    assert torch.equal(ba.fused_bias_attention(q, k, v, bias),
+                       ba.fused_bias_attention(q, k, v, bias))
+    if N <= cga_core.MAX_TOKENS:
+        q, k, v = (t.flatten(0, 1).contiguous() for t in (q, k, v))
+        assert torch.equal(cga_core.cga_attention(q, k, v, bias[0], 0.25),
+                           cga_core.cga_attention(q, k, v, bias[0], 0.25))
 
 
 def test_k3_module_route_and_refusals(card):
