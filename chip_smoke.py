@@ -53,9 +53,10 @@ non-zero):
      three routes, interleaved
  14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
      versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites
-     and TinyViT-21M bs256's MBConv and PatchMerging sites; dw the same bits
-     on two launches; kernel, plain, library (cuDNN) and bound times per
-     shape, summed per M5 train step
+     and TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites; dw
+     the same bits on two launches; kernel, plain, library (cuDNN) and
+     bound times per shape by CUDA-graph replay, summed per M5 train step
+     and per TinyViT-21M-224 train step
  15. grads: at a small fp32 shape, each depthwise autograd.Function's grads
      against autograd of the plain forward
  16. EfficientViT train golden: one fp32 M5 train step (B=8) on each
@@ -68,33 +69,38 @@ non-zero):
      "library" on the same weights and batch; train img/s of the three
      routes interleaved, peak memory; M5 bs512 eval img/s with the
      depthwise convs on "library" and "fused"
- 18. K6 vs plain: the fused eval MBConv kernel against `fused_mbconv_ref` on
+ 18. main path (TinyViT train, depthwise routes): TinyViT-21M-224 bf16
+     bs256 through train.make_train_step with every depthwise ConvBN on
+     "library" and on "fused": 12 + 12 K7 and 3 + 3 K9 launches per step
+     on "fused", none on "library"; the first step's loss and grad norm
+     against "library"; train img/s of both routes in 4 interleaved rounds
+ 19. K6 vs plain: the fused eval MBConv kernel against `fused_mbconv_ref` on
      a seeded module's fold at TinyViT-21M's and -5M/11M's stage-0 shapes
      (bs256 bf16; fp32 at bs32); kernel, plain and unfused-module times
- 19. K3 vs plain: the bias-attention kernel against
+ 20. K3 vs plain: the bias-attention kernel against
      `fused_bias_attention_ref` at TinyViT-21M's per-window shapes (bs256)
      and a 16-token window, bf16 (tensor cores; the same bits on two
      launches) and fp32 (CUDA cores); kernel, plain and SDPA times as for
      K5; then `BiasAttention` at 4,096 windows of 49 tokens, dim 192, 6
      heads: one K3 launch per call, against its plain route
- 20. K10 vs plain: the window partition and reverse kernels at
+ 21. K10 vs plain: the window partition and reverse kernels at
      TinyViT-21M-384's stage-2 map (bs64, window 24) and TinyViT-21M-224's
      stage-1 map (bs256, window 7), bit for bit; kernel, plain and
      `permute().contiguous()` device times (CUDA graphs)
- 21. K11 vs plain: the layout-pin copy at TinyViT-21M bs256's three
+ 22. K11 vs plain: the layout-pin copy at TinyViT-21M bs256's three
      stage-boundary tensors, bit for bit; kernel and `x.clone()` device
      times (CUDA graphs)
- 22. main path (TinyViT eval routes): TinyViT-21M-224 bf16 bs256 through
+ 23. main path (TinyViT eval routes): TinyViT-21M-224 bf16 bs256 through
      cli.inference.predict and cli.speed_test.throughput on four routes —
      library, mbconv_kernel (2 K6 launches per forward), pin_layouts (3 K11
      launches, logits bit-identical to library), both; top-1 agreement of
      the K6 route with library; img/s interleaved; the fp32 golden with
      both routes on
- 23. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
+ 24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
      their plain versions, top-1 agreement with the all-plain model; img/s
- 24. train check: one TinyViT-21M-224 bf16 bs256 train step with
+ 25. train check: one TinyViT-21M-224 bf16 bs256 train step with
      pin_layouts on: 3 K11 launches (none in the backward), the loss bit for
      bit the unpinned step's, per-tensor grads no further from it than a
      second unpinned step is
@@ -165,15 +171,18 @@ EVIT_STAGES = {
                         ("m0_s2", 1024, 4, 192, 4, (5, 5, 5, 5), 3)],
 }
 KD = 16
-# the depthwise 3x3 sites of one EfficientViT-M5 bs512 train step at 224:
-# (name, B, H, W, C, stride, sites per step); and TinyViT-21M bs256's
-# MBConv and PatchMerging sites (not on a ported train path; timed alone)
+# the depthwise 3x3 sites of one EfficientViT-M5 bs512 train step at 224
+# and of one TinyViT-21M-224 bs256 train step (its 2 MBConv conv2 and 10
+# local_conv sites at stride 1, 3 PatchMerging sites at stride 2):
+# (name, B, H, W, C, stride, sites per step)
 DW_M5 = [("m5_s0_block", 512, 14, 14, 192, 1, 3), ("m5_s0_cga", 2048, 7, 7, 16, 1, 1),
          ("m5_s1_block", 512, 7, 7, 288, 1, 8), ("m5_s1_cga", 512, 7, 7, 16, 1, 3),
          ("m5_s2_block", 512, 4, 4, 384, 1, 9), ("m5_s2_cga", 512, 4, 4, 16, 1, 8),
          ("m5_merge0", 512, 14, 14, 768, 2, 1)]
-DW_TINYVIT = [("tv21m_mbconv", 256, 56, 56, 384, 1, 2), ("tv21m_merge0", 256, 56, 56, 192, 2, 1),
-              ("tv21m_merge1", 256, 28, 28, 384, 2, 1), ("tv21m_merge2", 256, 14, 14, 576, 2, 1)]
+DW_TINYVIT = [("tv21m_mbconv", 256, 56, 56, 384, 1, 2), ("tv21m_local_s1", 256, 28, 28, 192, 1, 2),
+              ("tv21m_local_s2", 256, 14, 14, 384, 1, 6), ("tv21m_local_s3", 256, 7, 7, 576, 1, 2),
+              ("tv21m_merge0", 256, 56, 56, 192, 2, 1), ("tv21m_merge1", 256, 28, 28, 384, 2, 1),
+              ("tv21m_merge2", 256, 14, 14, 576, 2, 1)]
 DW_ROUTES = ("library", "fused", "wgrad")
 # K6 sites: TinyViT-21M's stage-0 MBConv (2 per forward) and TinyViT-5M/11M's
 # (name, B, H, W, C, HID, per forward)
@@ -1088,13 +1097,22 @@ def phase_dw(gen) -> tuple[dict, dict]:
             times[name] = t
     for key, kind, stride in (("k7_fwd", "fwd", 1), ("k7_bwd", "bwd", 1), ("k8", "wgrad", 1),
                               ("k9_fwd", "fwd", 2), ("k9_bwd", "bwd", 2)):
-        step = {k: sum(times[n][kind][k] * per for n, *_, s, per in DW_M5 if s == stride)
-                for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
-        print(f"dw {key} per EfficientViT-M5 bf16 bs512 train step: kernel {step['ms']:.4f} ms "
-              f"(issued one by one from the host {step['host_ms']:.4f} ms), plain "
-              f"{step['plain_ms']:.4f} ms, library {step['library_ms']:.4f} ms, bound "
-              f"{step['bound_ms']:.4f} ms")
+        for model, sites in (("EfficientViT-M5 bf16 bs512", DW_M5),
+                             ("TinyViT-21M-224 bf16 bs256", DW_TINYVIT)):
+            step = per_step(times, sites, kind, stride)
+            n = sum(per for *_, s, per in sites if s == stride)
+            print(f"dw {key} per {model} train step ({n} sites): kernel {step['ms']:.4f} ms "
+                  f"(issued one by one from the host {step['host_ms']:.4f} ms), plain "
+                  f"{step['plain_ms']:.4f} ms, library {step['library_ms']:.4f} ms, bound "
+                  f"{step['bound_ms']:.4f} ms [{card_info()}]")
     return worst, times
+
+
+def per_step(times: dict, sites: list, kind: str, stride: int) -> dict:
+    """`phase_dw`'s per-site times of one kind summed over a train step's
+    sites of one stride (each site's time times its count per step)."""
+    return {k: sum(times[n][kind][k] * per for n, *_, s, per in sites if s == stride)
+            for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
 
 
 def phase_dw_grads(gen) -> None:
@@ -1119,6 +1137,72 @@ def m5_dw_launches(route: str) -> dict:
     want = {"fused": {"k7_fwd": 32, "k7_bwd": 32, "k9_fwd": 1, "k9_bwd": 1},
             "wgrad": {"k8": 32}}.get(route, {})
     return {k: want.get(k, 0) for k in dwconv.LAUNCHES}
+
+
+def tv_dw_launches(route: str) -> dict:
+    """K7/K8/K9 launches of one TinyViT-21M-224 train step at 224 on
+    `route`: 12 stride-1 sites (2 MBConv conv2, 10 local_conv), 3 stride-2
+    PatchMerging sites."""
+    want = {"fused": {"k7_fwd": 12, "k7_bwd": 12, "k9_fwd": 3, "k9_bwd": 3},
+            "wgrad": {"k8": 12}}.get(route, {})
+    return {k: want.get(k, 0) for k in dwconv.LAUNCHES}
+
+
+def phase_tv_dw_train() -> dict:
+    """TinyViT-21M-224 bf16 bs256 train steps (AdamW as the trainer builds
+    it, drop path 0.2) with every depthwise site on "library" and on
+    "fused" (K7 at its 12 stride-1 sites, K9 at its 3 stride-2 sites), from
+    the same weights and batch: launches per step, the first step's loss,
+    train img/s in 4 interleaved rounds. Returns the "fused" route's
+    launches."""
+    dtype, routes = torch.bfloat16, ("library", "fused")
+    gen = torch.Generator("cuda").manual_seed(7)
+    models = {}
+    for route in routes:
+        models[route] = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+        models[route].load_state_dict(seeded_state_dict(models[route], 0))
+        set_dw_kernel(models[route], route)
+    x = smooth_images(gen, BATCH).to(dtype)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    batch = {"image": x, "label": F.one_hot(labels, 1000).float()}
+    step = make_train_step(loss_fn=soft_target_ce)
+    warmup, iters = 3, 10
+    first, ips, launches = {}, {r: [] for r in routes}, {}
+    for route in routes:
+        state = TrainState(models[route], make_adamw(
+            1e-3, weight_decay=0.05, clip_grad=5.0, params=dict(models[route].named_parameters())))
+        dwconv.reset_launches()
+        _, first[route] = step(state, batch, 0)
+        torch.cuda.synchronize()
+        want = tv_dw_launches(route)
+        check(dict(dwconv.LAUNCHES) == want,
+              f"tiny_vit_21m_224 {route}: K7/K8/K9 launches per step {dwconv.LAUNCHES}, want {want}")
+    dwconv.reset_launches()
+    for order in (routes, routes[::-1], routes, routes[::-1]):
+        for route in order:
+            ips[route].append(train_throughput(models[route], BATCH, 224, dtype, iters, warmup))
+    launches = dict(dwconv.LAUNCHES)
+    runs = 4 * (warmup + iters)
+    check(launches == {k: v * runs for k, v in tv_dw_launches("fused").items()},
+          f"tiny_vit_21m_224: K7/K8/K9 launches {launches} in the timed train steps")
+    l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
+    g_ref, g_k = float(first["library"]["grad_norm"]), float(first["fused"]["grad_norm"])
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+    median = {r: statistics.median(v) for r, v in ips.items()}
+    print(f"train tiny_vit_21m_224 bf16 B={BATCH} dw route fused: K7/K8/K9 launches per step "
+          f"{tv_dw_launches('fused')}, library none; step 1 vs library: loss {l_k:.5f} vs "
+          f"{l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), grad_norm "
+          f"{g_k:.4f} vs {g_ref:.4f} (rel diff {abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2)")
+    print(f"train throughput tiny_vit_21m_224 bf16 B={BATCH} dw routes (rounds in the orders "
+          f"library, fused / reversed / forward / reversed): " + "; ".join(
+              f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])} img/s (median {median[r]:.1f})"
+              for r in routes) + f"; fused / library {median['fused'] / median['library']:.4f} "
+          f"[{card_info()}]")
+    check(np.isfinite(l_k) and abs(l_k - l_ref) <= loss_lim,
+          f"tiny_vit_21m_224 fused vs library loss {l_k} vs {l_ref}")
+    check(abs(g_k - g_ref) <= 2e-2 * g_ref,
+          f"tiny_vit_21m_224 fused vs library grad_norm {g_k} vs {g_ref}")
+    return launches
 
 
 def phase_evit_train_golden() -> None:
@@ -1706,6 +1790,7 @@ def main() -> None:
     phase_dw_grads(gen)
     phase_evit_train_golden()
     evit_train = phase_evit_train()
+    tv_train = phase_tv_dw_train()
     worst_k6, t6 = phase_k6(gen)
     worst_k3, t3, k3_launches = phase_k3(gen)
     t10 = phase_k10(gen)
@@ -1745,11 +1830,12 @@ def main() -> None:
         rows.append({
             "name": f"dwconv_{key}", "route": "cuda", "source": "cream_tpu_torch/csrc/dwconv.cu",
             "replaces": f"cream_tpu/ops/dwconv.py:{src_line}",
-            "launches": evit_train[route][key], "max_abs_err": worst_dw[key],
+            "launches": evit_train[route][key] + tv_train[key], "max_abs_err": worst_dw[key],
             **{k: sum(tdw[n][kind][k] * per for n, per in sites)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": max((tdw[n][kind] for n, _ in sites),
-                            key=lambda r: r["bound_ms"])["bound_by"]})
+                            key=lambda r: r["bound_ms"])["bound_by"],
+            "tinyvit21m_step": per_step(tdw, DW_TINYVIT, kind, stride)})
     name, *_ = K3_SHAPES[0]
     rows.append({"name": "bias_attention", "route": "cuda",
                  "source": "cream_tpu_torch/csrc/bias_attention.cu",
@@ -1797,7 +1883,9 @@ def main() -> None:
           f"{k1_train}/{k2_train}; per EfficientViT-M5 bf16 bs512 forward (K4, K5), "
           f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes; "
           f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
-          f"sites), launches on its train path's fused (K7, K9) and wgrad (K8) routes; "
+          f"sites; under tinyvit21m_step the sum over a TinyViT-21M-224 bf16 bs256 train "
+          f"step's), launches on the M5 train path's fused (K7, K9) and wgrad (K8) routes "
+          f"and the TinyViT train path's fused route; "
           f"per BiasAttention call at 4,096 windows (K3); per TinyViT-21M-224 bf16 bs256 "
           f"forward (K6: its 2 MBConvs; K11: its 3 stage inputs), launches on the "
           f"mbconv_kernel/pin_layouts/both routes (and the pinned train step for K11); per "

@@ -41,9 +41,9 @@ KINDS = [
     ("K3 bias attention", r"bias_attention_(mma_)?kernel"),
     ("K5 CGA attention core", r"cga_core_(mma_)?kernel"),
     ("K6 fused MBConv", r"mbconv_(bf16|fp32)_kernel"),
-    ("K7 depthwise s1 fwd", r"dwconv_s1_fwd_kernel"),
-    ("K7 depthwise s1 bwd", r"dwconv_s1_bwd_kernel"),
-    ("K8 depthwise weight grad", r"dwconv_wgrad_kernel"),
+    ("K7 depthwise s1 fwd", r"dwconv_tile_fwd_kernel"),
+    ("K7 depthwise s1 bwd", r"dwconv_tile_bwd_kernel<[^>]*true>"),
+    ("K8 depthwise weight grad", r"dwconv_tile_bwd_kernel"),      # the same kernel, dx off
     ("K9 depthwise s2 fwd", r"dwconv_s2_fwd_kernel"),
     ("K9 depthwise s2 bwd", r"dwconv_s2_bwd_kernel"),
     ("K7/K8/K9 dw partial sums", r"dwconv_dw_reduce_kernel"),

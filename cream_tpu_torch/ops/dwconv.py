@@ -8,7 +8,8 @@ w9 = (9, C), tap `3*kh + kw` (the port's (C, 1, 3, 3) conv weight as
 the JAX package's three custom_vjps:
 
   `dw_conv3x3_fused`   stride 1: forward and backward are K7
-                       (`csrc/dwconv.cu`; dx and dw in one pass)
+                       (`csrc/dwconv.cu`, tile kernels; dx and dw in one
+                       pass)
   `dw_conv3x3_wg`      stride 1: the library forward (`F.conv2d`,
                        groups=C), the library dx (a depthwise conv of dy with
                        the flipped taps) and K8 for dw
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +44,78 @@ LAUNCHES = {"k7_fwd": 0, "k7_bwd": 0, "k8": 0, "k9_fwd": 0, "k9_bwd": 0}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+# the stride-1 tile kernels' plan: threads a block, channel lanes a tile,
+# tile rows and columns at most, staging bytes a block at most (both
+# buffers) and blocks aimed for
+_THREADS, _MAX_LANES, _MAX_TH, _MAX_TW = 256, 16, 16, 16
+_STAGES, _MAX_STAGE_BYTES = 2, 96 * 1024       # _STAGES: the kernels' kStages
+_TARGET_BLOCKS = 1024
+
+
+class TilePlan(NamedTuple):
+    """How K7/K8 cut a stride-1 (B, H, W, C) map: tiles of `th` rows, `tw`
+    columns and `cb` channels, `vec` channels a thread (cb / vec channel
+    lanes), `ni` tiles a block at once; a block takes one channel slice
+    and one of `groups` contiguous ranges of pixel tiles (the backward: one
+    (9, C) fp32 dw partial a group)."""
+    vec: int
+    cb: int
+    tw: int
+    th: int
+    ni: int
+    groups: int
+
+
+def _split(n: int, most: int) -> int:
+    """The tile length that cuts n into the fewest tiles of at most `most`,
+    as even as they go."""
+    parts = -(-n // most)
+    return -(-n // parts)
+
+
+@lru_cache(maxsize=None)
+def tile_plan(x_shape, dtype: torch.dtype, backward: bool) -> TilePlan:
+    """K7/K8's tile plan for a stride-1 map; it depends only on the shape
+    and dtype, so the order of every sum does too. A thread takes 4
+    channels forward (2 backward, whose 9 dw sums and 9 taps per channel
+    must stay in registers) where C allows, else 2, else 1; a tile up to 16
+    channel lanes by 16 columns by 16 rows; a block as many tiles as fit
+    256 threads (several whole images at small maps) while the launch keeps
+    about 1,024 blocks; the blocks walk their tiles with the next ones'
+    copy in flight (two buffers)."""
+    B, H, W, C = x_shape
+    e = torch.finfo(dtype).bits // 8
+    vec = next(v for v in ((2, 1) if backward else (4, 2, 1)) if C % v == 0)
+    lanes = max(d for d in range(1, min(C // vec, _MAX_LANES) + 1) if C // vec % d == 0)
+    cb = lanes * vec
+    tw = _split(W, min(_MAX_TW, _THREADS // lanes))
+    th = _split(H, _MAX_TH)
+    pix_tiles = B * -(-H // th) * -(-W // tw)
+    ni = max(1, min(_THREADS // (tw * lanes), pix_tiles * (C // cb) // _TARGET_BLOCKS))
+    stage = _STAGES * (th + 2) * (tw + 2) * cb * e * (2 if backward else 1)
+    ni = max(1, min(ni, _MAX_STAGE_BYTES // stage))
+    groups = min(-(-pix_tiles // ni), max(1, -(-_TARGET_BLOCKS // (C // cb))))
+    return TilePlan(vec, cb, tw, th, ni, groups)
+
+
+def tile_spans(x_shape, plan: TilePlan) -> Iterator[tuple]:
+    """The tiles as the kernels walk them: ((group, channel slice), b,
+    rows, columns, channels), each of the last three a `range`. Pixel tile
+    pt is (image, column tile, row tile) with the row tile fastest; block
+    (g, cs) takes pixel tiles [P*g/G, P*(g+1)/G) of slice cs."""
+    B, H, W, C = x_shape
+    nh, nw, ncs = -(-H // plan.th), -(-W // plan.tw), C // plan.cb
+    P = B * nh * nw
+    for g in range(plan.groups):
+        for cs in range(ncs):
+            for pt in range(P * g // plan.groups, P * (g + 1) // plan.groups):
+                q, hb = divmod(pt, nh)
+                b, wb = divmod(q, nw)
+                h0, w0, c0 = hb * plan.th, wb * plan.tw, cs * plan.cb
+                yield ((g, cs), b, range(h0, min(h0 + plan.th, H)),
+                       range(w0, min(w0 + plan.tw, W)), range(c0, c0 + plan.cb))
 
 
 def supports_fused(x_shape) -> bool:
@@ -155,9 +229,13 @@ def dw_conv3x3_fwd(x: torch.Tensor, w9: torch.Tensor, stride: int = 1) -> torch.
     B, H, W, C = x.shape
     y = torch.empty(B, _out_size(H, stride), _out_size(W, stride), C,
                     dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C, _DTYPE_CODE[x.dtype])
     with torch.cuda.device(x.device):
-        rc = _lib().cream_dwconv_fwd(x.data_ptr(), w9.data_ptr(), y.data_ptr(), B, H, W, C,
-                                     stride, _DTYPE_CODE[x.dtype], _stream(x))
+        if stride == 1:
+            plan = tile_plan(x.shape, x.dtype, backward=False)
+            rc = _lib().cream_dwconv_tile_fwd(*args, *plan, _stream(x))
+        else:
+            rc = _lib().cream_dwconv_s2_fwd(*args, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise-conv forward launch failed: cudaError {rc}")
     LAUNCHES["k7_fwd" if stride == 1 else "k9_fwd"] += 1
@@ -168,16 +246,22 @@ def _bwd_launch(x, dy, w9, stride, with_dx):
     B, H, W, C = x.shape
     lib = _lib()
     code = _DTYPE_CODE[x.dtype]
-    groups = lib.cream_dwconv_bwd_groups(B, H, W, C, stride, code)
+    if stride == 1:
+        plan = tile_plan(x.shape, x.dtype, backward=True)
+        groups = plan.groups
+    else:
+        groups = lib.cream_dwconv_s2_bwd_groups(B, H, W, C, code)
     partial = torch.empty(groups, 9, C, dtype=torch.float32, device=x.device)
     dw9 = torch.empty(9, C, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if with_dx else None
+    args = (x.data_ptr(), dy.data_ptr(), w9.data_ptr() if with_dx else None,
+            dx.data_ptr() if with_dx else None, partial.data_ptr(), dw9.data_ptr(),
+            B, H, W, C, code)
     with torch.cuda.device(x.device):
-        rc = lib.cream_dwconv_bwd(x.data_ptr(), dy.data_ptr(),
-                                  w9.data_ptr() if with_dx else None,
-                                  dx.data_ptr() if with_dx else None,
-                                  partial.data_ptr(), dw9.data_ptr(), B, H, W, C, stride,
-                                  code, groups, _stream(x))
+        if stride == 1:
+            rc = lib.cream_dwconv_tile_bwd(*args, *plan, _stream(x))
+        else:
+            rc = lib.cream_dwconv_s2_bwd(*args, groups, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise-conv backward launch failed: cudaError {rc}")
     return dx, dw9
@@ -286,11 +370,13 @@ def dw_conv3x3s2_fused(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
 def _lib():
     from cream_tpu_torch.ops import build
     lib = build.load()
-    lib.cream_dwconv_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.cream_dwconv_fwd.restype = ctypes.c_int
-    lib.cream_dwconv_bwd_groups.argtypes = [ctypes.c_int] * 6
-    lib.cream_dwconv_bwd_groups.restype = ctypes.c_int
-    lib.cream_dwconv_bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                                     + [ctypes.c_void_p])
-    lib.cream_dwconv_bwd.restype = ctypes.c_int
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+            ("cream_dwconv_tile_fwd", [ptr] * 3 + [i] * 11 + [ptr]),
+            ("cream_dwconv_tile_bwd", [ptr] * 6 + [i] * 11 + [ptr]),
+            ("cream_dwconv_s2_fwd", [ptr] * 3 + [i] * 5 + [ptr]),
+            ("cream_dwconv_s2_bwd_groups", [i] * 5),
+            ("cream_dwconv_s2_bwd", [ptr] * 6 + [i] * 6 + [ptr])):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
     return lib

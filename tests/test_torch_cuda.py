@@ -448,12 +448,16 @@ def test_narrow_efficientvit_routes_agree(card, img):
         torch.testing.assert_close(out[route], out["plain"], atol=1e-4, rtol=1e-4)
 
 
-# (B, H, W, C, stride): M5's depthwise sites, TinyViT-21M's MBConv and
-# PatchMerging sites (batches cut), odd C (one bf16 channel per thread), an
-# odd stride-2 map (the kernel takes it; ConvBN routes it to the library)
+# (B, H, W, C, stride): M5's depthwise sites, TinyViT-21M's MBConv,
+# local_conv and PatchMerging sites (batches cut), odd C (one bf16 channel
+# per thread), an odd stride-2 map (the kernel takes it; ConvBN routes it to
+# the library), a map whose tiles are ragged in H, W and C (staged element
+# by element in the backward), the smallest map K7 takes
 DW_CASES = [(4, 14, 14, 192, 1), (16, 7, 7, 16, 1), (4, 7, 7, 288, 1), (4, 4, 4, 384, 1),
             (8, 4, 4, 16, 1), (2, 56, 56, 384, 1), (4, 14, 14, 768, 2), (2, 56, 56, 192, 2),
-            (2, 14, 14, 576, 2), (3, 9, 6, 15, 1), (3, 8, 6, 15, 2), (2, 7, 7, 16, 2)]
+            (2, 14, 14, 576, 2), (3, 9, 6, 15, 1), (3, 8, 6, 15, 2), (2, 7, 7, 16, 2),
+            (2, 28, 28, 192, 1), (2, 14, 14, 384, 1), (2, 7, 7, 576, 1), (2, 57, 35, 40, 1),
+            (1, 1, 2, 8, 1)]
 
 
 def _dw_inputs(card, B, H, W, C, stride, dtype):

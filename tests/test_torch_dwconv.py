@@ -23,8 +23,10 @@ from cream_tpu_torch.nn.layers import DW_KERNELS, ConvBN, set_dw_kernel
 from cream_tpu_torch.ops import dwconv
 
 # (B, H, W, C, stride): a TinyViT-like map, the CGA's 7x7 q-depthwise at 16
-# channels, a stride-2 PatchMerging map
-CASES = [(2, 8, 8, 32, 1), (2, 7, 7, 16, 1), (2, 8, 8, 32, 2)]
+# channels, a stride-2 PatchMerging map, a TinyViT local_conv-like map at
+# narrow width, a ragged map
+CASES = [(2, 8, 8, 32, 1), (2, 7, 7, 16, 1), (2, 8, 8, 32, 2), (2, 14, 14, 48, 1),
+         (2, 9, 13, 24, 1)]
 
 
 def _np(t):
@@ -63,7 +65,8 @@ def _close(got, want, dtype, rel):
         np.testing.assert_allclose(got, want, atol=rel * top, rtol=0)
 
 
-PARAMS = [(*c, torch.float32) for c in CASES] + [(2, 8, 8, 32, 1, torch.bfloat16)]
+PARAMS = [(*c, torch.float32) for c in CASES] + [
+    (*c, torch.bfloat16) for c in CASES if c[-1] == 1 and c != (2, 7, 7, 16, 1)]
 
 
 @pytest.mark.parametrize("B,H,W,C,stride,dtype", PARAMS)
@@ -227,3 +230,35 @@ def test_efficientvit_m5_depthwise_sites_at_224():
     other = [c for n, c in m.named_modules() if ".dws." in n and isinstance(c, ConvBN)
              and not c.is_dw3x3()]
     assert sorted({c.c.kernel_size[0] for c in other}) == [5, 7] and len(other) == 16
+
+
+# stride-1 shapes the tile kernels see: EfficientViT-M5 bs512's and
+# TinyViT-21M-224 bs256's sites (chip_smoke.DW_M5, DW_TINYVIT) and the card
+# tests' shapes (tests/test_torch_cuda.py DW_CASES)
+TILE_SHAPES = [(512, 14, 14, 192), (2048, 7, 7, 16), (512, 7, 7, 288), (512, 7, 7, 16),
+               (512, 4, 4, 384), (512, 4, 4, 16), (256, 56, 56, 384), (256, 28, 28, 192),
+               (256, 14, 14, 384), (256, 7, 7, 576), (4, 14, 14, 192), (16, 7, 7, 16),
+               (4, 7, 7, 288), (4, 4, 4, 384), (8, 4, 4, 16), (2, 56, 56, 384), (3, 9, 6, 15),
+               (2, 28, 28, 192), (2, 14, 14, 384), (2, 7, 7, 576), (2, 57, 35, 40),
+               (1, 1, 2, 8)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plan_covers_every_output_once(dtype, backward):
+    """K7/K8's tiles cover every (pixel, channel) of the map exactly once;
+    a block takes whole tiles of one channel slice within 256 threads, and
+    every group has tiles (the backward sums one dw partial a group)."""
+    for B, H, W, C in TILE_SHAPES:
+        plan = dwconv.tile_plan((B, H, W, C), dtype, backward)
+        lanes = plan.cb // plan.vec
+        assert C % plan.cb == 0 and plan.cb % plan.vec == 0 and plan.vec <= (2 if backward else 4)
+        assert plan.ni * plan.tw * lanes <= 256 and plan.tw <= 16 and plan.th <= 16
+        count = np.zeros((B, H, W, C // plan.cb), np.int32)
+        groups = set()
+        for (g, cs), b, rows, cols, chans in dwconv.tile_spans((B, H, W, C), plan):
+            assert chans == range(cs * plan.cb, (cs + 1) * plan.cb)
+            count[b, rows.start:rows.stop, cols.start:cols.stop, cs] += 1
+            groups.add(g)
+        assert (count == 1).all(), (B, H, W, C, plan)
+        assert groups == set(range(plan.groups))
