@@ -76,7 +76,11 @@ non-zero):
      against "library"; train img/s of both routes in 4 interleaved rounds
  19. K6 vs plain: the fused eval MBConv kernel against `fused_mbconv_ref` on
      a seeded module's fold at TinyViT-21M's and -5M/11M's stage-0 shapes
-     (bs256 bf16; fp32 at bs32); kernel, plain and unfused-module times
+     (bs256 bf16; fp32 at bs32) and at maps its 14x14 bf16 tiles cut
+     raggedly, the same bits on two launches; kernel, plain and
+     unfused-module device times by CUDA-graph replay in 3 interleaved
+     rounds (CUDA events beside them) against the roofline bound and the
+     CUDA-core floor
  20. K3 vs plain: the bias-attention kernel against
      `fused_bias_attention_ref` at TinyViT-21M's per-window shapes (bs256)
      and a 16-token window, bf16 (tensor cores; the same bits on two
@@ -89,7 +93,9 @@ non-zero):
      `permute().contiguous()` device times (CUDA graphs)
  22. K11 vs plain: the layout-pin copy at TinyViT-21M bs256's three
      stage-boundary tensors, bit for bit; kernel and `x.clone()` device
-     times (CUDA graphs)
+     times (CUDA graphs); then K11 per forward against x.clone() and K9's
+     forward per TinyViT-21M-224 train step against cuDNN, by CUDA-graph
+     replay in 3 interleaved rounds, each round's ratio
  23. main path (TinyViT eval routes): TinyViT-21M-224 bf16 bs256 through
      cli.inference.predict and cli.speed_test.throughput on four routes —
      library, mbconv_kernel (2 K6 launches per forward), pin_layouts (3 K11
@@ -188,6 +194,17 @@ DW_ROUTES = ("library", "fused", "wgrad")
 # (name, B, H, W, C, HID, per forward)
 MBCONV_SHAPES = [("tv21m_stage0", BATCH, 56, 56, 96, 384, 2),
                  ("tv5m_stage0", BATCH, 56, 56, 64, 256, 2)]
+# maps that K6's bf16 tiles (14x14) cut raggedly, checked but not timed
+K6_RAGGED = [("ragged_15x15", 2, 15, 15, 32, 64, 0), ("ragged_57x35", 1, 57, 35, 64, 256, 0),
+             ("one_pixel", 2, 1, 1, 96, 384, 0), ("ragged_30x23", 3, 30, 23, 96, 384, 0)]
+# the CUDA-core floor's rates at an assumed 1.98 GHz (the clock at which the
+# data sheet's 67 TFLOP/s fp32, an FMA as 2, holds; not read from the card):
+# one fp32 operation a lane a clock on 132 SMs x 128 lanes, and one MUFU
+# operation (ex2, rcp) on 16 of each SM's lanes a clock (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0)
+CUDA_CORE_CLOCK = 1.98e9
+CUDA_CORE_OPS = 132 * 128 * CUDA_CORE_CLOCK
+MUFU_OPS = 132 * 16 * CUDA_CORE_CLOCK
 # K3: (name, windows, heads, N, d); the first is BiasAttention's main path
 K3_SHAPES = [("tv21m_s1_windows", 4096, 6, 49, 32), ("tv21m_s3_windows", BATCH, 18, 49, 32),
              ("tv21m_s2_windows", BATCH, 12, 196, 32), ("evit_4x4_windows", 4096, 4, 16, 16)]
@@ -349,14 +366,19 @@ def capturable(fn) -> bool:
     return False
 
 
-def interleaved_graph_ms(*fns, rounds: int = 3) -> list[float]:
-    """The median over `rounds` of each fn's `graph_ms`, the fns timed in
+def graph_rounds(*fns, rounds: int = 3) -> list[list[float]]:
+    """Each fn's `graph_ms` in each of `rounds` rounds, the fns timed in
     turn each round, so a drift of the card's clock falls on all of them."""
     times = [[] for _ in fns]
     for _ in range(rounds):
         for t, fn in zip(times, fns):
             t.append(graph_ms(fn))
-    return [statistics.median(t) for t in times]
+    return times
+
+
+def interleaved_graph_ms(*fns, rounds: int = 3) -> list[float]:
+    """The median over `rounds` of each fn's `graph_ms` (`graph_rounds`)."""
+    return [statistics.median(t) for t in graph_rounds(*fns, rounds=rounds)]
 
 
 def kernel_plain_library_ms(kern, plain, lib) -> dict:
@@ -1358,45 +1380,92 @@ def k6_bound_ms(B, H, W, C, hid, dtype) -> tuple[float, str]:
     return roofline_ms(nbytes, pix * (4 * C * hid + 18 * hid), dtype)
 
 
+# the bf16 kernel's tanh-form GELU (`gelu<false>` in csrc/mbconv.cu) as it
+# executes: 9 fp32 lane operations (0.5x; the exponent's multiply, FMA and
+# multiply; 1 + e; the FMA 1 - 2r; copysign; 1 + t; the last multiply) and
+# 2 MUFU operations (ex2.approx, rcp.approx)
+GELU_LANE_OPS, GELU_MUFU_OPS = 9, 2
+
+
+def k6_floor_ms(B, H, W, C, hid) -> float:
+    """K6's CUDA-core floor: the work of the function (not the kernel's halo
+    recompute) that cannot go to the tensor cores, at `CUDA_CORE_CLOCK`
+    (assumed). Per hidden element: the expand's bias add, the depthwise's
+    18 fp32 operations (multiply and add apart, as the plain version rounds
+    them) and two GELUs; per output channel the bias and residual adds and
+    a GELU. The larger of the fp32 lanes' time and the MUFU's."""
+    pix = B * H * W
+    lane = pix * (hid * (1 + 18 + 2 * GELU_LANE_OPS) + C * (2 + GELU_LANE_OPS))
+    mufu = pix * (hid * 2 + C) * GELU_MUFU_OPS
+    return max(lane / CUDA_CORE_OPS, mufu / MUFU_OPS) * 1e3
+
+
 def phase_k6(gen) -> tuple[float, dict]:
     """K6 against its plain version on seeded modules' folds at the stage-0
-    shapes (bf16 at bs256, fp32 at bs32); bf16 times of the kernel, the
-    plain version and the unfused eval module."""
+    shapes (bf16 at bs256, fp32 at bs32) and at maps its bf16 tiles cut
+    raggedly, the same bits on two launches; bf16 device times of the
+    kernel, the plain version and the unfused eval module by CUDA-graph
+    replay in 3 interleaved rounds (CUDA-events times beside them), against
+    the roofline bound and the CUDA-core floor."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst_bf16, times = 0.0, {}
-    for name, B, H, W, C, hid, per in MBCONV_SHAPES:
-        for dtype, batch in ((torch.bfloat16, B), (torch.float32, 32)):
+    for name, B, H, W, C, hid, per in MBCONV_SHAPES + K6_RAGGED:
+        for dtype, batch in ((torch.bfloat16, B), (torch.float32, min(B, 32))):
             m = seeded_mbconv(C, hid, dtype, seed=C)
             ops = mbconv.fold_mbconv(m, dtype)
             x = torch.randn(batch, H, W, C, generator=gen, device="cuda").to(dtype)
             with torch.inference_mode():
                 out = mbconv.fused_mbconv(x, *ops)
+                again = mbconv.fused_mbconv(x, *ops)
                 torch.cuda.synchronize()
                 ref = mbconv.fused_mbconv_ref(x, *ops)
             err = (out.float() - ref.float()).abs().max().item()
             lim = bound(dtype, ref.float())
             ulp = bf16_ulp(ref.float().abs().max().clamp_min(1.0)).item()
+            same = torch.equal(out, again)
             print(f"k6 {name} B={batch} {H}x{W} C={C} HID={hid} "
                   f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} bound={lim:.3e} "
                   f"({err / ulp:.2f} bf16 ulps at max |y|; elements differing: "
-                  f"{(out != ref).float().mean().item():.2e})")
+                  f"{(out != ref).float().mean().item():.2e}); two launches bit-identical: "
+                  f"{same}")
             check(err <= lim, f"K6 {name} {dtype} err {err} > {lim}")
             check(out.shape == x.shape and bool(torch.isfinite(out).all()), f"K6 {name} output")
+            check(same, f"K6 {name} {dtype}: two launches differ")
             if dtype != torch.bfloat16:
                 continue
             worst_bf16 = max(worst_bf16, err)
+            if not per:
+                continue
             with torch.inference_mode():
-                k_ms = cuda_ms(lambda: mbconv.fused_mbconv(x, *ops))
-                p_ms = cuda_ms(lambda: mbconv.fused_mbconv_ref(x, *ops))
-                u_ms = cuda_ms(lambda: m(x))
-            b_ms, by = k6_bound_ms(B, H, W, C, hid, dtype)
-            times[name] = dict(ms=k_ms, plain_ms=p_ms, module_ms=u_ms, bound_ms=b_ms,
-                               bound_by=by, per_forward=per)
-            print(f"k6 time {name} bf16 B={B}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"unfused eval MBConv module (cuDNN 1x1 and depthwise convs, BN, GELU; no "
-                  f"single library call computes the block) {u_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({by}) [{card_info()}]")
+                def kern():
+                    return mbconv.fused_mbconv(x, *ops)
+
+                def plain():
+                    return mbconv.fused_mbconv_ref(x, *ops)
+
+                def module():
+                    return m(x)
+                n0 = mbconv.LAUNCHES
+                k_ms, p_ms, u_ms = interleaved_graph_ms(kern, plain, module)
+                check(mbconv.LAUNCHES > n0, f"K6 {name}: the timing did not launch K6")
+                t = dict(ms=k_ms, host_ms=cuda_ms(kern), plain_ms=p_ms,
+                         plain_host_ms=cuda_ms(plain), module_ms=u_ms,
+                         module_host_ms=cuda_ms(module), per_forward=per)
+            t["bound_ms"], t["bound_by"] = k6_bound_ms(B, H, W, C, hid, dtype)
+            t["floor_ms"] = k6_floor_ms(B, H, W, C, hid)
+            times[name] = t
+            print(f"k6 time {name} bf16 B={B} (device, CUDA graph, median of 3 interleaved "
+                  f"rounds; CUDA events in parentheses): kernel {t['ms']:.4f} ms "
+                  f"({t['host_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
+                  f"({t['plain_host_ms']:.4f}), unfused eval MBConv module (cuDNN 1x1 and "
+                  f"depthwise convs, BN, GELU; no single library call computes the block) "
+                  f"{t['module_ms']:.4f} ms ({t['module_host_ms']:.4f}), roofline bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), CUDA-core floor "
+                  f"{t['floor_ms']:.4f} ms (at an assumed {CUDA_CORE_CLOCK / 1e9:.2f} GHz); "
+                  f"per TinyViT forward ({per} launches) "
+                  f"kernel {per * t['ms']:.4f} ms, module {per * t['module_ms']:.4f} ms "
+                  f"[{card_info()}]")
     return worst_bf16, times
 
 
@@ -1562,6 +1631,46 @@ def phase_k11(gen) -> dict:
                   f"bound {b_ms:.4f} ms ({by}) [{card_info()}]")
             times[name] = t
     return times
+
+
+def phase_retime(gen) -> dict:
+    """K11 against x.clone() at TinyViT-21M bs256's three stage inputs (one
+    forward) and K9's forward against cuDNN at TinyViT-21M bs256's three
+    stride-2 sites (one train step), bf16, by CUDA-graph replay in 3
+    interleaved rounds; each round's sums and kernel / library ratio, and
+    whether the kernel is more than 3% slower in every round."""
+    pairs = {"k11": [], "k9_fwd": []}
+    for name, B, Hm, C in K11_SHAPES:
+        x = torch.randn(B, Hm, Hm, C, generator=gen, device="cuda").to(torch.bfloat16)
+        pairs["k11"].append((lambda x=x: layout_pin.layout_pin(x), lambda x=x: x.clone(), 1))
+    for name, B, H, W, C, stride, per in DW_TINYVIT:
+        if stride != 2:
+            continue
+        x, w9, dy = dw_inputs(gen, B, H, W, C, stride, torch.bfloat16)
+        pairs["k9_fwd"].append((lambda x=x, w9=w9: dwconv.dw_conv3x3_fwd(x, w9, 2),
+                                dw_library(x, w9, dy, 2)[0], per))
+    fns = [fn for p in pairs.values() for k, lib, _ in p for fn in (k, lib)]
+    with torch.inference_mode():
+        rounds = iter(graph_rounds(*fns, rounds=3))
+    out = {}
+    for key, p in pairs.items():
+        kern, lib = [0.0] * 3, [0.0] * 3
+        for _, _, per in p:
+            kr, lr = next(rounds), next(rounds)
+            kern = [a + per * b for a, b in zip(kern, kr)]
+            lib = [a + per * b for a, b in zip(lib, lr)]
+        ratio = [k / lb for k, lb in zip(kern, lib)]
+        slower = all(r > 1.03 for r in ratio)
+        what = ("K11 per TinyViT-21M-224 bf16 bs256 forward (3 stage inputs) vs x.clone()"
+                if key == "k11" else
+                "K9 fwd per TinyViT-21M-224 bf16 bs256 train step (3 stride-2 sites) vs cuDNN")
+        print(f"retime {what} (device, CUDA graph, 3 interleaved rounds): kernel "
+              + " / ".join(f"{v:.4f}" for v in kern) + " ms, library "
+              + " / ".join(f"{v:.4f}" for v in lib) + " ms, kernel / library "
+              + " / ".join(f"{v:.3f}" for v in ratio)
+              + f"; more than 3% slower in every round: {slower} [{card_info()}]")
+        out[key] = dict(ms=kern, library_ms=lib, slower=slower)
+    return out
 
 
 def set_tv_route(model: torch.nn.Module, route: str) -> None:
@@ -1795,6 +1904,7 @@ def main() -> None:
     worst_k3, t3, k3_launches = phase_k3(gen)
     t10 = phase_k10(gen)
     t11 = phase_k11(gen)
+    retime = phase_retime(gen)
     k6_launches, k11_eval = phase_tv_routes()
     k10_launches = phase_tv384()
     k11_train = phase_pin_train()
@@ -1845,7 +1955,9 @@ def main() -> None:
     rows.append({"name": "mbconv_fused", "route": "cuda", "source": "cream_tpu_torch/csrc/mbconv.cu",
                  "replaces": "cream_tpu/ops/pallas/mbconv.py:37", "launches": k6_launches,
                  "max_abs_err": worst_k6,
-                 **{k: t6[name][k] * per for k in ("ms", "plain_ms", "module_ms", "bound_ms")},
+                 **{k: t6[name][k] * per
+                    for k in ("ms", "host_ms", "plain_ms", "plain_host_ms", "module_ms",
+                              "module_host_ms", "bound_ms")},
                  "bound_by": t6[name]["bound_by"], "library_ms": None,
                  "library_note": "no single PyTorch call computes the MBConv block; module_ms "
                  "is the unfused eval MBConv module on the same input"})
@@ -1863,7 +1975,9 @@ def main() -> None:
                  "launches": k11_eval + k11_train, "max_abs_err": 0.0,
                  **{k: sum(t[k] for t in t11.values())
                     for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_ms")},
-                 "bound_by": "bytes"})
+                 "bound_by": "bytes", "retime": retime["k11"]})
+    next(r for r in rows if r["name"] == "dwconv_k9_fwd")["tinyvit21m_step_retime"] = \
+        retime["k9_fwd"]
     ids = {"window_attention_fwd": "K1", "window_attention_bwd": "K2", "bias_attention": "K3",
            "cga_fused": "K4", "cga_core": "K5", "mbconv_fused": "K6", "dwconv_k7_fwd": "K7",
            "dwconv_k7_bwd": "K7", "dwconv_k8": "K8", "dwconv_k9_fwd": "K9",
@@ -1887,7 +2001,9 @@ def main() -> None:
           f"step's), launches on the M5 train path's fused (K7, K9) and wgrad (K8) routes "
           f"and the TinyViT train path's fused route; "
           f"per BiasAttention call at 4,096 windows (K3); per TinyViT-21M-224 bf16 bs256 "
-          f"forward (K6: its 2 MBConvs; K11: its 3 stage inputs), launches on the "
+          f"forward (K6: its 2 MBConvs; K11: its 3 stage "
+          f"inputs, under retime the 3 interleaved rounds against x.clone(), as "
+          f"tinyvit21m_step_retime for K9's forward against cuDNN), launches on the "
           f"mbconv_kernel/pin_layouts/both routes (and the pinned train step for K11); per "
           f"TinyViT-21M-384 bf16 bs64 forward (K10: 6 partitions + 6 reverses)")
     print(card)

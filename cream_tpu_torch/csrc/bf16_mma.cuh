@@ -33,6 +33,18 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The A fragment of a 16x16 tile of a row-major matrix in shared memory at
+// `p` = &M[r0][k0], row stride `stride` elements (rows 16-byte aligned):
+// the four 8x8 quarters in a0..a3 order, as load_a gives them
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const __nv_bfloat16* p, int stride,
+                                        int lane) {
+  const __nv_bfloat16* row = p + ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + (lane >> 4) * 8;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
 // The B fragments of two adjacent n-tiles from a row-major (k, n) matrix in
 // shared memory: rows k0..k0+15, columns n0..n0+15 at `p` = &M[k0][n0], row
 // stride `stride` elements (rows 16-byte aligned). b[0], b[1] are n-tile n0,

@@ -52,7 +52,13 @@
 
 #include <type_traits>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using cpa::cp_async16;
+using cpa::cp_async_commit;
+using cpa::cp_async_wait;
 
 constexpr int kThreads = 256;
 constexpr int kTargetBlocks = 1024;  // backward blocks aimed for (~8 per SM)
@@ -362,21 +368,6 @@ struct TileAt {
 __device__ __forceinline__ TileAt pixel_tile(int pt, const Tiles& t, int c0) {
   const int hb = pt % t.nh, q = pt / t.nh;
   return {q / t.nw, hb * t.th, (q % t.nw) * t.tw, c0};
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T> __device__ __forceinline__ T zero();

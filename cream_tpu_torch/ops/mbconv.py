@@ -4,8 +4,9 @@
 `cream_tpu.ops.pallas.mbconv.fused_mbconv`: x (B, H, W, C) through 1x1
 expand -> GELU -> 3x3 depthwise -> GELU -> 1x1 project -> + x -> GELU, with
 the hidden (B, H, W, HID) tensor never stored. On CUDA tensors it launches
-the kernel in `csrc/mbconv.cu` (K6); on CPU tensors it runs its plain PyTorch
-version `fused_mbconv_ref`. `fold_mbconv` is the counterpart of
+the kernel in `csrc/mbconv.cu` (K6) on the grid of tiles `tile_plan` gives
+(`tile_spans` lists the pixels each block writes); on CPU tensors it runs its plain PyTorch version
+`fused_mbconv_ref`. `fold_mbconv` is the counterpart of
 `fold_mbconv_variables`: it folds an `nn.layers.MBConv`'s three ConvBNs into
 the seven operands. The TPU kernel's gate (a VMEM budget and `hid % 128`) is
 a Mosaic rule and is not ported; `supports_shape` is the CUDA kernel's own.
@@ -14,10 +15,12 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from cream_tpu_torch.ops.common import aligned16
 from cream_tpu_torch.ops.fuse import fold_convbn
 
 CHANNELS = (32, 64, 96, 128)          # C the kernel is built for
@@ -27,6 +30,45 @@ _SQRT_2_OVER_PI = 0.7978845608028654
 
 # kernel launches since import (or since a caller reset them)
 LAUNCHES = 0
+
+
+class TilePlan(NamedTuple):
+    """How K6 cuts a (B, H, W, C) map: square output tiles of `tile` pixels
+    a side, `tiles_h` x `tiles_w` of them an image, one block each. The
+    kernel is launched on this grid ((tiles_h * tiles_w, B) blocks); its C
+    entry refuses a grid that does not cover the map in its build's tiles."""
+    tile: int
+    tiles_h: int
+    tiles_w: int
+
+
+# the tile side each dtype's kernel is built for (`kTile` in csrc/mbconv.cu)
+_TILE = {torch.bfloat16: 14, torch.float32: 8}
+
+
+@lru_cache(maxsize=None)
+def tile_plan(x_shape, dtype: torch.dtype) -> TilePlan:
+    """K6's tile plan for x of `x_shape` (B, H, W, C) in `dtype`; it depends
+    only on the shape and dtype, so the order of every sum does too. The
+    tile side is the build's (14 for bfloat16, 8 for float32); maps that
+    are not whole tiles end in a ragged tile whose pixels outside the map
+    are masked. Blocks are not persistent: one a tile."""
+    B, H, W, C = x_shape
+    tile = _TILE[dtype]
+    return TilePlan(tile, -(-H // tile), -(-W // tile))
+
+
+def tile_spans(x_shape, plan: TilePlan) -> Iterator[tuple]:
+    """The blocks of the plan's grid as the kernel reads its block index:
+    ((tile index, image), b, output rows, output columns), the last two
+    `range`s clipped to the map; tile index t (blockIdx.x) is row tile
+    t // tiles_w, column tile t % tiles_w."""
+    B, H, W, C = x_shape
+    for b in range(B):
+        for t in range(plan.tiles_h * plan.tiles_w):
+            y0, x0 = t // plan.tiles_w * plan.tile, t % plan.tiles_w * plan.tile
+            yield ((t, b), b, range(y0, min(y0 + plan.tile, H)),
+                   range(x0, min(x0 + plan.tile, W)))
 
 
 def supports_shape(x_shape, hid: int, dtype: torch.dtype) -> bool:
@@ -115,16 +157,18 @@ def fused_mbconv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError("x must be contiguous")
     if any(t.device != x.device for t, _ in shapes.values()):
         raise ValueError("all inputs must be on x's device")
-    w1, w2 = (t.to(x.dtype).contiguous() for t in (w1, w2))
-    b1, dw, bdw, b2 = (t.to(torch.float32).contiguous() for t in (b1, dw, bdw, b2))
-    if x.data_ptr() % 16:           # the bf16 kernel reads x 16 bytes at a time
-        x = x.clone()
+    # the bf16 kernel copies every operand 16 bytes at a time
+    w1, w2 = (aligned16(t.to(x.dtype).contiguous()) for t in (w1, w2))
+    b1, dw, bdw, b2 = (aligned16(t.to(torch.float32).contiguous()) for t in (b1, dw, bdw, b2))
+    x = aligned16(x)
+    plan = tile_plan(tuple(x.shape), x.dtype)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), dw.data_ptr(),
                        bdw.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                       B, H, W, C, hid, _DTYPE_CODE[x.dtype], stream)
+                       B, H, W, C, hid, _DTYPE_CODE[x.dtype], plan.tiles_h, plan.tiles_w,
+                       stream)
     if rc != 0:
         raise RuntimeError(f"MBConv kernel launch failed: cudaError {rc}")
     global LAUNCHES
@@ -136,6 +180,6 @@ def fused_mbconv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def _kernel():
     from cream_tpu_torch.ops import build
     fn = build.load().cream_mbconv_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -576,9 +576,12 @@ def _seeded_mbconv(card, C, hid, seed):
 
 
 # (B, H, W, C, HID): TinyViT-21M's and -5M/11M's stage-0 maps (batches cut),
-# maps that are not whole 8x8 tiles, the other built channel counts
+# maps that are not whole 8x8 tiles, the other built channel counts; maps
+# that cut 14x14 tiles (bf16) raggedly, a map smaller than one tile and a
+# 1x1 map
 K6_CASES = [(2, 56, 56, 96, 384), (2, 56, 56, 64, 256), (3, 9, 13, 32, 64),
-            (1, 20, 12, 128, 512), (2, 7, 7, 96, 96)]
+            (1, 20, 12, 128, 512), (2, 7, 7, 96, 96), (2, 15, 15, 32, 64),
+            (1, 57, 35, 64, 256), (2, 1, 1, 96, 384)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -609,6 +612,30 @@ def test_k6_zero_pads_the_hidden_tensor(card):
     out = mbconv.fused_mbconv(x, w1, b1, dw, bdw, w2, b2)
     ref = mbconv.fused_mbconv_ref(x, w1, b1, dw, bdw, w2, b2)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_k6_zero_pads_the_hidden_tensor_bf16(card):
+    """The same in bf16, whose kernel zeroes h outside the image in its own
+    staging of the 16x16 halo: a ragged 15x15 map puts the zero rows on
+    both sides of a tile."""
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, 32, 128, seed=3)
+    w1, b1, dw, bdw, w2, b2 = mbconv.fold_mbconv(m, torch.bfloat16)
+    b1 = torch.full_like(b1, 3.0)
+    x = torch.randn(2, 15, 15, 32, device=card).bfloat16()
+    out = mbconv.fused_mbconv(x, w1, b1, dw, bdw, w2, b2)
+    ref = mbconv.fused_mbconv_ref(x, w1, b1, dw, bdw, w2, b2)
+    assert (out.float() - ref.float()).abs().max().item() <= _bound(torch.bfloat16, ref.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_two_launches_give_the_same_bits(card, dtype):
+    """Fixed tiles and fixed sum orders: the kernel is deterministic."""
+    from cream_tpu_torch.ops import mbconv
+    m = _seeded_mbconv(card, 96, 384, seed=4)
+    ops = mbconv.fold_mbconv(m, dtype)
+    x = torch.randn(3, 30, 23, 96, device=card).to(dtype)
+    assert torch.equal(mbconv.fused_mbconv(x, *ops), mbconv.fused_mbconv(x, *ops))
 
 
 def test_k6_takes_an_offset_view(card):

@@ -7,6 +7,9 @@ card, and the port's `MBConv` / `TinyViT` with the fused route on. Weights
 are the port's seeded ones, carried to flax's layout; inputs come from numpy
 seeds and are fed to both.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -84,8 +87,10 @@ def test_fold_matches_jax(dtype):
 
 
 # (B, H, W, C, HID): the JAX test's 8x8x32 shape, maps that are not whole 8x8
-# tiles, and TinyViT-5M/11M's C = 64 at a narrow map
-SHAPES = [(2, 8, 8, 32, 128), (1, 9, 7, 32, 96), (2, 6, 10, 64, 256)]
+# tiles, and TinyViT-5M/11M's C = 64 at a narrow map; maps that the bf16
+# kernel's 14x14 tiles cut raggedly
+SHAPES = [(2, 8, 8, 32, 128), (1, 9, 7, 32, 96), (2, 6, 10, 64, 256), (2, 15, 15, 32, 64),
+          (1, 57, 35, 64, 256)]
 
 
 @pytest.mark.parametrize("B,H,W,C,HID", SHAPES)
@@ -181,6 +186,67 @@ def test_supports_shape_and_refusals():
     ops = mbconv.fold_mbconv(_seeded(32), torch.float32)
     with pytest.raises(ValueError, match="w1"):
         mbconv.fused_mbconv(torch.zeros(1, 4, 4, 64), *ops)
+
+
+# (B, H, W, C): TinyViT-5M/11M's (C 64) and -21M's (C 96) stage-0 maps at
+# bs256, the card tests' K6 shapes and maps that 14x14 tiles cut raggedly
+PLAN_SHAPES = [(256, 56, 56, 64), (256, 56, 56, 96), (2, 56, 56, 96), (2, 56, 56, 64),
+               (3, 9, 13, 32), (1, 20, 12, 128), (2, 7, 7, 96), (2, 15, 15, 32),
+               (1, 57, 35, 64), (2, 1, 1, 96), (3, 30, 23, 96), (2, 9, 9, 96)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plan_covers_every_output_once(dtype, shape):
+    """K6's grid of tiles, which the kernel is launched on, covers every
+    output pixel of the map exactly once, each in a block of its own; its
+    tile side is the one the dtype's kernel is built with (`kTile` in
+    csrc/mbconv.cu, float32's then bfloat16's); the plan is a function of
+    shape and dtype alone."""
+    B, H, W, C = shape
+    plan = mbconv.tile_plan(shape, dtype)
+    src = (Path(mbconv.__file__).parent.parent / "csrc" / "mbconv.cu").read_text()
+    built = dict(zip((torch.float32, torch.bfloat16),
+                     map(int, re.findall(r"constexpr int kTile = (\d+);", src))))
+    assert plan.tile == built[dtype]
+    count = np.zeros((B, H, W), np.int32)
+    blocks = set()
+    for block, b, rows, cols in mbconv.tile_spans(shape, plan):
+        assert len(rows) <= plan.tile and len(cols) <= plan.tile and len(rows) and len(cols)
+        count[b, rows.start:rows.stop, cols.start:cols.stop] += 1
+        blocks.add(block)
+    assert (count == 1).all(), (shape, plan)
+    assert len(blocks) == B * plan.tiles_h * plan.tiles_w
+    mbconv.tile_plan.cache_clear()
+    assert mbconv.tile_plan(shape, dtype) == plan
+    assert mbconv.tile_plan((1, H, W, C), dtype)[:1] == plan[:1]
+
+
+def test_bf16_gelu_tanh_form_error_bound():
+    """The bf16 kernel's GELU tanh (`tanh_of` in csrc/mbconv.cu, its
+    constants read from the source), emulated in float32 with ex2.approx
+    and rcp.approx at the ends of their error bounds (2 and 1 ulps): within
+    the 2^-21 the kernel's note states of tanh(u), at the JAX form's u =
+    sqrt(2/pi) (x + 0.044715 x^3), for every x."""
+    src = (Path(mbconv.__file__).parent.parent / "csrc" / "mbconv.cu").read_text()
+    k0, k1 = (np.float32(re.search(rf"constexpr float {n} = ([0-9.]+)f;", src).group(1))
+              for n in ("kE2", "kE2c"))
+    assert abs(k1 / k0 - 0.044715) < 1e-7 and abs(k0 - 2 * np.log2(np.e) * np.sqrt(2 / np.pi)) < 1e-6
+    f32 = np.float32
+    x = np.concatenate([np.random.default_rng(0).standard_normal(500_000) * 3,
+                        np.linspace(-12, 12, 500_001)]).astype(f32)
+    a = (np.abs(x) * (np.float64(k1 * x) * x + k0).astype(f32)).astype(f32)
+    s = (x + ((f32(0.044715) * x) * x) * x).astype(f32)
+    want = np.tanh((f32(np.sqrt(2 / np.pi)) * s).astype(f32).astype(np.float64))
+    worst = 0.0
+    for e_err in (-2, 0, 2):
+        for r_err in (-1, 0, 1):
+            with np.errstate(over="ignore"):
+                e = (np.exp2(a.astype(np.float64)) * (1 + e_err * 2.0 ** -23)).astype(f32)
+            r = (1 / (f32(1) + e).astype(np.float64) * (1 + r_err * 2.0 ** -23)).astype(f32)
+            t = np.copysign((-2 * r.astype(np.float64) + 1).astype(f32), x)
+            worst = max(worst, np.abs(t - want).max())
+    assert worst < 2.0 ** -21, worst
 
 
 NARROW = dict(embed_dims=(32, 32, 64, 64), depths=(2, 1, 1, 1),
