@@ -39,9 +39,13 @@ non-zero):
      kernel, plain and one-call library (SDPA) device times by CUDA-graph
      replay, with their CUDA-events times beside them
  11. K4 vs plain: the fused CGA kernel against `fused_cga_ref` on a seeded
-     module's fold at the same stage shapes, bf16 and fp32; kernel, plain
-     and unfused "plain"-route module times (no single library call
-     computes the cascade)
+     module's fold at the same stage shapes, bf16 (tensor cores, several
+     windows a block) and fp32 (CUDA cores); its launch plan against the
+     library's; bf16 the same bits on two launches and at 1, 3 and G + 1
+     windows (the last block short); kernel, plain and unfused
+     "plain"-route module device times by CUDA-graph replay in 3
+     interleaved rounds (CUDA events beside them; no single library call
+     computes the cascade), per stage and summed per M5 and M0 forward
  12. EfficientViT golden: M5 fp32 on seeded weights against the JAX
      package's logits stored in tests/data/torch_port/, on each of the
      three attention routes
@@ -50,7 +54,8 @@ non-zero):
      default "cascade" route (one K4 launch per attention block), the
      "core" route (one K5 launch per head) and the "plain" route on the same
      weights; top-1 agreement and logits against "plain"; img/s of the
-     three routes, interleaved
+     three routes, interleaved; then each route's whole forward by
+     CUDA-graph replay (the folds warmed first), 3 interleaved rounds
  14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
      versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites
      and TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites; dw
@@ -861,44 +866,129 @@ def k4_bound(dtype, ref: torch.Tensor) -> float:
 
 def phase_k4(gen) -> tuple[float, dict]:
     """K4 against its plain version on seeded modules' folds at the
-    EfficientViT stage shapes; bf16 times of the kernel, the plain version
-    and the unfused "plain"-route module."""
+    EfficientViT stage shapes, bf16 and fp32; its launch plan against the
+    library's; bf16 the same bits on two launches and window counts that
+    leave the last block short (1, 3, G + 1); bf16 device times of the
+    kernel, the plain version and the unfused "plain"-route module by
+    CUDA-graph replay in 3 interleaved rounds (CUDA events beside them),
+    per stage and summed per M5 and M0 forward."""
     worst_bf16, times = 0.0, {}
     for model, _ in EVIT_PATHS:
         for name, W, ws, C, heads, kernels, blocks in EVIT_STAGES[model]:
             d = C // heads
             for dtype in (torch.bfloat16, torch.float32):
                 m = seeded_cga(C, heads, ws, kernels, dtype, seed=C + ws)
+                plan = cga.launch_plan(W, ws, heads, KD, d, m.ks_max, dtype)
+                lib = cga.library_plan(W, ws, heads, KD, d, m.ks_max, dtype)
+                check(plan == lib, f"K4 {name} {dtype}: plan {plan} != the library's {lib}")
                 x = torch.randn(W, ws, ws, C, generator=gen, device="cuda").to(dtype)
                 kw = dict(ws=ws, heads=heads, c_in=d, kd=KD, d=d, ks_max=m.ks_max)
-                ops = (x, m.attention_biases, m.attention_bias_idxs, *m.folded())
+                ops = (m.attention_biases, m.attention_bias_idxs, *m.folded())
                 with torch.inference_mode():
-                    out = cga.fused_cga(*ops, **kw)
+                    out = cga.fused_cga(x, *ops, **kw)
+                    again = cga.fused_cga(x, *ops, **kw)
                     torch.cuda.synchronize()
-                    ref = cga.fused_cga_ref(*ops, **kw)
+                    ref = cga.fused_cga_ref(x, *ops, **kw)
                 err = (out.float() - ref.float()).abs().max().item()
                 lim = k4_bound(dtype, ref.float())
                 ulp = bf16_ulp(ref.float().abs().max().clamp_min(1.0)).item()
+                same = torch.equal(out, again)
                 print(f"k4 {name} W={W} ws={ws} C={C} heads={heads} kernels={kernels} "
-                      f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} bound={lim:.3e} "
-                      f"({err / ulp:.2f} bf16 ulps at max |out|; elements differing: "
-                      f"{(out != ref).float().mean().item():.2e})")
+                      f"{str(dtype).split('.')[-1]} ({plan.windows} windows a block, "
+                      f"{plan.smem} bytes of shared memory): max_abs_err={err:.3e} "
+                      f"bound={lim:.3e} ({err / ulp:.2f} bf16 ulps at max |out|; elements "
+                      f"differing: {(out != ref).float().mean().item():.2e}); two launches "
+                      f"bit-identical: {same}")
                 check(err <= lim, f"K4 {name} {dtype} err {err} > {lim}")
+                check(out.shape == x.shape and bool(torch.isfinite(out).all()), f"K4 {name} output")
                 if dtype != torch.bfloat16:
                     continue
+                check(same, f"K4 {name}: other bits on a second launch")
                 worst_bf16 = max(worst_bf16, err)
+                kw1 = {k: v for k, v in kw.items() if k != "c_in"}
+                for nw in (1, 3, plan.windows + 1):
+                    xr = x[:nw]
+                    with torch.inference_mode():
+                        got = cga._launch(xr, *ops, plan.windows, **kw1)
+                        torch.cuda.synchronize()
+                        want = cga.fused_cga_ref(xr, *ops, **kw)
+                    e = (got.float() - want.float()).abs().max().item()
+                    check(e <= k4_bound(dtype, want.float()),
+                          f"K4 {name}: {nw} windows err {e}")
+                    check(torch.equal(got, out[:nw]),
+                          f"K4 {name}: {nw} windows differ from the same windows in {W}")
+                print(f"k4 {name} bf16 at 1, 3 and {plan.windows + 1} windows, "
+                      f"{plan.windows} a block (the last block short): within the bound and "
+                      f"bit-identical to the same windows among {W}")
+
                 with torch.inference_mode():
-                    k_ms = cuda_ms(lambda: cga.fused_cga(*ops, **kw))
-                    p_ms = cuda_ms(lambda: cga.fused_cga_ref(*ops, **kw))
+                    def kern():
+                        return cga.fused_cga(x, *ops, **kw)
+
+                    def plain():
+                        return cga.fused_cga_ref(x, *ops, **kw)
+
+                    def module():
+                        return m(x)
                     m.attn_kernel = "plain"
-                    u_ms = cuda_ms(lambda: m(x))
-                b_ms, by = k4_bound_ms(W, ws, C, heads, kernels, dtype)
-                times[name] = dict(ms=k_ms, plain_ms=p_ms, module_ms=u_ms, bound_ms=b_ms,
-                                   bound_by=by, per_forward=blocks)
-                print(f"k4 time {name} bf16 W={W}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"unfused plain-route CGA module {u_ms:.4f} ms (no single library call "
-                      f"computes the cascade), bound {b_ms:.4f} ms ({by}) [{card_info()}]")
+                    n0 = cga.LAUNCHES
+                    k_ms, p_ms, u_ms = interleaved_graph_ms(kern, plain, module)
+                    check(cga.LAUNCHES > n0, f"K4 {name}: the timing did not launch K4")
+                    t = dict(ms=k_ms, host_ms=cuda_ms(kern), plain_ms=p_ms,
+                             plain_host_ms=cuda_ms(plain), module_ms=u_ms,
+                             module_host_ms=cuda_ms(module), per_forward=blocks)
+                t["bound_ms"], t["bound_by"] = k4_bound_ms(W, ws, C, heads, kernels, dtype)
+                times[name] = t
+                print(f"k4 time {name} bf16 W={W} (device, CUDA graph, median of 3 "
+                      f"interleaved rounds; CUDA events in parentheses): kernel {t['ms']:.4f} "
+                      f"ms ({t['host_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
+                      f"({t['plain_host_ms']:.4f}), unfused plain-route CGA module "
+                      f"{t['module_ms']:.4f} ms ({t['module_host_ms']:.4f}; no single library "
+                      f"call computes the cascade), bound {t['bound_ms']:.4f} ms "
+                      f"({t['bound_by']}); kernel / bound {t['ms'] / t['bound_ms']:.1f}x "
+                      f"[{card_info()}]")
+    for model, batch in EVIT_PATHS:
+        tot = {k: sum(times[n][k] * times[n]["per_forward"] for n, *_ in EVIT_STAGES[model])
+               for k in ("ms", "host_ms", "plain_ms", "module_ms", "module_host_ms", "bound_ms")}
+        print(f"k4 per {model} bf16 bs{batch} forward (device, CUDA graph; CUDA events in "
+              f"parentheses): kernel {tot['ms']:.4f} ms ({tot['host_ms']:.4f}), plain "
+              f"{tot['plain_ms']:.4f}, unfused module {tot['module_ms']:.4f} "
+              f"({tot['module_host_ms']:.4f}), bound {tot['bound_ms']:.4f} ms [{card_info()}]")
     return worst_bf16, times
+
+
+def phase_evit_graph(name: str, batch: int) -> dict:
+    """An EfficientViT eval forward by CUDA-graph replay on each attention
+    route, 3 interleaved rounds, so the host's issue is out of the time; the
+    cached folds are warmed first. The captured cascade forward holds one K4
+    launch per attention block."""
+    dtype = torch.bfloat16
+    model = create_model(name, device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    x = smooth_images(torch.Generator("cuda").manual_seed(2), batch).to(dtype)
+    blocks = sum(isinstance(m, CascadedGroupAttention) for m in model.modules())
+    routes = ("cascade", "core", "plain")
+
+    def forward(route):
+        def run():
+            model.set_attn_kernel(route)
+            return model(x)
+        return run
+    with torch.inference_mode():
+        for route in routes:
+            forward(route)()                     # the folds, cached
+        torch.cuda.synchronize()
+        n0 = cga.LAUNCHES
+        rounds = graph_rounds(*(forward(r) for r in routes))
+    # graph_ms runs fn once and captures it 10 times a round
+    check(cga.LAUNCHES - n0 == 3 * 11 * blocks,
+          f"{name}: {cga.LAUNCHES - n0} K4 launches issued for the cascade graphs")
+    ms = {r: statistics.median(t) for r, t in zip(routes, rounds)}
+    print(f"graph {name} bf16 B={batch} eval forward (device, CUDA graph, 3 interleaved rounds "
+          f"cascade/core/plain): " + ", ".join(
+              f"{r} {ms[r]:.4f} ms (rounds {' / '.join(f'{v:.4f}' for v in t)})"
+              for r, t in zip(routes, rounds)) + f" [{card_info()}]")
+    return ms
 
 
 def phase_evit_golden() -> None:
@@ -1895,6 +1985,7 @@ def main() -> None:
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
     evit = {name: phase_evit_main(name, batch) for name, batch in EVIT_PATHS}
+    evit_graph = {name: phase_evit_graph(name, batch) for name, batch in EVIT_PATHS}
     worst_dw, tdw = phase_dw(gen)
     phase_dw_grads(gen)
     phase_evit_train_golden()
@@ -1925,9 +2016,11 @@ def main() -> None:
             "library_ms": summed_over_blocks(t, "library_ms")})
     rows.append(evit_row(
         "cga_fused", "cga.cu", "cga.py:56", sum(v["cascade"][0] for v in evit.values()),
-        worst_k4, t4, ("ms", "plain_ms", "module_ms", "bound_ms"),
+        worst_k4, t4, ("ms", "host_ms", "plain_ms", "plain_host_ms", "module_ms",
+                       "module_host_ms", "bound_ms"),
         {"library_ms": None, "library_note": "no single PyTorch call computes the whole "
-         "cascade; module_ms is the unfused plain-route CGA module on the same input"}))
+         "cascade; module_ms is the unfused plain-route CGA module on the same input",
+         "forward_graph_ms": evit_graph}))
     rows.append(evit_row(
         "cga_core", "cga_core.cu", "cga_core.py:63", sum(v["core"][1] for v in evit.values()),
         worst_k5, t5, ("ms", "host_ms", "plain_ms", "plain_host_ms", "library_ms",

@@ -37,7 +37,7 @@ from cream_tpu_torch.cli.speed_test import card_info
 KINDS = [
     ("K1 window attention fwd", r"window_attention_fwd_(mma_)?kernel"),
     ("K2 window attention bwd", r"window_attention_bwd_(mma_)?kernel|dbias_reduce"),
-    ("K4 fused CGA", r"cga_fused_kernel"),
+    ("K4 fused CGA", r"cga_(fused|bf16)_kernel"),
     ("K3 bias attention", r"bias_attention_(mma_)?kernel"),
     ("K5 CGA attention core", r"cga_core_(mma_)?kernel"),
     ("K6 fused MBConv", r"mbconv_(bf16|fp32)_kernel"),

@@ -1,6 +1,7 @@
 // The bf16 tensor-core attention core shared by the bias-attention kernel
-// (bias_attention.cu, K3) and the CGA attention-core kernel (cga_core.cu,
-// K5): per item (one (window, head) of K3, one window of K5)
+// (bias_attention.cu, K3), the CGA attention-core kernel (cga_core.cu, K5)
+// and the fused CGA kernel (cga.cu, K4; `attend_strip` alone): per item
+// (one (window, head) of K3, one window of K5)
 //   out[n] = softmax_m(q[n] . k[m] * scale + bias[n][m]) . v
 // with fp32 scores, the exact row max, exp and P = e / sum correctly
 // rounded, P rounded to bf16 before P.V, P.V summed in fp32 and the result
@@ -139,14 +140,25 @@ __device__ __forceinline__ void store_pair(bf16* row, int c, int d, float x, flo
   }
 }
 
+// attend_strip's default emit: row r of an (N, dv) output in device memory
+struct StoreRows {
+  bf16* out;
+  int dv;
+  __device__ void operator()(int r, int c, float x, float y) const {
+    store_pair(out + static_cast<size_t>(r) * dv, c, dv, x, y);
+  }
+};
+
 // The attention of query strip mt (rows 16 mt .. 16 mt + 15) of one item:
 // q_s, k_s (row stride QS) and v_s (row stride VS) in shared memory, bias
-// (N, N) fp32 in device memory, out (N, dv) in device memory
-template <int NKT>
+// (N, N) fp32 in device memory; `emit(r, c, x, y)` takes the fp32 sums of
+// output row r < N, columns c and c + 1 (c even, below pad16(dv)), as
+// StoreRows stores them to an (N, dv) output
+template <int NKT, typename Emit>
 __device__ __forceinline__ void attend_strip(const bf16* q_s, const bf16* k_s, const bf16* v_s,
                                              int QS, int VS, int mt, int N, int kd, int dv,
                                              const float* __restrict__ bias, float scale,
-                                             bf16* out, int lane) {
+                                             Emit emit, int lane) {
   const int nkt = (N + 15) / 16;   // 16-key tiles
   const int nt = (N + 7) / 8;      // 8-key n-tiles with a key
   const int gid = lane >> 2, tig = lane & 3;
@@ -225,8 +237,6 @@ __device__ __forceinline__ void attend_strip(const bf16* q_s, const bf16* k_s, c
   }
 
   // O = P.V, 16 output columns at a time
-  bf16* out_a = out + static_cast<size_t>(ra) * dv;
-  bf16* out_b = out + static_cast<size_t>(rb) * dv;
   for (int n2 = 0; n2 < pad16(dv) / 16; ++n2) {
     float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const int vst = 16 * VS;
@@ -242,8 +252,8 @@ __device__ __forceinline__ void attend_strip(const bf16* q_s, const bf16* k_s, c
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 16 * n2 + 8 * h + 2 * tig;
-      if (ra < N) store_pair(out_a, c, dv, o[h][0], o[h][1]);
-      if (rb < N) store_pair(out_b, c, dv, o[h][2], o[h][3]);
+      if (ra < N) emit(ra, c, o[h][0], o[h][1]);
+      if (rb < N) emit(rb, c, o[h][2], o[h][3]);
     }
   }
 }
@@ -273,7 +283,7 @@ __device__ __forceinline__ void attend_block(const Params& p) {
   const float* bias = p.bias + static_cast<size_t>(it % p.heads) * N * N;
   for (int mt = warp % spw; mt < NP / 16; mt += spw)
     attend_strip<NKT>(q_s + g * NP * QS, k_s + g * NP * QS, v_s + g * NP * VS, QS, VS, mt, N,
-                      p.kd, p.dv, bias, p.scale, p.out + it * N * p.dv, lane);
+                      p.kd, p.dv, bias, p.scale, StoreRows{p.out + it * N * p.dv, p.dv}, lane);
 }
 
 __host__ __device__ constexpr size_t smem_bytes(int per_block, int N, int kd, int dv) {

@@ -219,3 +219,104 @@ def test_fuse_matches_jax():
     k2, b2 = fuse.fold_bn_linear(t(lin), t(bias), t(gamma), t(beta), t(mean), t(var))
     bn = (x - mean) / np.sqrt(var + 1e-5) * gamma + beta
     np.testing.assert_allclose(x @ k2.numpy() + b2.numpy(), bn @ lin + bias, atol=1e-4, rtol=1e-4)
+
+
+def _stage_shapes():
+    """(name, ws, C, heads, ks_max) of every M0-M5 attention stage at 224 and
+    at 96 (stage resolutions img/16, then halved rounding up; window <= 7)."""
+    from cream_tpu_torch.models.efficientvit import _CONFIGS
+    out = []
+    for img in (224, 96):
+        for name, cfg in sorted(_CONFIGS.items()):
+            res = img // 16
+            for s, (C, h) in enumerate(zip(cfg["embed_dim"], cfg["num_heads"])):
+                out.append((f"{name}_{img}_s{s}", min(7, res), C, h, max(cfg["kernels"][:h])))
+                res = (res - 1) // 2 + 1
+    return out
+
+
+# the bfloat16 plans (windows a block) of M5 bs512's and M0 bs1024's stages,
+# as PERF.md reports them: (model, stage) -> (windows, G)
+MAIN_PLANS = {("efficientvit_m5", 0): (2048, 1), ("efficientvit_m5", 1): (512, 1),
+              ("efficientvit_m5", 2): (512, 2), ("efficientvit_m0", 0): (4096, 4),
+              ("efficientvit_m0", 1): (1024, 2), ("efficientvit_m0", 2): (1024, 4)}
+WINDOW_COUNTS = (1, 3, 512, 1000, 4096)
+
+
+@pytest.mark.parametrize("name,ws,C,heads,ks", _stage_shapes())
+def test_launch_plan_fits_every_stage(name, ws, C, heads, ks):
+    d = C // heads
+    for nw in WINDOW_COUNTS:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = cga.launch_plan(nw, ws, heads, 16, d, ks, dtype)
+            assert plan.smem <= cga.SMEM_LIMIT
+            assert 1 <= plan.windows <= (cga.MAX_WINDOWS if dtype == torch.bfloat16 else 1)
+        plan = cga.launch_plan(nw, ws, heads, 16, d, ks, torch.bfloat16)
+        # two blocks share an SM wherever more than one window fits
+        assert plan.smem == cga._bf16_smem(ws, heads, 16, d, ks, plan.windows)
+        assert plan.windows == 1 or plan.smem <= cga.SMEM_PAIR
+    model, img, stage = name.rsplit("_", 2)
+    if img == "224" and (model, int(stage[1:])) in MAIN_PLANS:
+        nw, G = MAIN_PLANS[model, int(stage[1:])]
+        assert cga.launch_plan(nw, ws, heads, 16, d, ks, torch.bfloat16).windows == G
+
+
+@pytest.mark.parametrize("ws", range(1, 9))
+def test_launch_plan_fits_every_window_up_to_8(ws):
+    """bf16, kd 16: every head count and head dim (a multiple of 8) with
+    heads * d <= 384 and kernels of 3, 5 and 7 take a block of at most 227 KB;
+    more windows only where the block takes at most half an SM and the
+    products of one block take one pass; the plan's G fills at least 90% of
+    its waves' block slots where any G that fits does, else fills most."""
+    for heads in range(1, 9):
+        for d in range(8, 384 // heads + 1, 8):
+            for ks in (3, 5, 7):
+                # the window counts of a block that shares its SM with another
+                fits = [G for G in range(1, cga.MAX_WINDOWS + 1)
+                        if cga._fits_pair(ws, heads, 16, d, ks, G)]
+                assert fits == list(range(1, len(fits) + 1))
+                for nw in WINDOW_COUNTS:
+                    plan = cga.launch_plan(nw, ws, heads, 16, d, ks, torch.bfloat16)
+                    assert 1 <= plan.windows <= cga.MAX_WINDOWS
+                    assert plan.smem <= cga.SMEM_LIMIT
+                    if not fits:
+                        assert plan.windows == 1
+                        continue
+                    fill = {G: cga._wave_fill(nw, G) for G in fits}
+                    good = [G for G in fits if fill[G] >= 0.9]
+                    assert plan.windows in fits
+                    if good:
+                        assert plan.windows >= max(good)
+                    assert fill[plan.windows] >= min(0.9, max(fill.values()))
+
+
+def test_launch_plan_depends_on_shape_and_dtype_only():
+    """The plan takes the window count, the window's shape and the dtype,
+    nothing of the data or the device; the same arguments give the same
+    plan. bf16 and fp32 plans of one shape differ: the dtype enters."""
+    import inspect
+    assert list(inspect.signature(cga.launch_plan).parameters) == [
+        "windows", "ws", "heads", "kd", "d", "ks", "dtype"]
+    fresh = cga.launch_plan.__wrapped__
+    for _, ws, C, heads, ks in _stage_shapes():
+        for nw in WINDOW_COUNTS:
+            for dtype in (torch.bfloat16, torch.float32):
+                assert fresh(nw, ws, heads, 16, C // heads, ks, dtype) == cga.launch_plan(
+                    nw, ws, heads, 16, C // heads, ks, dtype)
+    assert (cga.launch_plan(1024, 4, 4, 16, 48, 5, torch.bfloat16).windows
+            != cga.launch_plan(1024, 4, 4, 16, 48, 5, torch.float32).windows)
+
+
+@pytest.mark.parametrize("ws,heads,kd,d,ks,dtype,error", [
+    (7, 2, 16, 512, 3, torch.float32, ValueError),     # fp32 block > 227 KB
+    (8, 1, 16, 1024, 7, torch.bfloat16, ValueError),   # no bf16 block fits
+    (7, 4, 12, 16, 5, torch.bfloat16, ValueError),     # kd not a multiple of 8
+    (7, 4, 16, 20, 5, torch.bfloat16, ValueError),     # d not a multiple of 8
+    (1, 8, 16, 256, 3, torch.bfloat16, ValueError),    # C = 2048: the ring alone > 227 KB
+    (7, 4, 16, 16, 5, torch.float16, TypeError),       # fp16 is not built
+])
+def test_launch_plan_refuses_what_no_block_fits(ws, heads, kd, d, ks, dtype, error):
+    """The wrapper takes its plan from `launch_plan` before it launches: a
+    shape that no block fits raises there, never falls back."""
+    with pytest.raises(error):
+        cga.launch_plan(64, ws, heads, kd, d, ks, dtype)

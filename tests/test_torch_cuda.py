@@ -15,7 +15,10 @@ wrappers' refusals, gradients through the K1+K2 autograd.Function, and a
 narrow TinyViT whose kernel path and plain path agree, in eval and in a
 train step; K4 and K5 at every EfficientViT M0–M5 stage shape at 224 and
 at the img-96 windows, their refusals, and a narrow EfficientViT whose
-three attention routes agree; K7/K8/K9 at EfficientViT-M5's and
+three attention routes agree; K4's bf16 blocks of several windows with the
+last one short, the same bits at every block size and on two launches,
+taps wider than the window, padded head dims and its launch plan against
+the library's; K7/K8/K9 at EfficientViT-M5's and
 TinyViT-21M's depthwise shapes (smaller batches), odd channel counts and odd
 stride-2 maps, dw's bits across launches, their refusals, their
 autograd.Functions' grads, and a narrow EfficientViT train step whose three
@@ -396,6 +399,114 @@ def test_k4_matches_plain(card, dtype, name, ws, C, heads, kernels):
     assert err <= _cga_bound(dtype, want.float(), 8), err
 
 
+def _k4_case(card, C, heads, ws, kernels, nw, dtype, seed=0, kd=16):
+    m = CascadedGroupAttention(C, kd, heads, C / (kd * heads), ws, kernels,
+                               device=card, dtype=dtype).eval()
+    m.load_state_dict(seeded_state_dict(m, C + ws + seed))
+    g = torch.Generator(card).manual_seed(nw + seed)
+    x = torch.randn(nw, ws, ws, C, generator=g, device=card).to(dtype)
+    kw = dict(ws=ws, heads=heads, c_in=C // heads, kd=kd, d=C // heads, ks_max=m.ks_max)
+    return (x, m.attention_biases, m.attention_bias_idxs, *cga.fold_cga_variables(m, dtype)), kw
+
+
+def _k4_check(ops, kw, windows=None):
+    """K4 (at `windows` windows a block, else the plan's) against its plain
+    version: one launch, finite, within 8 bf16 ulps (fp32: 1e-5) at max |out|."""
+    before = cga.LAUNCHES
+    with torch.inference_mode():
+        if windows is None:
+            got = cga.fused_cga(*ops, **kw)
+        else:
+            kw1 = {k: v for k, v in kw.items() if k != "c_in"}
+            got = cga._launch(*ops, windows, **kw1)
+        torch.cuda.synchronize()
+        want = cga.fused_cga_ref(*ops, **kw)
+    assert cga.LAUNCHES == before + 1
+    assert got.shape == ops[0].shape and got.dtype == ops[0].dtype
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _cga_bound(ops[0].dtype, want.float(), 8), err
+    return got
+
+
+def _k4_windows(ws, C, heads, kernels):
+    """The windows a bf16 block can take at a stage: every G whose block
+    fits two an SM (the plan picks among them), at least 1."""
+    d, ks = C // heads, max(kernels[:heads])
+    return [G for G in range(1, cga.MAX_WINDOWS + 1)
+            if G == 1 or cga._fits_pair(ws, heads, 16, d, ks, G)]
+
+
+# every stage at every G its blocks can take, with window counts that leave
+# the last block short: 1, 3 and G + 1
+K4_RAGGED = [(name, ws, C, heads, kernels, G, nw)
+             for name, ws, C, heads, kernels in CGA_STAGES
+             for G in _k4_windows(ws, C, heads, kernels) for nw in sorted({1, 3, G + 1})]
+
+
+@pytest.mark.parametrize("name,ws,C,heads,kernels,G,nw", K4_RAGGED)
+def test_k4_bf16_ragged_last_block(card, name, ws, C, heads, kernels, G, nw):
+    ops, kw = _k4_case(card, C, heads, ws, kernels, nw, torch.bfloat16)
+    _k4_check(ops, kw, windows=G)
+
+
+@pytest.mark.parametrize("name,ws,C,heads,kernels", CGA_STAGES)
+def test_k4_bf16_same_bits_at_every_block_size(card, name, ws, C, heads, kernels):
+    """No sum's order depends on the windows a block takes: 2 G + 1 windows
+    give the same bits at every G."""
+    gs = _k4_windows(ws, C, heads, kernels)
+    ops, kw = _k4_case(card, C, heads, ws, kernels, 2 * max(gs) + 1, torch.bfloat16)
+    kw1 = {k: v for k, v in kw.items() if k != "c_in"}
+    with torch.inference_mode():
+        outs = [cga._launch(*ops, G, **kw1) for G in gs]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:]), gs
+
+
+# ks_max above ws (4x4 and 2x2 windows with 7x7 taps), head dims whose
+# padding to 16 columns is nonzero (kd 8 and 24, d 24 and 40: the zero
+# columns of x, q, k and the weights), one head, the largest C
+K4_SHAPES = [(4, 64, 4, (7, 7, 7, 7), 16), (2, 64, 2, (7, 7), 16), (7, 72, 3, (5, 3, 3), 8),
+             (7, 80, 2, (3, 5), 24), (6, 40, 1, (7,), 16), (7, 384, 4, (7, 5, 3, 3), 16),
+             (8, 128, 2, (5, 5), 16), (3, 96, 3, (7, 5, 3), 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws,C,heads,kernels,kd", K4_SHAPES)
+def test_k4_other_shapes(card, dtype, ws, C, heads, kernels, kd):
+    ops, kw = _k4_case(card, C, heads, ws, kernels, 2 * cga.MAX_WINDOWS + 1, dtype, kd=kd)
+    _k4_check(ops, kw)
+    if dtype == torch.bfloat16:
+        for G in (2, 3):                        # blocks of several windows, the last short
+            if cga._bf16_smem(ws, heads, kd, C // heads, max(kernels[:heads]), G) <= cga.SMEM_LIMIT:
+                _k4_check(ops, kw, windows=G)
+
+
+@pytest.mark.parametrize("name,ws,C,heads,kernels", CGA_STAGES)
+def test_k4_bf16_same_bits_on_two_launches(card, name, ws, C, heads, kernels):
+    """Every sum's order depends on the shape alone: two launches on the same
+    inputs give the same bits."""
+    ops, kw = _k4_case(card, C, heads, ws, kernels, 13, torch.bfloat16)
+    with torch.inference_mode():
+        assert torch.equal(cga.fused_cga(*ops, **kw), cga.fused_cga(*ops, **kw))
+
+
+def test_k4_plan_is_the_librarys(card):
+    """`launch_plan` (Python) against the built kernel's `cream_cga_plan` at
+    every stage shape and every window up to 8 with heads * d <= 384, at
+    several window counts."""
+    shapes = [(ws, h, C // h, max(k[:h])) for _, ws, C, h, k in CGA_STAGES]
+    shapes += [(ws, h, d, ks) for ws in range(1, 9) for h in (1, 2, 3, 4, 6, 8)
+               for d in range(8, 384 // h + 1, 8) for ks in (3, 7)]
+    for ws, heads, d, ks in shapes:
+        for nw in (1, 512, 1000, 4096):
+            for dtype in (torch.bfloat16, torch.float32):
+                lib = cga.library_plan(nw, ws, heads, 16, d, ks, dtype)
+                try:
+                    assert cga.launch_plan(nw, ws, heads, 16, d, ks, dtype) == lib
+                except ValueError:
+                    assert lib.windows == 0 or lib.smem > cga.SMEM_LIMIT
+
+
 def test_cga_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros(4, 81, 16, device=card)
     with pytest.raises(ValueError):                          # 81 tokens > 64
@@ -422,6 +533,12 @@ def test_cga_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError):                          # shared memory > 227 KB
         cga.fused_cga(xb, big.attention_biases, big.attention_bias_idxs, *cga.fold_cga_variables(
             big, torch.float32), ws=7, heads=2, c_in=512, kd=16, d=512, ks_max=3)
+    with pytest.raises(ValueError):                          # bf16 d not a multiple of 8
+        odd = _seeded_cga(60, 3, 7, (3, 3, 3), card, torch.bfloat16)
+        cga.fused_cga(torch.zeros(1, 7, 7, 60, device=card, dtype=torch.bfloat16),
+                      odd.attention_biases, odd.attention_bias_idxs,
+                      *cga.fold_cga_variables(odd, torch.bfloat16), ws=7, heads=3, c_in=20,
+                      kd=16, d=20, ks_max=3)
 
 
 EVIT_NARROW = dict(embed_dim=(32, 48, 64), depth=(1, 1, 1), num_heads=(2, 3, 4),
