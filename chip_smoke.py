@@ -57,11 +57,13 @@ non-zero):
      three routes, interleaved; then each route's whole forward by
      CUDA-graph replay (the folds warmed first), 3 interleaved rounds
  14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
-     versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites
-     and TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites; dw
-     the same bits on two launches; kernel, plain, library (cuDNN) and
-     bound times per shape by CUDA-graph replay, summed per M5 train step
-     and per TinyViT-21M-224 train step
+     versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites,
+     TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites and three
+     odd stride-2 maps; dx and dw the same bits on two launches; kernel,
+     plain, library (cuDNN) and bound times per model site by CUDA-graph
+     replay, K9's backward (a tile kernel) on a line of its own per site
+     with its plan, summed per M5 train step and per TinyViT-21M-224 train
+     step
  15. grads: at a small fp32 shape, each depthwise autograd.Function's grads
      against autograd of the plain forward
  16. EfficientViT train golden: one fp32 M5 train step (B=8) on each
@@ -99,8 +101,8 @@ non-zero):
  22. K11 vs plain: the layout-pin copy at TinyViT-21M bs256's three
      stage-boundary tensors, bit for bit; kernel and `x.clone()` device
      times (CUDA graphs); then K11 per forward against x.clone() and K9's
-     forward per TinyViT-21M-224 train step against cuDNN, by CUDA-graph
-     replay in 3 interleaved rounds, each round's ratio
+     forward and backward per TinyViT-21M-224 train step against cuDNN, by
+     CUDA-graph replay in 3 interleaved rounds, each round's ratio
  23. main path (TinyViT eval routes): TinyViT-21M-224 bf16 bs256 through
      cli.inference.predict and cli.speed_test.throughput on four routes —
      library, mbconv_kernel (2 K6 launches per forward), pin_layouts (3 K11
@@ -194,6 +196,10 @@ DW_TINYVIT = [("tv21m_mbconv", 256, 56, 56, 384, 1, 2), ("tv21m_local_s1", 256, 
               ("tv21m_local_s2", 256, 14, 14, 384, 1, 6), ("tv21m_local_s3", 256, 7, 7, 576, 1, 2),
               ("tv21m_merge0", 256, 56, 56, 192, 2, 1), ("tv21m_merge1", 256, 28, 28, 384, 2, 1),
               ("tv21m_merge2", 256, 14, 14, 576, 2, 1)]
+# stride-2 maps K9's backward cuts raggedly (dx rows or columns past H or
+# W, dy taps past Ho or Wo), checked but not timed
+DW_S2_ODD = [("s2_odd_7x7", 2, 7, 7, 16, 2, 0), ("s2_odd_8x6_c15", 3, 8, 6, 15, 2, 0),
+             ("s2_odd_9x13", 2, 9, 13, 24, 2, 0)]
 DW_ROUTES = ("library", "fused", "wgrad")
 # K6 sites: TinyViT-21M's stage-0 MBConv (2 per forward) and TinyViT-5M/11M's
 # (name, B, H, W, C, HID, per forward)
@@ -1141,11 +1147,12 @@ def dw_library(x, w9, dy, stride):
 
 def phase_dw(gen) -> tuple[dict, dict]:
     """K7/K8/K9 against their plain versions at the M5 and TinyViT-21M
-    depthwise shapes, bf16 and fp32; dw bits on two launches; bf16 times.
-    Returns the worst bf16 errors by kernel and the times by shape."""
+    depthwise shapes and at odd stride-2 maps, bf16 and fp32; dw bits on two
+    launches; bf16 times at the model sites. Returns the worst bf16 errors
+    by kernel and the times by shape."""
     worst = dict.fromkeys(dwconv.LAUNCHES, 0.0)
     times = {}
-    for name, B, H, W, C, stride, _ in DW_M5 + DW_TINYVIT:
+    for name, B, H, W, C, stride, per in DW_M5 + DW_TINYVIT + DW_S2_ODD:
         fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
         for dtype in (torch.bfloat16, torch.float32):
             x, w9, dy = dw_inputs(gen, B, H, W, C, stride, dtype)
@@ -1179,6 +1186,8 @@ def phase_dw(gen) -> tuple[dict, dict]:
             worst[bwd] = max(worst[bwd], errs["dx"])
             if stride == 1:
                 worst["k8"] = max(worst["k8"], errs["dw"])
+            if per == 0:
+                continue
             lib_fwd, lib_bwd, lib_wg = dw_library(x, w9, dy, stride)
             # device times (CUDA graphs): at the 16-channel sites a launch
             # is shorter than the host's cost of issuing it
@@ -1207,6 +1216,14 @@ def phase_dw(gen) -> tuple[dict, dict]:
                       f"plain {r['plain_ms']:.4f} ms, library (cuDNN) {r['library_ms']:.4f} ms, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card_info()}]")
             times[name] = t
+            if stride == 2:
+                r = t["bwd"]
+                print(f"K9 bwd {name} bf16 (B, H, W, C) = {(B, H, W, C)}, plan "
+                      f"{tuple(dwconv.tile_plan_s2(x.shape, dtype))}: kernel {r['ms']:.4f} ms, "
+                      f"plain {r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, bound "
+                      f"{r['bound_ms']:.4f} ({r['bound_by']}); kernel / bound "
+                      f"{r['ms'] / r['bound_ms']:.2f}x, kernel / cuDNN "
+                      f"{r['ms'] / r['library_ms']:.3f}x [{card_info()}]")
     for key, kind, stride in (("k7_fwd", "fwd", 1), ("k7_bwd", "bwd", 1), ("k8", "wgrad", 1),
                               ("k9_fwd", "fwd", 2), ("k9_bwd", "bwd", 2)):
         for model, sites in (("EfficientViT-M5 bf16 bs512", DW_M5),
@@ -1725,11 +1742,11 @@ def phase_k11(gen) -> dict:
 
 def phase_retime(gen) -> dict:
     """K11 against x.clone() at TinyViT-21M bs256's three stage inputs (one
-    forward) and K9's forward against cuDNN at TinyViT-21M bs256's three
-    stride-2 sites (one train step), bf16, by CUDA-graph replay in 3
-    interleaved rounds; each round's sums and kernel / library ratio, and
-    whether the kernel is more than 3% slower in every round."""
-    pairs = {"k11": [], "k9_fwd": []}
+    forward) and K9's forward and backward against cuDNN at TinyViT-21M
+    bs256's three stride-2 sites (one train step), bf16, by CUDA-graph
+    replay in 3 interleaved rounds; each round's sums and kernel / library
+    ratio, and whether the kernel is more than 3% slower in every round."""
+    pairs = {"k11": [], "k9_fwd": [], "k9_bwd": []}
     for name, B, Hm, C in K11_SHAPES:
         x = torch.randn(B, Hm, Hm, C, generator=gen, device="cuda").to(torch.bfloat16)
         pairs["k11"].append((lambda x=x: layout_pin.layout_pin(x), lambda x=x: x.clone(), 1))
@@ -1737,8 +1754,10 @@ def phase_retime(gen) -> dict:
         if stride != 2:
             continue
         x, w9, dy = dw_inputs(gen, B, H, W, C, stride, torch.bfloat16)
-        pairs["k9_fwd"].append((lambda x=x, w9=w9: dwconv.dw_conv3x3_fwd(x, w9, 2),
-                                dw_library(x, w9, dy, 2)[0], per))
+        lib_fwd, lib_bwd, _ = dw_library(x, w9, dy, 2)
+        pairs["k9_fwd"].append((lambda x=x, w9=w9: dwconv.dw_conv3x3_fwd(x, w9, 2), lib_fwd, per))
+        pairs["k9_bwd"].append((lambda x=x, w9=w9, dy=dy: dwconv.dw_conv3x3_bwd(x, dy, w9, 2),
+                                lib_bwd, per))
     fns = [fn for p in pairs.values() for k, lib, _ in p for fn in (k, lib)]
     with torch.inference_mode():
         rounds = iter(graph_rounds(*fns, rounds=3))
@@ -1753,7 +1772,8 @@ def phase_retime(gen) -> dict:
         slower = all(r > 1.03 for r in ratio)
         what = ("K11 per TinyViT-21M-224 bf16 bs256 forward (3 stage inputs) vs x.clone()"
                 if key == "k11" else
-                "K9 fwd per TinyViT-21M-224 bf16 bs256 train step (3 stride-2 sites) vs cuDNN")
+                f"K9 {key[3:]} per TinyViT-21M-224 bf16 bs256 train step (3 stride-2 sites) "
+                f"vs cuDNN")
         print(f"retime {what} (device, CUDA graph, 3 interleaved rounds): kernel "
               + " / ".join(f"{v:.4f}" for v in kern) + " ms, library "
               + " / ".join(f"{v:.4f}" for v in lib) + " ms, kernel / library "
@@ -2039,6 +2059,10 @@ def main() -> None:
             "bound_by": max((tdw[n][kind] for n, _ in sites),
                             key=lambda r: r["bound_ms"])["bound_by"],
             "tinyvit21m_step": per_step(tdw, DW_TINYVIT, kind, stride)})
+        if stride == 2:                                   # K9: each site's own times
+            rows[-1]["sites"] = {n: {k: tdw[n][kind][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")} | {"per_step": per}
+                for n, *_, s, per in DW_M5 + DW_TINYVIT if s == 2}
     name, *_ = K3_SHAPES[0]
     rows.append({"name": "bias_attention", "route": "cuda",
                  "source": "cream_tpu_torch/csrc/bias_attention.cu",
@@ -2069,8 +2093,9 @@ def main() -> None:
                  **{k: sum(t[k] for t in t11.values())
                     for k in ("ms", "host_ms", "plain_ms", "bound_ms", "library_ms")},
                  "bound_by": "bytes", "retime": retime["k11"]})
-    next(r for r in rows if r["name"] == "dwconv_k9_fwd")["tinyvit21m_step_retime"] = \
-        retime["k9_fwd"]
+    for key in ("k9_fwd", "k9_bwd"):
+        next(r for r in rows if r["name"] == f"dwconv_{key}")["tinyvit21m_step_retime"] = \
+            retime[key]
     ids = {"window_attention_fwd": "K1", "window_attention_bwd": "K2", "bias_attention": "K3",
            "cga_fused": "K4", "cga_core": "K5", "mbconv_fused": "K6", "dwconv_k7_fwd": "K7",
            "dwconv_k7_bwd": "K7", "dwconv_k8": "K8", "dwconv_k9_fwd": "K9",
@@ -2096,7 +2121,8 @@ def main() -> None:
           f"per BiasAttention call at 4,096 windows (K3); per TinyViT-21M-224 bf16 bs256 "
           f"forward (K6: its 2 MBConvs; K11: its 3 stage "
           f"inputs, under retime the 3 interleaved rounds against x.clone(), as "
-          f"tinyvit21m_step_retime for K9's forward against cuDNN), launches on the "
+          f"tinyvit21m_step_retime for K9's forward and backward against cuDNN; K9's "
+          f"sites: each stride-2 site's own times), launches on the "
           f"mbconv_kernel/pin_layouts/both routes (and the pinned train step for K11); per "
           f"TinyViT-21M-384 bf16 bs64 forward (K10: 6 partitions + 6 reverses)")
     print(card)

@@ -45,7 +45,7 @@ KINDS = [
     ("K7 depthwise s1 bwd", r"dwconv_tile_bwd_kernel<[^>]*true>"),
     ("K8 depthwise weight grad", r"dwconv_tile_bwd_kernel"),      # the same kernel, dx off
     ("K9 depthwise s2 fwd", r"dwconv_s2_fwd_kernel"),
-    ("K9 depthwise s2 bwd", r"dwconv_s2_bwd_kernel"),
+    ("K9 depthwise s2 bwd", r"dwconv_s2_tile_bwd_kernel"),
     ("K7/K8/K9 dw partial sums", r"dwconv_dw_reduce_kernel"),
     ("K10 window relayout", r"partition_kernel|reverse_kernel"),
     ("K11 layout pin", r"copy_kernel<"),

@@ -13,7 +13,8 @@ the JAX package's three custom_vjps:
   `dw_conv3x3_wg`      stride 1: the library forward (`F.conv2d`,
                        groups=C), the library dx (a depthwise conv of dy with
                        the flipped taps) and K8 for dw
-  `dw_conv3x3s2_fused` stride 2: forward and backward are K9
+  `dw_conv3x3s2_fused` stride 2: forward and backward are K9 (its
+                       backward a tile kernel, dx and dw in one pass)
 
 Like JAX, each returns the weight grad in the dtype of the w9 it received,
 so in bf16 the fp32 sum is rounded to bf16 before autograd casts it to the
@@ -46,20 +47,22 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-# the stride-1 tile kernels' plan: threads a block, channel lanes a tile,
-# tile rows and columns at most, staging bytes a block at most (both
-# buffers) and blocks aimed for
+# the tile kernels' plans: threads a block, channel lanes a tile, tile rows
+# and columns at most (stride 1; stride 2 in output pixels), staging bytes a
+# block at most (both buffers) and blocks aimed for
 _THREADS, _MAX_LANES, _MAX_TH, _MAX_TW = 256, 16, 16, 16
+_MAX_LANES_S2, _MAX_TH_S2, _MAX_TW_S2 = 32, 8, 8
 _STAGES, _MAX_STAGE_BYTES = 2, 96 * 1024       # _STAGES: the kernels' kStages
 _TARGET_BLOCKS = 1024
 
 
 class TilePlan(NamedTuple):
-    """How K7/K8 cut a stride-1 (B, H, W, C) map: tiles of `th` rows, `tw`
-    columns and `cb` channels, `vec` channels a thread (cb / vec channel
-    lanes), `ni` tiles a block at once; a block takes one channel slice
-    and one of `groups` contiguous ranges of pixel tiles (the backward: one
-    (9, C) fp32 dw partial a group)."""
+    """How a tile kernel cuts a (B, H, W, C) map: tiles of `th` rows, `tw`
+    columns (of the output map: at stride 2 a quarter of x's pixels) and
+    `cb` channels, `vec` channels a thread (cb / vec channel lanes), `ni`
+    tiles a block at once; a block takes one channel slice and one of
+    `groups` contiguous ranges of pixel tiles (the backward: one (9, C) fp32
+    dw partial a group)."""
     vec: int
     cb: int
     tw: int
@@ -92,12 +95,18 @@ def tile_plan(x_shape, dtype: torch.dtype, backward: bool) -> TilePlan:
     cb = lanes * vec
     tw = _split(W, min(_MAX_TW, _THREADS // lanes))
     th = _split(H, _MAX_TH)
-    pix_tiles = B * -(-H // th) * -(-W // tw)
-    ni = max(1, min(_THREADS // (tw * lanes), pix_tiles * (C // cb) // _TARGET_BLOCKS))
     stage = _STAGES * (th + 2) * (tw + 2) * cb * e * (2 if backward else 1)
+    return TilePlan(vec, cb, tw, th, *_blocks(B * -(-H // th) * -(-W // tw), C // cb,
+                                               tw * lanes, stage))
+
+
+def _blocks(pix_tiles: int, slices: int, threads: int, stage: int) -> tuple[int, int]:
+    """(NI, groups) of a tile plan whose tile takes `threads` threads and
+    `stage` bytes of staging (both buffers): as many tiles a block as fit
+    256 threads and 96 KB while the launch keeps about 1,024 blocks."""
+    ni = max(1, min(_THREADS // threads, pix_tiles * slices // _TARGET_BLOCKS))
     ni = max(1, min(ni, _MAX_STAGE_BYTES // stage))
-    groups = min(-(-pix_tiles // ni), max(1, -(-_TARGET_BLOCKS // (C // cb))))
-    return TilePlan(vec, cb, tw, th, ni, groups)
+    return ni, min(-(-pix_tiles // ni), max(1, -(-_TARGET_BLOCKS // slices)))
 
 
 def tile_spans(x_shape, plan: TilePlan) -> Iterator[tuple]:
@@ -116,6 +125,51 @@ def tile_spans(x_shape, plan: TilePlan) -> Iterator[tuple]:
                 h0, w0, c0 = hb * plan.th, wb * plan.tw, cs * plan.cb
                 yield ((g, cs), b, range(h0, min(h0 + plan.th, H)),
                        range(w0, min(w0 + plan.tw, W)), range(c0, c0 + plan.cb))
+
+
+def s2_staged_bytes(plan: TilePlan, dtype: torch.dtype) -> int:
+    """Shared memory of K9's backward block: two buffers of NI tiles' x
+    window ((2TH+1) x (2TW+1)) and dy window ((TH+1) x (TW+1)), CB channels."""
+    e = torch.finfo(dtype).bits // 8
+    pixels = (2 * plan.th + 1) * (2 * plan.tw + 1) + (plan.th + 1) * (plan.tw + 1)
+    return _STAGES * plan.ni * pixels * plan.cb * e
+
+
+@lru_cache(maxsize=None)
+def tile_plan_s2(x_shape, dtype: torch.dtype) -> TilePlan:
+    """K9's backward plan for a stride-2 x map, in output pixels; it depends
+    only on the shape and dtype, so the order of every sum does too. A
+    thread takes 2 channels where C allows (its 9 dw sums and 9 taps per
+    channel stay in registers), else 1; a tile up to 32 channel lanes (at
+    the model sites a warp is one output column: its shared reads are 128
+    contiguous bytes and its branches at the map's edges agree) by 8
+    columns by 8 rows, fewer rows where both buffers would pass 96 KB; tiles
+    a block and groups as `tile_plan`'s."""
+    B, H, W, C = x_shape
+    Ho, Wo = _out_size(H, 2), _out_size(W, 2)
+    vec = 2 if C % 2 == 0 else 1
+    lanes = max(d for d in range(1, min(C // vec, _MAX_LANES_S2) + 1) if C // vec % d == 0)
+    cb = lanes * vec
+    tw = _split(Wo, min(_MAX_TW_S2, _THREADS // lanes))
+    most = max([1] + [h for h in range(1, _MAX_TH_S2 + 1) if s2_staged_bytes(
+        TilePlan(vec, cb, tw, h, 1, 1), dtype) <= _MAX_STAGE_BYTES])
+    th = _split(Ho, most)
+    stage = s2_staged_bytes(TilePlan(vec, cb, tw, th, 1, 1), dtype)
+    return TilePlan(vec, cb, tw, th, *_blocks(B * -(-Ho // th) * -(-Wo // tw), C // cb,
+                                               tw * lanes, stage))
+
+
+def tile_spans_s2(x_shape, plan: TilePlan) -> Iterator[tuple]:
+    """K9's backward tiles as its kernel walks them (the order of
+    `tile_spans`, on the output map): ((group, channel slice), b, output
+    rows, output columns, dx rows, dx columns, channels), each of the last
+    five a `range`; a tile's outputs write dx rows 2*o0 .. 2*o1 - 1 and
+    columns likewise, cut at H and W."""
+    B, H, W, C = x_shape
+    Ho, Wo = _out_size(H, 2), _out_size(W, 2)
+    for gc, b, rows, cols, chans in tile_spans((B, Ho, Wo, C), plan):
+        yield (gc, b, rows, cols, range(2 * rows.start, min(2 * rows.stop, H)),
+               range(2 * cols.start, min(2 * cols.stop, W)), chans)
 
 
 def supports_fused(x_shape) -> bool:
@@ -242,26 +296,22 @@ def dw_conv3x3_fwd(x: torch.Tensor, w9: torch.Tensor, stride: int = 1) -> torch.
     return y
 
 
-def _bwd_launch(x, dy, w9, stride, with_dx):
+def _bwd_launch(x, dy, w9, stride, with_dx, plan: TilePlan | None = None):
+    """K7/K8 (stride 1) or K9's backward (stride 2) on `plan`, by default
+    `tile_plan` / `tile_plan_s2`'s; a plan the C entry refuses raises."""
     B, H, W, C = x.shape
-    lib = _lib()
-    code = _DTYPE_CODE[x.dtype]
-    if stride == 1:
-        plan = tile_plan(x.shape, x.dtype, backward=True)
-        groups = plan.groups
-    else:
-        groups = lib.cream_dwconv_s2_bwd_groups(B, H, W, C, code)
-    partial = torch.empty(groups, 9, C, dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = (tile_plan(x.shape, x.dtype, backward=True) if stride == 1
+                else tile_plan_s2(x.shape, x.dtype))
+    partial = torch.empty(plan.groups, 9, C, dtype=torch.float32, device=x.device)
     dw9 = torch.empty(9, C, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if with_dx else None
-    args = (x.data_ptr(), dy.data_ptr(), w9.data_ptr() if with_dx else None,
-            dx.data_ptr() if with_dx else None, partial.data_ptr(), dw9.data_ptr(),
-            B, H, W, C, code)
+    lib = _lib()
+    entry = lib.cream_dwconv_tile_bwd if stride == 1 else lib.cream_dwconv_s2_tile_bwd
     with torch.cuda.device(x.device):
-        if stride == 1:
-            rc = lib.cream_dwconv_tile_bwd(*args, *plan, _stream(x))
-        else:
-            rc = lib.cream_dwconv_s2_bwd(*args, groups, _stream(x))
+        rc = entry(x.data_ptr(), dy.data_ptr(), w9.data_ptr() if with_dx else None,
+                   dx.data_ptr() if with_dx else None, partial.data_ptr(), dw9.data_ptr(),
+                   B, H, W, C, _DTYPE_CODE[x.dtype], *plan, _stream(x))
     if rc != 0:
         raise RuntimeError(f"depthwise-conv backward launch failed: cudaError {rc}")
     return dx, dw9
@@ -375,8 +425,7 @@ def _lib():
             ("cream_dwconv_tile_fwd", [ptr] * 3 + [i] * 11 + [ptr]),
             ("cream_dwconv_tile_bwd", [ptr] * 6 + [i] * 11 + [ptr]),
             ("cream_dwconv_s2_fwd", [ptr] * 3 + [i] * 5 + [ptr]),
-            ("cream_dwconv_s2_bwd_groups", [i] * 5),
-            ("cream_dwconv_s2_bwd", [ptr] * 6 + [i] * 6 + [ptr])):
+            ("cream_dwconv_s2_tile_bwd", [ptr] * 6 + [i] * 11 + [ptr])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i
     return lib

@@ -20,8 +20,8 @@ last one short, the same bits at every block size and on two launches,
 taps wider than the window, padded head dims and its launch plan against
 the library's; K7/K8/K9 at EfficientViT-M5's and
 TinyViT-21M's depthwise shapes (smaller batches), odd channel counts and odd
-stride-2 maps, dw's bits across launches, their refusals, their
-autograd.Functions' grads, and a narrow EfficientViT train step whose three
+stride-2 maps, dw's bits across launches, their refusals (a tile plan the
+C entry refuses raises), their autograd.Functions' grads, and a narrow EfficientViT train step whose three
 depthwise routes agree and launch the kernels the site count says; K6 at
 TinyViT's stage-0 shapes (smaller batches), ragged tiles and every built
 channel count, its zero-padded hidden tensor and the MBConv route; K3 at
@@ -567,14 +567,16 @@ def test_narrow_efficientvit_routes_agree(card, img):
 
 # (B, H, W, C, stride): M5's depthwise sites, TinyViT-21M's MBConv,
 # local_conv and PatchMerging sites (batches cut), odd C (one bf16 channel
-# per thread), an odd stride-2 map (the kernel takes it; ConvBN routes it to
-# the library), a map whose tiles are ragged in H, W and C (staged element
-# by element in the backward), the smallest map K7 takes
+# per thread), odd stride-2 maps (the kernels take them; ConvBN routes them
+# to the library: K9's backward skips dx rows and columns past H and W and
+# dy taps past Ho and Wo), a map whose tiles are ragged in H, W and C
+# (staged element by element in the backward), the smallest maps K7 and K9
+# take
 DW_CASES = [(4, 14, 14, 192, 1), (16, 7, 7, 16, 1), (4, 7, 7, 288, 1), (4, 4, 4, 384, 1),
             (8, 4, 4, 16, 1), (2, 56, 56, 384, 1), (4, 14, 14, 768, 2), (2, 56, 56, 192, 2),
             (2, 14, 14, 576, 2), (3, 9, 6, 15, 1), (3, 8, 6, 15, 2), (2, 7, 7, 16, 2),
             (2, 28, 28, 192, 1), (2, 14, 14, 384, 1), (2, 7, 7, 576, 1), (2, 57, 35, 40, 1),
-            (1, 1, 2, 8, 1)]
+            (1, 1, 2, 8, 1), (2, 28, 28, 384, 2), (2, 9, 13, 24, 2), (1, 2, 4, 8, 2)]
 
 
 def _dw_inputs(card, B, H, W, C, stride, dtype):
@@ -645,6 +647,20 @@ def test_dw_kernels_refuse_what_they_do_not_take(card):
         dwconv.dw_conv3x3_bwd(x, torch.zeros(2, 8, 8, 16), w9)
     with pytest.raises(TypeError):                            # dy of another dtype
         dwconv.dw_wgrad(x, torch.zeros(2, 8, 8, 16, device=card).bfloat16())
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dw_backward_refuses_a_plan_it_cannot_take(card, stride):
+    """A plan the C entry refuses (channels per tile not dividing C, too
+    many threads, no groups) raises; nothing falls back."""
+    x, w9, dy = _dw_inputs(card, 2, 14, 14, 192, stride, torch.bfloat16)
+    plan = (dwconv.tile_plan(x.shape, x.dtype, backward=True) if stride == 1
+            else dwconv.tile_plan_s2(x.shape, x.dtype))
+    dwconv._bwd_launch(x, dy, w9, stride, True, plan)            # the plan itself runs
+    for bad in (plan._replace(cb=plan.cb + plan.vec), plan._replace(ni=64),
+                plan._replace(groups=0)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            dwconv._bwd_launch(x, dy, w9, stride, True, bad)
 
 
 def test_narrow_efficientvit_train_step_routes_agree(card):

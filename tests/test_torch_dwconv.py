@@ -5,8 +5,10 @@ The JAX side runs its Pallas kernels (`dw_conv3x3_fused`, `dw_conv3x3_wg`,
 the backward; the port's side is the plain version each CUDA kernel (K7, K8,
 K9) is held to on the card. Inputs come from numpy seeds and are fed to both.
 Also: each autograd.Function's CPU route against autograd of
-`F.conv2d(groups=C)`, ConvBN's routing, and the depthwise sites of an
-EfficientViT-M5 step at 224.
+`F.conv2d(groups=C)`, ConvBN's routing, the depthwise sites of an
+EfficientViT-M5 step at 224, and the tile plans of the K7/K8 and K9
+backward kernels (every output once; K9's parity-phase dx, emulated tile by
+tile, bit-identical to the plain version).
 """
 import numpy as np
 import pytest
@@ -24,9 +26,9 @@ from cream_tpu_torch.ops import dwconv
 
 # (B, H, W, C, stride): a TinyViT-like map, the CGA's 7x7 q-depthwise at 16
 # channels, a stride-2 PatchMerging map, a TinyViT local_conv-like map at
-# narrow width, a ragged map
+# narrow width, a ragged map, a stride-2 map whose output is not square
 CASES = [(2, 8, 8, 32, 1), (2, 7, 7, 16, 1), (2, 8, 8, 32, 2), (2, 14, 14, 48, 1),
-         (2, 9, 13, 24, 1)]
+         (2, 9, 13, 24, 1), (2, 10, 6, 24, 2)]
 
 
 def _np(t):
@@ -262,3 +264,92 @@ def test_tile_plan_covers_every_output_once(dtype, backward):
             groups.add(g)
         assert (count == 1).all(), (B, H, W, C, plan)
         assert groups == set(range(plan.groups))
+
+
+# stride-2 maps K9's backward sees: TinyViT-21M-224 bs256's and
+# EfficientViT-M5 bs512's PatchMerging sites (chip_smoke.DW_TINYVIT, DW_M5),
+# the card tests' stride-2 shapes (tests/test_torch_cuda.py DW_CASES) and
+# odd maps (dx rows or columns past H or W, one output pixel)
+S2_SHAPES = [(256, 56, 56, 192), (256, 28, 28, 384), (256, 14, 14, 576), (512, 14, 14, 768),
+             (4, 14, 14, 768), (2, 56, 56, 192), (2, 14, 14, 576), (3, 8, 6, 15), (2, 7, 7, 16),
+             (2, 28, 28, 384), (2, 9, 13, 24), (1, 2, 4, 8), (2, 57, 35, 40), (1, 1, 1, 8),
+             (3, 31, 17, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_s2_tile_plan_covers_every_output_once(dtype):
+    """K9's backward tiles cover every dy pixel and every dx pixel (each
+    channel slice) exactly once; a block takes whole tiles of one channel
+    slice within 256 threads and 96 KB of staged windows (its dw reduction
+    too), and every group has tiles."""
+    for B, H, W, C in S2_SHAPES:
+        Ho, Wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+        plan = dwconv.tile_plan_s2((B, H, W, C), dtype)
+        lanes = plan.cb // plan.vec
+        threads = plan.ni * plan.tw * lanes
+        assert C % plan.cb == 0 and plan.cb % plan.vec == 0 and plan.vec <= 2
+        assert threads <= 256 and plan.tw <= 8 and plan.th <= 8
+        assert dwconv.s2_staged_bytes(plan, dtype) <= 96 * 1024
+        assert threads * 9 * plan.vec * 4 <= 96 * 1024
+        dy_count = np.zeros((B, Ho, Wo, C // plan.cb), np.int32)
+        dx_count = np.zeros((B, H, W, C // plan.cb), np.int32)
+        groups = set()
+        for (g, cs), b, rows, cols, dx_rows, dx_cols, chans in dwconv.tile_spans_s2(
+                (B, H, W, C), plan):
+            assert chans == range(cs * plan.cb, (cs + 1) * plan.cb)
+            assert len(rows) <= plan.th and len(cols) <= plan.tw
+            dy_count[b, rows.start:rows.stop, cols.start:cols.stop, cs] += 1
+            dx_count[b, dx_rows.start:dx_rows.stop, dx_cols.start:dx_cols.stop, cs] += 1
+            groups.add(g)
+        assert (dy_count == 1).all() and (dx_count == 1).all(), (B, H, W, C, plan)
+        assert groups == set(range(plan.groups))
+
+
+def _s2_dx_by_tiles(x_shape, dy, w9, plan):
+    """K9's backward dx as its kernel computes it, in torch: tile by tile
+    (`tile_spans_s2`), from the tile's dy window (its outputs and one pixel
+    below and to the right, where the map has them), each output's four dx
+    phases summed in fp32 from 0 in tap order, the product and the sum
+    rounded apart, only over taps whose dy lies in the map, rounded once."""
+    B, H, W, C = x_shape
+    Ho, Wo = dy.shape[1:3]
+    w = w9.to(dy.dtype).float()
+    dx = torch.full((B, H, W, C), float("nan"))
+    for _, b, rows, cols, dx_rows, dx_cols, chans in dwconv.tile_spans_s2(x_shape, plan):
+        o0, o1, p0, p1 = rows.start, rows.stop, cols.start, cols.stop
+        win = dy[b, o0:min(o1 + 1, Ho), p0:min(p1 + 1, Wo), chans.start:chans.stop].float()
+        wt = w[:, chans.start:chans.stop]
+        n, m = o1 - o0, p1 - p0
+        out = torch.zeros(2 * n, 2 * m, len(chans))
+        for i in (0, 1):
+            for j in (0, 1):
+                acc = torch.zeros(n, m, len(chans))
+                # dx(2o+i, 2p+j) takes kh = 1 (i = 0) or kh = 0, 2 (i = 1):
+                # kh = 0 reads dy row o + 1, kh = 1 and 2 row o; kw likewise
+                for t in range(9):
+                    kh, kw = divmod(t, 3)
+                    if (kh == 1) != (i == 0) or (kw == 1) != (j == 0):
+                        continue
+                    di, dj = int(kh == 0), int(kw == 0)
+                    rn, cn = min(n, win.shape[0] - di), min(m, win.shape[1] - dj)
+                    acc[:rn, :cn] = acc[:rn, :cn] + wt[t] * win[di:di + rn, dj:dj + cn]
+                out[i::2, j::2] = acc
+        dx[b, dx_rows.start:dx_rows.stop, dx_cols.start:dx_cols.stop,
+           chans.start:chans.stop] = out[:len(dx_rows), :len(dx_cols)]
+    return dx.to(dy.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C", [(2, 8, 8, 32), (3, 8, 6, 15), (2, 7, 7, 16),
+                                     (2, 9, 13, 24), (1, 2, 4, 8), (2, 30, 22, 64)])
+def test_s2_parity_phase_dx_is_the_plain_dx_bit_for_bit(B, H, W, C, dtype):
+    """The parity-phase dx of K9's backward, emulated tile by tile in its
+    tap order, has the plain version's bits on even and odd maps."""
+    x, w, dy = _inputs(B, H, W, C, 2, seed=3)
+    tdy, w9 = torch.from_numpy(dy).to(dtype), _w9(w).to(dtype)
+    want, _ = dwconv.dw_conv3x3_bwd_ref(torch.from_numpy(x).to(dtype), tdy, w9, 2)
+    got = _s2_dx_by_tiles((B, H, W, C), tdy, w9, dwconv.tile_plan_s2((B, H, W, C), dtype))
+    assert got.dtype == want.dtype and torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                                            else torch.int32),
+                                                   want.view(torch.int16 if dtype == torch.bfloat16
+                                                             else torch.int32))
