@@ -7,6 +7,7 @@
         --batch 512 dw_kernel=fused                      # model keyword arguments
     python -m cream_tpu_torch.cli.profile_step mbconv_kernel=true pin_layouts=true
     python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_384 --batch 64
+    python -m cream_tpu_torch.cli.profile_step [--train] --models s3_tiny --batch 128
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -17,8 +18,8 @@ kind of kernel, and the top kernels by name, beside the card's name and
 power limit. The train steps are those of `speed_test.train_throughput`
 (random images, int labels, adamw(1e-3, weight_decay=0.05), the variant's
 drop path). `--plain-attention` swaps every attention kernel for its plain
-PyTorch version (TinyViT's window attention, EfficientViT's CGA route
-"plain"); `key=value` words are model keyword arguments, as in
+PyTorch version (TinyViT's and Swin/S3's window attention, EfficientViT's
+CGA route "plain"); `key=value` words are model keyword arguments, as in
 `speed_test`; `--img-size` defaults to each model's own. A run without a
 CUDA device fails.
 """
@@ -127,8 +128,9 @@ def use_plain_attention(model: torch.nn.Module) -> None:
     """Swap every attention kernel of `model` for its plain version."""
     from cream_tpu_torch.models.efficientvit import CascadedGroupAttention
     from cream_tpu_torch.nn.attention import WindowBiasAttention
+    from cream_tpu_torch.nn.swin import SwinWindowAttention
     for m in model.modules():
-        if isinstance(m, WindowBiasAttention):
+        if isinstance(m, (WindowBiasAttention, SwinWindowAttention)):
             m.use_kernel = False
         elif isinstance(m, CascadedGroupAttention):
             m.attn_kernel = "plain"

@@ -9,6 +9,7 @@
         --batch 512 dw_kernel=fused                      # or wgrad, library
     python -m cream_tpu_torch.cli.speed_test mbconv_kernel=true pin_layouts=true
     python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_384 --batch 64
+    python -m cream_tpu_torch.cli.speed_test [--train] --models s3_tiny --batch 128
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on

@@ -1,12 +1,14 @@
 """Weights for the port: released .pth files, the JAX package's variables,
 and seeded random weights.
 
-The port's parameter names are the released microsoft/Cream TinyViT and
-EfficientViT names, so a released checkpoint loads with
-`model.load_state_dict` as it is, and the JAX package's
-`cream_tpu.zoo.import_torch.convert_tinyvit` / `convert_efficientvit` map a
-port state_dict to its variables. `state_dict_from_jax` and
-`efficientvit_state_dict_from_jax` are their exact inverses;
+The port's parameter names are the released microsoft/Cream TinyViT,
+EfficientViT, Swin/S3 and Mini-Swin names, so a released checkpoint loads
+with `model.load_state_dict` once `load_pth` has read it, and the JAX
+package's `cream_tpu.zoo.import_torch.convert_tinyvit` /
+`convert_efficientvit` / `convert_swin` / `convert_mini_swin` map a port
+state_dict to its variables. `state_dict_from_jax`,
+`efficientvit_state_dict_from_jax`, `swin_state_dict_from_jax` and
+`mini_swin_state_dict_from_jax` are their exact inverses;
 `bias_attention_state_dict_from_jax` carries a JAX `BiasAttention`'s
 variables to the port's module.
 """
@@ -19,17 +21,23 @@ import numpy as np
 import torch
 
 
+# buffers of released files that the port's models rebuild from shapes:
+# TinyViT/EfficientViT's attention index, Swin/S3's relative position index
+# and shifted-window mask
+REBUILT_BUFFERS = ("attention_bias_idxs", "relative_position_index", "attn_mask")
+
+
 def load_pth(path: str) -> dict[str, torch.Tensor]:
-    """A released TinyViT or EfficientViT .pth -> state_dict for the port's
-    model. The attention index buffers are dropped (the model rebuilds
-    them), and 1x1 conv weights stored 2-D, as released EfficientViT files
-    store some, get their two unit axes back (the reference's
-    `model/build.py:76-83` does the same)."""
+    """A released TinyViT, EfficientViT, Swin/S3 or Mini-Swin .pth ->
+    state_dict for the port's model. The buffers the model rebuilds
+    (`REBUILT_BUFFERS`) are dropped, and 1x1 conv weights stored 2-D, as
+    released EfficientViT files store some, get their two unit axes back
+    (the reference's `model/build.py:76-83` does the same)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt:
         ckpt = ckpt["model"]
     return {k: v[:, :, None, None] if k.endswith(".c.weight") and v.ndim == 2 else v
-            for k, v in ckpt.items() if not k.endswith("attention_bias_idxs")}
+            for k, v in ckpt.items() if not k.endswith(REBUILT_BUFFERS)}
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -185,6 +193,82 @@ def efficientvit_state_dict_from_jax(variables: Mapping, with_head: bool = True
             if head in w.params:
                 w.bn(f"{head}/bn", f"{head}.bn")
                 w.dense(f"{head}/linear", f"{head}.l")
+    return w.state_dict()
+
+
+def _swin_stem_and_head(w: _Writer, with_head: bool) -> None:
+    w.conv_biased("patch_embed/proj", "patch_embed.proj")
+    w.ln("patch_embed/norm", "patch_embed.norm")
+    w.ln("norm", "norm")
+    if with_head and "head" in w.params:
+        w.dense("head", "head")
+
+
+def _swin_blocks(params: Mapping) -> dict[int, int]:
+    """{stage: number of blocks} from the `layers_{s}_block_{i}` keys."""
+    count: dict[int, int] = {}
+    for key in params:
+        if "_block_" in key:
+            s = int(key.split("_")[1])
+            count[s] = count.get(s, 0) + 1
+    return count
+
+
+def _swin_downsample(w: _Writer, s: int) -> None:
+    fp = f"layers_{s}_downsample"
+    if fp in w.params:
+        w.ln(f"{fp}/norm", f"layers.{s}.downsample.norm")
+        w.dense(f"{fp}/reduction", f"layers.{s}.downsample.reduction")
+
+
+def _swin_attn_mlp(w: _Writer, fp: str, tp: str) -> None:
+    w.dense(f"{fp}/attn/qkv", f"{tp}.attn.qkv")
+    w.dense(f"{fp}/attn/proj", f"{tp}.attn.proj")
+    w.raw(f"{fp}/attn/relative_position_bias_table",
+          f"{tp}.attn.relative_position_bias_table")
+    w.dense(f"{fp}/mlp/fc1", f"{tp}.mlp.fc1")
+    w.dense(f"{fp}/mlp/fc2", f"{tp}.mlp.fc2")
+
+
+def swin_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                             ) -> dict[str, torch.Tensor]:
+    """The JAX package's Swin / S3 variables -> the port's state_dict
+    (released names). Inverse of `convert_swin`."""
+    w = _Writer(variables)
+    _swin_stem_and_head(w, with_head)
+    for s, n in sorted(_swin_blocks(w.params).items()):
+        for i in range(n):
+            fp, tp = f"layers_{s}_block_{i}", f"layers.{s}.blocks.{i}"
+            w.ln(f"{fp}/norm1", f"{tp}.norm1")
+            w.ln(f"{fp}/norm2", f"{tp}.norm2")
+            _swin_attn_mlp(w, fp, tp)
+        _swin_downsample(w, s)
+    return w.state_dict()
+
+
+def mini_swin_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX package's MiniSwin variables -> the port's state_dict
+    (released Mini-Swin names: shared `attn`/`mlp` per physical block,
+    per-repeat `norm1_list.{r}`, `norm2_list.{r}`, `proj_l.{r}`,
+    `proj_w.{r}`, `local_norm_list.{r}`, `local_conv_list.{r}`). Inverse of
+    `convert_mini_swin`."""
+    w = _Writer(variables)
+    _swin_stem_and_head(w, with_head)
+    for s, n in sorted(_swin_blocks(w.params).items()):
+        for i in range(n):
+            fp, tp = f"layers_{s}_block_{i}", f"layers.{s}.blocks.{i}"
+            _swin_attn_mlp(w, fp, tp)
+            block = w._get(w.params, fp)
+            for r in range(sum(k.startswith("norm1_list_") for k in block)):
+                w.ln(f"{fp}/norm1_list_{r}", f"{tp}.norm1_list.{r}")
+                w.ln(f"{fp}/norm2_list_{r}", f"{tp}.norm2_list.{r}")
+                w.dense(f"{fp}/proj_l_{r}", f"{tp}.proj_l.{r}")
+                w.dense(f"{fp}/proj_w_{r}", f"{tp}.proj_w.{r}")
+                if f"local_norm_list_{r}" in block:
+                    w.ln(f"{fp}/local_norm_list_{r}", f"{tp}.local_norm_list.{r}")
+                    w.conv_biased(f"{fp}/local_conv_list_{r}", f"{tp}.local_conv_list.{r}")
+        _swin_downsample(w, s)
     return w.state_dict()
 
 

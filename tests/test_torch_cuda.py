@@ -28,9 +28,12 @@ channel count, its zero-padded hidden tensor and the MBConv route; K3 at
 TinyViT's and EfficientViT's window sizes up to 256 tokens, kd != dv and
 head dims that are not multiples of 16 or 8, the BiasAttention route; K3
 and K5 on offset views and the same bf16 bits on two launches; K10 bit for
-bit at 16-, 8-, 4- and 2-byte accesses and inside forward_windowed; K11 bit for bit with its identity backward; and a
+bit at 16-, 8-, 4- and 2-byte accesses and inside forward_windowed; K11 bit for bit with its identity backward; a
 narrow TinyViT whose pin_layouts and mbconv_kernel routes agree with the
-plain one.
+plain one; and Swin's attention at S3-Tiny's four stage shapes (qkv_major,
+the shift mask, grads into the bias table and the qkv bias through K2),
+with S3-Tiny, Swin-T and Mini-Swin-T launching 12, 12 and 0 K1 a forward
+and S3-Tiny's train step 12 K1 + 12 K2.
 """
 import numpy as np
 import pytest
@@ -976,3 +979,87 @@ def test_narrow_tinyvit_pin_and_mbconv_routes(card):
         assert (lp.LAUNCHES - n[0], mbconv.LAUNCHES - n[1]) == want, key
     assert torch.equal(out["pin"], out["plain"])
     torch.testing.assert_close(out["mbconv"], out["plain"], atol=1e-4, rtol=1e-4)
+
+
+# S3-Tiny's four stages at 224: (map, window, dim, heads, shift); head dim 32
+S3T_STAGES = [(56, 7, 96, 3, 3), (28, 7, 192, 6, 3), (14, 14, 384, 12, 0), (7, 7, 768, 24, 0)]
+
+
+@pytest.mark.parametrize("H,ws,dim,heads,shift", S3T_STAGES)
+def test_swin_attention_kernel_route_matches_plain(card, H, ws, dim, heads, shift):
+    """`SwinWindowAttention` through `swin_attend` at S3-Tiny's stage shapes
+    (batch 2): bf16 and fp32 forwards on K1 (qkv_major, in-kernel qkv bias,
+    the shift mask) against the plain route; in fp32, the grads of x, the
+    bias table, the qkv weight and bias through K2 against autograd of the
+    plain route. One K1 launch a forward, one K2 a backward."""
+    import copy
+
+    from cream_tpu_torch.nn.swin import SwinWindowAttention, swin_attend
+    for dtype in (torch.bfloat16, torch.float32):
+        attn = SwinWindowAttention(dim, ws, heads, head_dim=32, dtype=dtype, device=card)
+        attn.load_state_dict(seeded_state_dict(attn, 1))
+        plain = copy.deepcopy(attn)
+        plain.use_kernel = False
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, H, H, dim)).astype(np.float32)).to(card)
+        assert attn.kernel_path(x) and not plain.kernel_path(x)
+        k1, k2 = wa.LAUNCHES, wa.BWD_LAUNCHES
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        got = swin_attend(xk.to(dtype), attn, ws, shift)
+        want = swin_attend(xp.to(dtype), plain, ws, shift)
+        assert wa.LAUNCHES == k1 + 1
+        # four times K1's bound: the output projection rounds once more
+        lim = 4 * _bound(dtype, want.float())
+        assert (got.float() - want.float()).abs().max().item() <= lim
+        if dtype == torch.float32:
+            dout = torch.randn_like(got)
+            params = [attn.relative_position_bias_table, attn.qkv.weight, attn.qkv.bias]
+            g = torch.autograd.grad(got, [xk, *params], dout)
+            pp = [plain.relative_position_bias_table, plain.qkv.weight, plain.qkv.bias]
+            w = torch.autograd.grad(want, [xp, *pp], dout)
+            assert wa.BWD_LAUNCHES == k2 + 1
+            for a, b in zip(g, w):
+                torch.testing.assert_close(a, b, atol=1e-5 * b.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("name,per", [("s3_tiny", 12), ("swin_tiny", 12), ("mini_swin_tiny", 0)])
+def test_swin_models_kernel_launches_and_plain_route(card, name, per):
+    """fp32 (TF32 off) at batch 2: `per` K1 launches a forward, logits
+    within 1e-4 of the plain route's; S3-Tiny's train step launches 12 K1
+    + 12 K2 and its loss and grads agree with the plain route's."""
+    import copy
+
+    from cream_tpu_torch.models import create_model
+    from cream_tpu_torch.train.losses import soft_target_ce
+    from cream_tpu_torch.train.steps import loss_and_grads
+
+    m = create_model(name, device=card, drop_path_rate=0.0)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    plain = copy.deepcopy(m)
+    _set_swin_kernel(plain, False)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 224, 224, 3)).astype(np.float32)).to(card)
+    k1 = wa.LAUNCHES
+    with torch.inference_mode():
+        got = m(x)
+        assert wa.LAUNCHES == k1 + per
+        want = plain(x)
+    assert wa.LAUNCHES == k1 + per
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    if name != "s3_tiny":
+        return
+    y = torch.eye(1000, device=card)[torch.from_numpy(rng.integers(0, 1000, 2)).to(card)]
+    k1, k2 = wa.LAUNCHES, wa.BWD_LAUNCHES
+    loss, _, grads = loss_and_grads(m, {"image": x, "label": y}, soft_target_ce)
+    assert (wa.LAUNCHES - k1, wa.BWD_LAUNCHES - k2) == (12, 12)
+    want_loss, _, want_g = loss_and_grads(plain, {"image": x, "label": y}, soft_target_ce)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for k, w in want_g.items():
+        assert (grads[k] - w).norm().item() <= 1e-4 * w.norm().item() + 1e-12, k
+
+
+def _set_swin_kernel(model, on):
+    from cream_tpu_torch.nn.swin import SwinWindowAttention
+    for m in model.modules():
+        if isinstance(m, SwinWindowAttention):
+            m.use_kernel = on
