@@ -15,9 +15,12 @@ non-zero):
      the shift mask at stages 0 and 1); kernel and one-call library (SDPA;
      bias plus mask as one attn_mask) device times by CUDA-graph replay
      with their CUDA-events times beside them, plain times, per stage and
-     summed over a TinyViT-21M-224 forward and an S3-Tiny forward
+     summed over a TinyViT-21M-224 forward and an S3-Tiny forward; and at
+     Swin-B bs256's four stages (qkv_major, the mask at stages 0-2), summed
+     over its 2 + 2 + 18 + 2 blocks
   4. K2 vs plain: the backward kernel against `window_attention_bwd_ref` at
-     the same shapes, bf16 and fp32; dqkv and dbias the same bits on two
+     the same shapes (Swin-B's untimed), bf16 and fp32; dqkv and dbias the
+     same bits on two
      launches; kernel and library (SDPA backward: its fwd+bwd graph less
      its fwd graph, or CUDA events where that cannot be captured) times as
      for K1, summed over a train step, and the K1+K2 autograd.Function pair
@@ -48,6 +51,20 @@ non-zero):
      train.make_train_step: 12 K1 + 12 K2 launches per step, the loss falls
      over 10 steps on one batch, the first step against use_kernel=False,
      train img/s of both routes, peak memory
+ 9d. main path (TinyViT fast distillation), through the CLIs' main(argv)
+     in a temporary directory under build/: cli.save_logits with a seeded
+     Swin-B-22k teacher (bf16 bs256, 1,024 synthetic images, a seeded 1k ->
+     22k mapping with 5 absent classes, top-100; 24 K1 launches a forward,
+     the native codec, every stored seed sample_seed's, no absent class
+     stored, teacher img/s and host ms per batch), its --check pass (value
+     error <= 1e-3, tie-aware miss rate 0), cli.train with
+     distill.enabled on TinyViT-21M-224 (bf16 bs256, mixup 0.8 / cutmix
+     1.0: 10 K1 + 10 K2 launches a step, the stored seeds checked, finite
+     loss), a store without recipe.json refused; the distill step alone
+     (10 + 10 launches a step, img/s by CUDA events, peak memory), the fp32
+     B=2 distill step against the JAX golden (loss 1e-4, grad norms 1e-3
+     per tensor) and the bf16 step against the plain attention route (loss
+     2 ulps, grad_norm 2%)
  10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
      bf16 (tensor cores) and fp32 (CUDA cores), at EfficientViT-M5 bs512's
      and M0 bs1024's per-head shapes, bf16 the same bits on two launches;
@@ -133,7 +150,8 @@ non-zero):
      bit the unpinned step's, per-tensor grads no further from it than a
      second unpinned step is
 The total wall time is printed, then the card, then a JSON summary of the
-kernels (K1/K2 rows with an `s3_tiny` sum beside TinyViT's); the last line
+kernels (K1/K2 rows with an `s3_tiny` sum beside TinyViT's, K1's with a
+`swin_base` sum); the last line
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -194,6 +212,15 @@ S3T_SHAPES = [("s3t_stage0", S3T_BATCH, 56, 7, 3, 32, True, 2),
               ("s3t_stage1", S3T_BATCH, 28, 7, 6, 32, True, 2),
               ("s3t_stage2", S3T_BATCH, 14, 14, 12, 32, False, 6),
               ("s3t_stage3", S3T_BATCH, 7, 7, 24, 32, False, 2)]
+# Swin-B bs256's K1 shapes (the distillation teacher, save_logits at 224),
+# qkv_major: (name, B, map, window, heads, head dim, shift mask, blocks per
+# forward). Stages 0-2 alternate unshifted and shifted blocks (window 7,
+# shift 3), timed at the shifted block's time; stage 3 is one window a map.
+SWINB_BATCH = 256
+SWINB_SHAPES = [("swinb_stage0", SWINB_BATCH, 56, 7, 4, 32, True, 2),
+                ("swinb_stage1", SWINB_BATCH, 28, 7, 8, 32, True, 2),
+                ("swinb_stage2", SWINB_BATCH, 14, 7, 16, 32, True, 18),
+                ("swinb_stage3", SWINB_BATCH, 7, 7, 32, 32, False, 2)]
 # TinyViT-21M-384 bs64's K1 shapes (window 12, 144 tokens; stage 2's
 # 576-token window takes the plain attention): correctness and times only
 TINYVIT384_SHAPES = [("384_stage1", 64, 48, 12, 6, 32, 2),
@@ -385,19 +412,22 @@ def sdpa_windows(qkv, bias, dout, kw, shift_mask=None):
 def k1_cases():
     """(name, B, map, window, heads, d, mask, layout) of the K1/K2 checks:
     TinyViT-21M-224's three stages, TinyViT-21M-384's two windowed stages,
-    Swin-T's stage 0 (qkv_major with the shift mask) and S3-Tiny bs128's
-    four stages (qkv_major, the mask at stages 0 and 1)."""
+    Swin-T's stage 0 (qkv_major with the shift mask), S3-Tiny bs128's
+    four stages (qkv_major, the mask at stages 0 and 1) and Swin-B bs256's
+    four (qkv_major, the mask at stages 0-2)."""
     cases = [(n, B, H, ws, h, d, False, "head_major")
              for n, B, H, ws, h, d, _ in TINYVIT_SHAPES + TINYVIT384_SHAPES]
     cases.append(("swin_t_stage0", 64, 56, 7, 3, 32, True, "qkv_major"))
     cases += [(n, B, H, ws, h, d, mask, "qkv_major")
-              for n, B, H, ws, h, d, mask, _ in S3T_SHAPES]
+              for n, B, H, ws, h, d, mask, _ in S3T_SHAPES + SWINB_SHAPES]
     return cases
 
 
-def timed(name: str) -> bool:
-    """Whether a K1/K2 case is timed: the main paths' stage shapes."""
-    return name in {n for n, *_ in TINYVIT_SHAPES + TINYVIT384_SHAPES + S3T_SHAPES}
+def timed(name: str, backward: bool = False) -> bool:
+    """Whether a K1 (K2) case is timed: the main paths' stage shapes; Swin-B
+    (an eval-only teacher) for K1 only."""
+    shapes = TINYVIT_SHAPES + TINYVIT384_SHAPES + S3T_SHAPES + ([] if backward else SWINB_SHAPES)
+    return name in {n for n, *_ in shapes}
 
 
 def capturable(fn) -> bool:
@@ -498,6 +528,7 @@ def phase_k1(gen) -> tuple[float, dict]:
                       f"({t['bound_by']}) [{card_info()}]")
     print_per_pass("k1", "forward", times)
     print_per_pass("k1", "forward", times, S3T_SHAPES, "S3-Tiny bf16 bs128")
+    print_per_pass("k1", "forward", times, SWINB_SHAPES, "Swin-B bf16 bs256")
     return worst_bf16, times
 
 
@@ -555,7 +586,7 @@ def phase_k2(gen) -> tuple[float, dict]:
             check(db_err <= db_lim, f"K2 {name} {dtype} dbias err {db_err} > {db_lim}")
             check(qb_err <= qb_lim, f"K2 {name} {dtype} d(qkv_bias) err {qb_err} > {qb_lim}")
             check(same, f"K2 {name} {dtype}: two launches differ")
-            if dtype == torch.bfloat16 and timed(name):
+            if dtype == torch.bfloat16 and timed(name, backward=True):
                 worst_bf16 = max(worst_bf16, err)
                 times[name] = k2_times(args, kw, dout, B, H, ws, heads, d, dtype)
                 t = times[name]
@@ -670,6 +701,12 @@ def phase_train_golden(name: str = "tiny_vit_21m_224", path: Path = TRAIN_GOLDEN
     loss, _, grads = loss_and_grads(m, {"image": torch.from_numpy(x).cuda(),
                                         "label": torch.from_numpy(y).cuda()},
                                     soft_target_ce)
+    check_step_golden(f"train golden {name}", g, loss, grads)
+
+
+def check_step_golden(tag: str, g, loss, grads: dict) -> None:
+    """A step's loss and raw grads against a JAX golden's loss, global grad
+    norm and per-tensor grad norms: 1e-4, 1e-4 and 1e-3 relative."""
     loss_err = abs(float(loss) - float(g["loss"])) / float(g["loss"])
     gn_err = abs(float(global_norm(grads.values())) - float(g["grad_norm"])) / float(g["grad_norm"])
     check(sorted(grads) == list(g["names"]), "train golden: param names differ")
@@ -682,14 +719,14 @@ def phase_train_golden(name: str = "tiny_vit_21m_224", path: Path = TRAIN_GOLDEN
     excess = diff - (1e-3 * g["grad_norms"] + floor)
     above = g["grad_norms"] > 100 * floor
     worst = float((diff[above] / g["grad_norms"][above]).max())
-    print(f"train golden {name} fp32 B=2 vs JAX: loss rel err {loss_err:.2e} "
+    print(f"{tag} fp32 B=2 vs JAX: loss rel err {loss_err:.2e} "
           f"(bound 1e-4), grad_norm rel err {gn_err:.2e} (bound 1e-4), per-tensor grad "
           f"norms worst rel err {worst:.2e} over the {int(above.sum())} tensors above "
           f"100x the noise floor (bound 1e-3); the {int((~above).sum())} at float noise "
           f"within {float(diff[~above].max(initial=0.0)):.1e} (floor {floor:.1e})")
-    check(loss_err <= 1e-4, f"train golden loss rel err {loss_err}")
-    check(gn_err <= 1e-4, f"train golden grad_norm rel err {gn_err}")
-    check(bool((excess <= 0).all()), "train golden per-tensor grad norms")
+    check(loss_err <= 1e-4, f"{tag} loss rel err {loss_err}")
+    check(gn_err <= 1e-4, f"{tag} grad_norm rel err {gn_err}")
+    check(bool((excess <= 0).all()), f"{tag} per-tensor grad norms")
 
 
 def smooth_images(gen, batch: int, size: int = 224, grid: int = 4) -> torch.Tensor:
@@ -863,6 +900,284 @@ def phase_train(name: str = "tiny_vit_21m_224", batch: int = BATCH,
     check(abs(l_k - l_p) <= loss_lim, f"kernel vs plain loss {l_k} vs {l_p}")
     check(abs(g_k - g_p) <= 2e-2 * g_p, f"kernel vs plain grad_norm {g_k} vs {g_p}")
     return launches
+
+
+def distill_mapping(path: Path, missing: int = 5, seed: int = 0) -> np.ndarray:
+    """A seeded 1k -> 22k mapping file (1000 distinct 22k classes, `missing`
+    of them -1: absent from the 22k head), as imagenet_1kto22k.txt lays it
+    out. The real file is not in the repository."""
+    rng = np.random.default_rng(seed)
+    mapping = rng.choice(21841, 1000, replace=False)
+    mapping[rng.choice(1000, missing, replace=False)] = -1
+    np.savetxt(path, mapping, fmt="%d")
+    return mapping
+
+
+def distill_batch(store: Path, dtype) -> dict:
+    """The first batch of epoch 0 as the distill trainer builds it
+    (`cli.train.distill_batch`) from the store, on the card."""
+    from cream_tpu_torch.cli import train as train_cli
+    from cream_tpu_torch.core.config import Config
+    from cream_tpu_torch.data.imagenet import train_loader
+    from cream_tpu_torch.distill import LogitsReader
+    cfg = Config.from_yaml(None, ["data.dataset=synthetic", f"data.batch_size={BATCH}"])
+    batch = next(iter(train_loader(train_cli.build_dataset(cfg), BATCH, 0, 0, 8)))
+    reader = LogitsReader(str(store), 0)
+    out = train_cli.distill_batch(cfg, batch, reader, "cuda", dtype)
+    reader.close()
+    return out
+
+
+def phase_distill() -> tuple[int, int]:
+    """TinyViT's fast pretraining distillation through the CLIs' main(argv)
+    in this process, into a temporary directory: save_logits with a seeded
+    Swin-B-22k teacher (bf16 bs256, the 22k -> 1k remap of a seeded mapping
+    with 5 absent classes, top-100), its --check pass, and the distill
+    train CLI on TinyViT-21M-224 (bf16 bs256, mixup 0.8 / cutmix 1.0); a
+    store without its recipe refused; then the distill step alone: its
+    launches, img/s and peak memory, the fp32 B=2 step against the JAX
+    golden, and the bf16 step against the plain attention route. Returns the
+    K1 and K2 launches of the main path (the three CLI runs and the timed
+    steps)."""
+    import shutil
+    import tempfile
+
+    from cream_tpu_torch.cli import save_logits
+    from cream_tpu_torch.cli import train as train_cli
+    from cream_tpu_torch.data.det_aug import sample_seed
+    from cream_tpu_torch.distill import LogitsReader, native
+
+    card = card_info()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        store = tmp / "store"
+        mapping = distill_mapping(tmp / "map.txt")
+        teacher = ["model.name=swin_base", "model.num_classes=21841", "model.dtype=bfloat16",
+                   "data.dataset=synthetic", f"data.batch_size={SWINB_BATCH}",
+                   "distill.logits_topk=100", "--allow-random", "--remap-1kto22k",
+                   str(tmp / "map.txt"), "--out", str(store)]
+        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        (saved,) = save_logits.main(teacher)
+        forwards = len(saved["ms"]["teacher"])
+        per_forward = wa.LAUNCHES / forwards
+        check(wa.LAUNCHES == 24 * forwards and wa.BWD_LAUNCHES == 0,
+              f"save_logits: {wa.LAUNCHES} K1 / {wa.BWD_LAUNCHES} K2 launches in "
+              f"{forwards} Swin-B forwards, want 24 a forward and no K2")
+        check(saved["native"] and native.library_path().exists(),
+              "save_logits did not write through the native codec")
+        reader = LogitsReader(str(store), 0)
+        n = reader.num_samples
+        vals, idxs, seeds = reader.read_batch(np.arange(n))
+        reader.close()
+        check(saved["records"] == n == 4 * SWINB_BATCH, f"{saved['records']} records of {n}")
+        check(np.array_equal(seeds, [sample_seed(0, 0, i) for i in range(n)]),
+              "stored seeds are not sample_seed(0, 0, index)")
+        absent = np.flatnonzero(mapping < 0)
+        check(bool((vals.sum(-1) < 1).all()), "a record's top-100 sums to 1 or more")
+        check(not np.isin(idxs, absent).any(), "an absent 22k class was stored")
+        med = {k: statistics.median(v[1:]) for k, v in saved["ms"].items()}
+        print(f"distill save_logits swin_base-22k bf16 B={SWINB_BATCH}: {forwards} forwards, "
+              f"K1 launches/forward={per_forward:.0f}, {n} records, native codec "
+              f"{native.library_path().name}; per batch (median of batches 2-{forwards}): "
+              f"teacher {med['teacher']:.3f} ms = "
+              f"{SWINB_BATCH / med['teacher'] * 1e3:.1f} img/s (mixup, forward, remap, "
+              f"softmax), host ms: upload {med['upload']:.3f}, top-K {med['topk']:.3f}, "
+              f"transfer {med['transfer']:.3f}, pack_write {med['pack_write']:.3f}; "
+              f"whole pass {saved['wall_ms'] / 1e3:.2f} s; top-100 mass "
+              f"{vals.sum(-1).min():.4f}-{vals.sum(-1).max():.4f}, top-1 "
+              f"{vals[:, 0].min():.4f}-{vals[:, 0].max():.4f} [{card}]")
+        (checked,) = save_logits.main(teacher + ["--check"])
+        check(wa.LAUNCHES == 48 * forwards, "the --check pass did not run K1 24 a forward")
+        print(f"distill save_logits --check: value max err {checked['value_max_err']:.3e} "
+              f"(bound 1e-3: the fp16 store), index diff rate "
+              f"{checked['index_diff_rate']:.4f} (JAX's metric, counts tie order), tie-aware "
+              f"miss rate {checked['index_miss_rate']:.4f} (bound 0) over {checked['n']}")
+        check(checked["value_max_err"] <= 1e-3, f"--check value error {checked['value_max_err']}")
+        check(checked["index_miss_rate"] == 0.0, f"--check miss rate {checked['index_miss_rate']}")
+
+        student = ["model.name=tiny_vit_21m_224", "model.dtype=bfloat16",
+                   "data.dataset=synthetic", f"data.batch_size={BATCH}", "distill.enabled=true",
+                   f"distill.teacher_logits_path={store}", "aug.mixup=0.8", "aug.cutmix=1.0",
+                   "train.epochs=1", "train.warmup_epochs=0", "train.nan_budget=0",
+                   f"output={tmp / 'out'}"]
+        k1, k2 = wa.LAUNCHES, wa.BWD_LAUNCHES
+        train_cli.main(student)
+        steps = eval_forwards = n // BATCH
+        check((wa.LAUNCHES - k1, wa.BWD_LAUNCHES - k2) ==
+              (10 * (steps + eval_forwards), 10 * steps),
+              f"distill train: {wa.LAUNCHES - k1} K1 / {wa.BWD_LAUNCHES - k2} K2 launches, "
+              f"want 10 + 10 a step over {steps} steps and 10 K1 a forward over "
+              f"{eval_forwards} eval forwards")
+        print(f"distill train CLI tiny_vit_21m_224 bf16 B={BATCH}: {steps} steps, "
+              f"{wa.LAUNCHES - k1} K1 / {wa.BWD_LAUNCHES - k2} K2 launches (10 + 10 a step, "
+              f"10 K1 a forward of the eval pass), stored seeds equal the loader's, loss "
+              f"finite (train.nan_budget=0)")
+        bare = tmp / "bare"
+        shutil.copytree(store, bare)
+        (bare / "recipe.json").unlink()
+        try:
+            train_cli.main([*student[:5], f"distill.teacher_logits_path={bare}", *student[6:]])
+            check(False, "a store without recipe.json was replayed")
+        except ValueError as e:
+            print(f"distill train refuses a store without recipe.json: {str(e)[:100]}...")
+        launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+        batch = distill_batch(store, torch.bfloat16)
+        distill_host_times(store, tmp / "map.txt")
+    stepped = distill_step_times(batch)
+    launches = (launches[0] + stepped[0], launches[1] + stepped[1])
+    phase_distill_golden()
+    phase_distill_routes(batch)
+    return launches
+
+
+def distill_host_times(store: Path, map_path: Path) -> None:
+    """Where a batch's time goes outside the models' kernels, on one bs256
+    batch, each the median of 5 (host clock around work that ends in a
+    synchronize, or CUDA events): the synthetic loader's batch (8 threads),
+    the seeded pair mixup (its host draws and the device mix), Swin-B-22k's
+    forward, the remap + softmax + top-K, the store's read of a batch
+    (native codec) and the student's mixup replay on bf16 images. Not the
+    main path: its K1 launches are not counted."""
+    from cream_tpu_torch.cli.train import build_dataset
+    from cream_tpu_torch.core.config import Config
+    from cream_tpu_torch.data.imagenet import train_loader
+    from cream_tpu_torch.data.mixup import seeded_pair_mixup
+    from cream_tpu_torch.distill import LogitsReader
+    from cream_tpu_torch.zoo.remap import load_1k_to_22k, remap_22k_to_1k
+
+    def host_ms(fn, reps: int = 5) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    cfg = Config.from_yaml(None, ["data.dataset=synthetic", f"data.batch_size={SWINB_BATCH}"])
+    ds = build_dataset(cfg)
+    it = iter(train_loader(ds, SWINB_BATCH, 0, 0, 8))
+    t0 = time.perf_counter()
+    batches = list(it)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    batch = batches[0]
+    x = torch.from_numpy(batch["image"]).cuda()
+    seeds, zeros = batch["seed"], torch.zeros(SWINB_BATCH, dtype=torch.int64, device="cuda")
+    a = cfg.aug
+    mix = host_ms(lambda: seeded_pair_mixup(seeds, x, zeros, 1, a.mixup, a.cutmix,
+                                            a.mixup_switch_prob))
+    teacher = create_model("swin_base", num_classes=21841, device="cuda", dtype=torch.bfloat16)
+    teacher.load_state_dict(seeded_state_dict(teacher, 0))
+    mapping = torch.from_numpy(load_1k_to_22k(str(map_path))).cuda()
+    x16 = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        logits = teacher(x16)
+        fwd = cuda_ms(lambda: teacher(x16), iters=2, reps=5)
+        head = cuda_ms(lambda: torch.softmax(remap_22k_to_1k(logits, mapping).float(), -1)
+                       .topk(100, dim=-1))
+    del teacher, logits
+    reader = LogitsReader(str(store), 0)
+    read = host_ms(lambda: reader.read_batch(batch["index"]))
+    reader.close()
+    replay = host_ms(lambda: seeded_pair_mixup(seeds, x16, zeros, 1, a.mixup, a.cutmix,
+                                               a.mixup_switch_prob)[0].to(torch.bfloat16))
+    print(f"distill host/device times a bs{SWINB_BATCH} batch (median of 5): synthetic loader "
+          f"{loader_ms:.1f} ms (host, 8 threads, mean of {len(batches)} batches), seeded pair "
+          f"mixup {mix:.2f} ms (host draws + device mix), Swin-B-22k forward {fwd:.2f} ms "
+          f"(CUDA events), remap + softmax + top-K {head:.3f} ms, store read {read:.2f} ms "
+          f"(host, native), student mixup replay {replay:.2f} ms [{card_info()}]")
+
+
+def distill_step_times(batch: dict) -> tuple[int, int]:
+    """The bf16 bs256 distill step of TinyViT-21M-224 (AdamW as the trainer
+    builds it, drop path 0.2) on a store batch: 10 K1 + 10 K2 launches a
+    step, finite losses, teacher agreement, img/s by CUDA events over 10
+    steps after 3, peak memory. Returns its K1 and K2 launches."""
+    from cream_tpu_torch.distill.pipeline import make_distill_train_step
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                         params=dict(model.named_parameters())))
+    step = make_distill_train_step(1000)
+    torch.cuda.reset_peak_memory_stats()
+    k1, k2 = wa.LAUNCHES, wa.BWD_LAUNCHES
+    state, metrics = step(state, batch)
+    per_step = (wa.LAUNCHES - k1, wa.BWD_LAUNCHES - k2)
+    losses, agree = [float(metrics["loss"])], [float(metrics["teacher_agree"])]
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        agree.append(metrics["teacher_agree"])
+    end.record()
+    end.synchronize()
+    ips = 10 * BATCH / (start.elapsed_time(end) / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, agree = [float(v) for v in losses], [float(v) for v in agree]
+    print(f"distill step tiny_vit_21m_224 bf16 B={BATCH}: K1/K2 launches per step "
+          f"{per_step[0]}/{per_step[1]}, loss {losses[0]:.4f} -> {losses[-1]:.4f} over 13 "
+          f"steps on one batch, teacher_agree {agree[0]:.4f} -> {agree[-1]:.4f}, "
+          f"{ips:.1f} img/s (CUDA events, 10 steps after 3), peak memory {peak:.2f} GiB "
+          f"[{card_info()}]")
+    check(per_step == (10, 10), f"{per_step} K1/K2 launches per distill step, want 10 each")
+    check(all(np.isfinite(losses)), "distill loss not finite")
+    return wa.LAUNCHES - k1, wa.BWD_LAUNCHES - k2
+
+
+def phase_distill_golden() -> None:
+    """The fp32 distill step of TinyViT-21M-224 at B=2 (drop path 0, TF32
+    off, K1 and K2) against the JAX golden stored by
+    tests/test_torch_distill.py: loss, grad norm, per-tensor grad norms."""
+    from cream_tpu_torch.distill.pipeline import make_distill_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(DATA / "tinyvit_21m_224_distill_seed0.npz")
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    m = create_model("tiny_vit_21m_224", device="cuda", dtype=torch.float32,
+                     drop_path_rate=0.0)
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    state = TrainState(m, make_adamw(1e-3))
+    grads = {}
+    state.apply_gradients = lambda gr: grads.update(gr) or state
+    k1, k2 = wa.LAUNCHES, wa.BWD_LAUNCHES
+    _, metrics = make_distill_train_step(1000)(state, {
+        "image": torch.from_numpy(x).cuda(),
+        "topk_values": torch.from_numpy(g["topk_values"]).cuda(),
+        "topk_indices": torch.from_numpy(g["topk_indices"]).cuda()})
+    check((wa.LAUNCHES - k1, wa.BWD_LAUNCHES - k2) == (10, 10),
+          "the fp32 distill step did not launch K1/K2 10 times each")
+    check_step_golden("distill golden tiny_vit_21m_224", g, metrics["loss"], grads)
+
+
+def phase_distill_routes(batch: dict) -> None:
+    """The bf16 distill step on K1/K2 against the plain attention route on
+    the same weights and batch: loss within 2 ulps, grad_norm within 2%
+    (the train phases' bounds)."""
+    from cream_tpu_torch.distill.pipeline import make_distill_train_step
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    plain = copy.deepcopy(model)
+    set_kernel(plain, False)
+    step = make_distill_train_step(1000)
+    out = []
+    for m in (model, plain):
+        k1 = wa.LAUNCHES
+        _, metrics = step(TrainState(m, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                                   params=dict(m.named_parameters()))), batch)
+        out.append((float(metrics["loss"]), float(metrics["grad_norm"]), wa.LAUNCHES - k1))
+    (l_k, g_k, n_k), (l_p, g_p, n_p) = out
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_p)) - 7)
+    print(f"distill step bf16 kernel vs plain route: loss {l_k:.5f} vs {l_p:.5f} (|diff| "
+          f"{abs(l_k - l_p):.2e}, bound {loss_lim:.2e}); grad_norm {g_k:.4f} vs {g_p:.4f} "
+          f"(rel diff {abs(g_k - g_p) / g_p:.2e}, bound 2e-2); K1 launches {n_k} / {n_p}")
+    check((n_k, n_p) == (10, 0), f"K1 launches kernel/plain route {n_k}/{n_p}")
+    check(abs(l_k - l_p) <= loss_lim, f"distill kernel vs plain loss {l_k} vs {l_p}")
+    check(abs(g_k - g_p) <= 2e-2 * g_p, f"distill kernel vs plain grad_norm {g_k} vs {g_p}")
 
 
 def phase_mini_swin(batch: int = S3T_BATCH) -> None:
@@ -2117,6 +2432,7 @@ def main() -> None:
                             top1_on_decided=True))
     phase_mini_swin()
     k1_s3_train, k2_s3_train = phase_train("s3_tiny", S3T_BATCH, 12)
+    k1_distill, k2_distill = phase_distill()
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -2139,9 +2455,9 @@ def main() -> None:
     rows = []
     for name, src, line, launches, err, t in (
             ("window_attention_fwd", "window_attention.cu", 190,
-             k1_eval + k1_train + k1_swin + k1_s3_train, worst_k1, t1),
-            ("window_attention_bwd", "window_attention_bwd.cu", 268, k2_train + k2_s3_train,
-             worst_k2, t2)):
+             k1_eval + k1_train + k1_swin + k1_s3_train + k1_distill, worst_k1, t1),
+            ("window_attention_bwd", "window_attention_bwd.cu", 268,
+             k2_train + k2_s3_train + k2_distill, worst_k2, t2)):
         rows.append({
             "name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
             "replaces": f"cream_tpu/ops/pallas/window_attention.py:{line}",
@@ -2152,6 +2468,8 @@ def main() -> None:
             "library_ms": summed_over_blocks(t, "library_ms"),
             "s3_tiny": {k: summed_over_blocks(t, k, S3T_SHAPES)
                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    rows[0]["swin_base"] = {k: summed_over_blocks(t1, k, SWINB_SHAPES)
+                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     rows.append(evit_row(
         "cga_fused", "cga.cu", "cga.py:56", sum(v["cascade"][0] for v in evit.values()),
         worst_k4, t4, ("ms", "host_ms", "plain_ms", "plain_host_ms", "module_ms",
@@ -2232,7 +2550,10 @@ def main() -> None:
           f"step (K2), eval path K1 launches {k1_eval}, train path K1/K2 launches "
           f"{k1_train}/{k2_train} (under s3_tiny: per S3-Tiny bf16 bs128 forward or step; "
           f"its and Swin-T's eval paths K1 {k1_swin}, its train path K1/K2 "
-          f"{k1_s3_train}/{k2_s3_train}); per EfficientViT-M5 bf16 bs512 forward (K4, K5), "
+          f"{k1_s3_train}/{k2_s3_train}; under swin_base: K1 per Swin-B bf16 bs256 forward; "
+          f"the distillation path (save_logits, --check, the distill train CLI and the timed "
+          f"distill steps) K1/K2 {k1_distill}/{k2_distill}); per EfficientViT-M5 bf16 bs512 "
+          f"forward (K4, K5), "
           f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes; "
           f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
           f"sites; under tinyvit21m_step the sum over a TinyViT-21M-224 bf16 bs256 train "

@@ -10,15 +10,26 @@
     python -m cream_tpu_torch.cli.train model.name=efficientvit_m0 \
         data.dataset=synthetic train.epochs=1 \
         'model.extra={"dw_kernel": "fused"}'
+    python -m cream_tpu_torch.cli.train model.name=tiny_vit_21m_224 \
+        data.dataset=synthetic data.batch_size=256 train.epochs=1 \
+        distill.enabled=true distill.teacher_logits_path=./logits
 
 AdamW on a warmup + cosine schedule (optionally with gradient accumulation
 and an EMA of the params), mixup/cutmix targets (or one-hot targets without
-smoothing when both are off), a NaN-loss budget, an eval pass and a
-checkpoint after every epoch, and auto-resume from the newest checkpoint.
-Data: `data.dataset=synthetic` only; the image-folder datasets and their
-augmentation wait for the PIL-based loaders. Teacher distillation
-(`distill.enabled`) is not ported. Weights start from `zoo.load`'s seeded
-random weights (`train.seed`).
+smoothing when both are off), repeated augmentation (`aug.repeated_aug`), a
+NaN-loss budget, an eval pass and a checkpoint after every epoch, and
+auto-resume from the newest checkpoint. Data: `data.dataset=synthetic`
+only; the image-folder datasets and their augmentation wait for the
+PIL-based loaders. Weights start from `zoo.load`'s seeded random weights
+(`train.seed`).
+
+Fast distillation (`distill.enabled` with `distill.teacher_logits_path`, a
+store `cli.save_logits` wrote): each epoch reads the stored top-K of its
+batches, checks the stored augmentation seeds against the loader's (which
+then runs without repeated augmentation, as the JAX trainer's does), replays
+the seeded pair mixup on the compute-dtype images and trains on the dense
+teacher distribution (`distill.pipeline.make_distill_train_step`). A store
+whose recipe (`recipe.json`) differs from this run's is refused.
 """
 from __future__ import annotations
 
@@ -36,7 +47,9 @@ from cream_tpu_torch.core.checkpoint import (AsyncCheckpointer, latest_step,
 from cream_tpu_torch.core.config import Config
 from cream_tpu_torch.data.imagenet import (SyntheticDataset, eval_loader,
                                            prefetch, train_loader)
-from cream_tpu_torch.data.mixup import mixup_cutmix
+from cream_tpu_torch.data.mixup import mixup_cutmix, seeded_pair_mixup
+from cream_tpu_torch.distill.logits_store import LogitsReader, check_recipe
+from cream_tpu_torch.distill.pipeline import make_distill_train_step, replay_recipe
 from cream_tpu_torch.models import create_model
 from cream_tpu_torch.models.registry import accepts
 from cream_tpu_torch.train import (MetricLogger, TrainState, cosine_schedule,
@@ -70,6 +83,39 @@ def model_options(cfg: Config) -> dict:
     return kw
 
 
+def open_store(cfg: Config, epoch: int, num_samples: int) -> LogitsReader:
+    """The distillation store's reader for `epoch`, checked against the run:
+    its classes are the model's and it holds a record per sample."""
+    reader = LogitsReader(cfg.distill.teacher_logits_path, epoch)
+    if (reader.num_classes, reader.num_samples) != (cfg.model.num_classes, num_samples):
+        reader.close()
+        raise ValueError(
+            f"logits store {cfg.distill.teacher_logits_path}: {reader.num_classes} "
+            f"classes, {reader.num_samples} samples; this run has "
+            f"{cfg.model.num_classes} classes, {num_samples} samples")
+    return reader
+
+
+def distill_batch(cfg: Config, batch: dict, reader: LogitsReader, device,
+                  dtype: torch.dtype) -> dict:
+    """The distill step's batch for a loader batch: the stored top-K of its
+    samples, after checking the stored augmentation seeds against the
+    loader's, and its images in the compute dtype with the save_logits
+    pass's seeded pair mixup replayed on them (an fp32 mix, the fp32 lambda
+    promoting it, then cast: the JAX trainer's rounding point)."""
+    vals, idxs, seeds = reader.read_batch(batch["index"])
+    if not np.array_equal(seeds, batch["seed"]):
+        raise ValueError("the stored augmentation seeds diverge from the loader's")
+    images = torch.from_numpy(batch["image"]).to(device, dtype)
+    if cfg.aug.mixup > 0 or cfg.aug.cutmix > 0:
+        images, _ = seeded_pair_mixup(
+            seeds, images, torch.zeros(len(seeds), dtype=torch.int64), 1,
+            cfg.aug.mixup, cfg.aug.cutmix, cfg.aug.mixup_switch_prob,
+            cfg.aug.label_smoothing)
+    return {"image": images.to(dtype), "topk_values": torch.from_numpy(vals).to(device),
+            "topk_indices": torch.from_numpy(idxs).to(device)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg", default=None)
@@ -77,9 +123,14 @@ def main(argv=None):
     ap.add_argument("opts", nargs="*")
     args = ap.parse_args(argv)
     cfg = Config.from_yaml(args.cfg, args.opts)
-    if cfg.distill.enabled:
-        raise NotImplementedError("distillation (distill.enabled) is not "
-                                  "ported to cream_tpu_torch yet")
+    distill = cfg.distill.enabled
+    if distill:
+        if not cfg.distill.teacher_logits_path:
+            raise NotImplementedError(
+                "distill.enabled without distill.teacher_logits_path: distillation "
+                "from a live teacher is not implemented (nor in the JAX trainer); "
+                "save the teacher's logits with cli.save_logits and pass the store")
+        check_recipe(cfg.distill.teacher_logits_path, replay_recipe(cfg))
     device = torch.device(args.device)
     dtype = getattr(torch, cfg.model.dtype)
 
@@ -108,7 +159,8 @@ def main(argv=None):
         start_epoch = (extra or {}).get("epoch", 0) + 1
         print(f"auto-resumed from step {step} (epoch {start_epoch})")
 
-    train_step = make_train_step(loss_fn=soft_target_ce)
+    train_step = (make_distill_train_step(cfg.model.num_classes) if distill
+                  else make_train_step(loss_fn=soft_target_ce))
     eval_step = make_eval_step()
     mixing = cfg.aug.mixup > 0 or cfg.aug.cutmix > 0
 
@@ -130,22 +182,27 @@ def main(argv=None):
         for epoch in range(start_epoch, cfg.train.epochs):
             logger = MetricLogger()
             t0 = time.time()
+            reader = open_store(cfg, epoch, len(train_ds)) if distill else None
             for i, batch in enumerate(prefetch(train_loader(
                     train_ds, cfg.data.batch_size, epoch, cfg.train.seed,
-                    cfg.data.num_workers))):
-                images = torch.from_numpy(batch["image"]).to(device, dtype)
-                labels = torch.from_numpy(batch["label"]).to(device)
-                if mixing:
-                    mix_gen = torch.Generator().manual_seed(
-                        cfg.train.seed * 1_000_003 + epoch * steps_per_epoch + i)
-                    images, targets = mixup_cutmix(
-                        mix_gen, images, labels, cfg.model.num_classes,
-                        cfg.aug.mixup, cfg.aug.cutmix,
-                        cfg.aug.mixup_switch_prob, cfg.aug.label_smoothing)
+                    cfg.data.num_workers,
+                    repeated_aug=0 if distill else cfg.aug.repeated_aug))):
+                if distill:
+                    step_batch = distill_batch(cfg, batch, reader, device, dtype)
                 else:
-                    targets = F.one_hot(labels.long(), cfg.model.num_classes).float()
-                state, metrics = train_step(state, {"image": images, "label": targets},
-                                            cfg.train.seed)
+                    images = torch.from_numpy(batch["image"]).to(device, dtype)
+                    labels = torch.from_numpy(batch["label"]).to(device)
+                    if mixing:
+                        mix_gen = torch.Generator().manual_seed(
+                            cfg.train.seed * 1_000_003 + epoch * steps_per_epoch + i)
+                        images, targets = mixup_cutmix(
+                            mix_gen, images, labels, cfg.model.num_classes,
+                            cfg.aug.mixup, cfg.aug.cutmix,
+                            cfg.aug.mixup_switch_prob, cfg.aug.label_smoothing)
+                    else:
+                        targets = F.one_hot(labels.long(), cfg.model.num_classes).float()
+                    step_batch = {"image": images, "label": targets}
+                state, metrics = train_step(state, step_batch, cfg.train.seed)
                 loss_val = float(metrics["loss"])
                 if not np.isfinite(loss_val):
                     nan_count += 1
@@ -163,6 +220,8 @@ def main(argv=None):
                     print(f"epoch {epoch} [{i}/{steps_per_epoch}] {logger} "
                           f"lr={state.tx.lr():.2e}")
 
+            if reader is not None:
+                reader.close()
             evals = [eval_step(state, {
                 "image": torch.from_numpy(b["image"]).to(device, dtype),
                 "label": torch.from_numpy(b["label"]).to(device)})

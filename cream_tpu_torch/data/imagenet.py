@@ -7,7 +7,8 @@ package's, as arrays rather than PIL images. The image-file datasets and
 the train augmentation (random resized crop, flip, RandAugment, random
 erasing) are PIL-based there and are not ported yet, so the train loader
 here normalizes without augmenting. Batches are numpy NHWC dicts
-{image, label, index}.
+{image, label, index}; train batches also carry each sample's augmentation
+seed (`seed`, int32), as the JAX loader's do, for distillation replay.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Iterator
 
 import numpy as np
 
+from cream_tpu_torch.data.det_aug import sample_seed
+from cream_tpu_torch.data.samplers import repeated_aug_order
 from cream_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -78,15 +81,28 @@ def _batch(dataset, idx, pool) -> dict:
 
 
 def train_loader(dataset, batch_size: int, epoch: int, base_seed: int = 0,
-                 num_workers: int = 8) -> Iterator[dict]:
+                 num_workers: int = 8, repeated_aug: int = 0) -> Iterator[dict]:
     """Seeded training batches of an array dataset, normalized, in the JAX
-    loader's epoch order (the `default_rng(base_seed + epoch)` permutation),
-    the last partial batch dropped."""
+    loader's epoch order: the `default_rng(base_seed + epoch)` permutation,
+    or with `repeated_aug` > 1 the RASampler order of
+    `repeated_aug_order(n, epoch, base_seed, repeated_aug)`; the last
+    partial batch dropped. Each sample's `seed` is the JAX loader's,
+    `sample_seed(base_seed + 101 * repeat, epoch, index)`."""
     n = len(dataset)
-    order = np.random.default_rng(base_seed + epoch).permutation(n)
+    if repeated_aug > 1:
+        order, reps = repeated_aug_order(n, epoch, base_seed, repeated_aug)
+    else:
+        order = np.random.default_rng(base_seed + epoch).permutation(n)
+        reps = np.zeros(n, np.int64)
+    m = len(order)
     with ThreadPoolExecutor(num_workers) as pool:
-        for start in range(0, n - n % batch_size, batch_size):
-            yield _batch(dataset, order[start:start + batch_size], pool)
+        for start in range(0, m - m % batch_size, batch_size):
+            idx = order[start:start + batch_size]
+            batch = _batch(dataset, idx, pool)
+            batch["seed"] = np.asarray(
+                [sample_seed(base_seed + 101 * int(r), epoch, int(i))
+                 for i, r in zip(idx, reps[start:start + batch_size])], np.int32)
+            yield batch
 
 
 def eval_loader(dataset, batch_size: int, num_workers: int = 8) -> Iterator[dict]:

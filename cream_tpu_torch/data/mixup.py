@@ -122,7 +122,10 @@ def seeded_pair_mixup(seeds, images: torch.Tensor, labels: torch.Tensor,
     """Seed-deterministic pair mixup (TinyViT's `pair2` mode): each pair
     (2i, 2i+1) is mixed with its partner using (mode, lam, box) drawn from a
     generator seeded with seeds[2i] ^ seeds[2i+1], so replaying the same
-    per-sample aug seeds reproduces the same mix anywhere."""
+    per-sample aug seeds reproduces the same mix anywhere. lam is fp32, so
+    bf16 images are mixed, and returned, in fp32, as the JAX function's
+    fp32 lam promotes them: the caller casts to its compute dtype after the
+    mix, the rounding point of the JAX trainer and save_logits."""
     B, H, W, _ = images.shape
     if B % 2:
         raise ValueError("pair mixup needs an even batch")
@@ -147,7 +150,7 @@ def seeded_pair_mixup(seeds, images: torch.Tensor, labels: torch.Tensor,
     cutmix = torch.tensor(flags, device=dev)
     pairs = images.reshape(B // 2, 2, H, W, -1)
     partner = pairs.flip(1)
-    lam_b = lam[:, None, None, None, None].to(images.dtype)
+    lam_b = lam[:, None, None, None, None]
     mixed = pairs * lam_b + partner * (1.0 - lam_b)
     cut = torch.where(mask[:, None, :, :, None], partner, pairs)
     out = torch.where(cutmix[:, None, None, None, None], cut, mixed).reshape(images.shape)

@@ -40,6 +40,19 @@ def load_pth(path: str) -> dict[str, torch.Tensor]:
             for k, v in ckpt.items() if not k.endswith(REBUILT_BUFFERS)}
 
 
+def load_for_model(model: torch.nn.Module, path: str) -> dict[str, torch.Tensor]:
+    """`load_pth(path)` for `model`: where a position table's shape differs
+    from the model's (`attention_biases`, `relative_position_bias_table`,
+    `absolute_pos_embed`), it is bicubic-remapped (torch's A = -0.75) as the
+    JAX loader's `load_model_variables(template=...)` and the reference's
+    `load_pretrained` remap it (224 -> 384 -> 512 checkpoint inheritance);
+    any other mismatch raises."""
+    from cream_tpu_torch.zoo.interpolate import remap_resolution
+    sd = load_pth(path)
+    template = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    return {k: torch.as_tensor(v) for k, v in remap_resolution(sd, template).items()}
+
+
 def _conv(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1))  # HWIO -> OIHW
 

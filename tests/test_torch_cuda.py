@@ -30,10 +30,12 @@ head dims that are not multiples of 16 or 8, the BiasAttention route; K3
 and K5 on offset views and the same bf16 bits on two launches; K10 bit for
 bit at 16-, 8-, 4- and 2-byte accesses and inside forward_windowed; K11 bit for bit with its identity backward; a
 narrow TinyViT whose pin_layouts and mbconv_kernel routes agree with the
-plain one; and Swin's attention at S3-Tiny's four stage shapes (qkv_major,
-the shift mask, grads into the bias table and the qkv bias through K2),
-with S3-Tiny, Swin-T and Mini-Swin-T launching 12, 12 and 0 K1 a forward
-and S3-Tiny's train step 12 K1 + 12 K2.
+plain one; Swin's attention at S3-Tiny's and Swin-B's four stage shapes
+(qkv_major, the shift mask, grads into the bias table and the qkv bias
+through K2), with S3-Tiny, Swin-T, Mini-Swin-T and Swin-B launching 12, 12,
+0 and 24 K1 a forward and S3-Tiny's train step 12 K1 + 12 K2; and the
+sparse logits store's native codec (it needs only g++, so it also runs
+without a card).
 """
 import numpy as np
 import pytest
@@ -985,6 +987,12 @@ def test_narrow_tinyvit_pin_and_mbconv_routes(card):
 S3T_STAGES = [(56, 7, 96, 3, 3), (28, 7, 192, 6, 3), (14, 14, 384, 12, 0), (7, 7, 768, 24, 0)]
 
 
+# Swin-B's four stages at 224 (the distillation teacher): heads 4/8/16/32
+# of width 32, the shift mask at stages 0-2 (stage 2: 14x14, window 7)
+SWINB_STAGES = [(56, 7, 128, 4, 3), (28, 7, 256, 8, 3), (14, 7, 512, 16, 3),
+                (7, 7, 1024, 32, 0)]
+
+
 @pytest.mark.parametrize("H,ws,dim,heads,shift", S3T_STAGES)
 def test_swin_attention_kernel_route_matches_plain(card, H, ws, dim, heads, shift):
     """`SwinWindowAttention` through `swin_attend` at S3-Tiny's stage shapes
@@ -992,6 +1000,17 @@ def test_swin_attention_kernel_route_matches_plain(card, H, ws, dim, heads, shif
     the shift mask) against the plain route; in fp32, the grads of x, the
     bias table, the qkv weight and bias through K2 against autograd of the
     plain route. One K1 launch a forward, one K2 a backward."""
+    _swin_attention_case(card, H, ws, dim, heads, shift)
+
+
+@pytest.mark.parametrize("H,ws,dim,heads,shift", SWINB_STAGES)
+def test_swin_base_attention_kernel_route_matches_plain(card, H, ws, dim, heads, shift):
+    """The same at Swin-B's stage shapes: 16 heads on the masked 14x14 map
+    (4 windows), 32 heads on stage 3's one window."""
+    _swin_attention_case(card, H, ws, dim, heads, shift)
+
+
+def _swin_attention_case(card, H, ws, dim, heads, shift):
     import copy
 
     from cream_tpu_torch.nn.swin import SwinWindowAttention, swin_attend
@@ -1022,7 +1041,8 @@ def test_swin_attention_kernel_route_matches_plain(card, H, ws, dim, heads, shif
                 torch.testing.assert_close(a, b, atol=1e-5 * b.abs().max().item(), rtol=0)
 
 
-@pytest.mark.parametrize("name,per", [("s3_tiny", 12), ("swin_tiny", 12), ("mini_swin_tiny", 0)])
+@pytest.mark.parametrize("name,per", [("s3_tiny", 12), ("swin_tiny", 12), ("mini_swin_tiny", 0),
+                                      ("swin_base", 24)])
 def test_swin_models_kernel_launches_and_plain_route(card, name, per):
     """fp32 (TF32 off) at batch 2: `per` K1 launches a forward, logits
     within 1e-4 of the plain route's; S3-Tiny's train step launches 12 K1
@@ -1063,3 +1083,32 @@ def _set_swin_kernel(model, on):
     for m in model.modules():
         if isinstance(m, SwinWindowAttention):
             m.use_kernel = on
+
+
+def test_native_codec_round_trip(tmp_path):
+    """The sparse logits store's C++ codec, built from the checkout's source
+    (g++, no card needed, so this runs on the CPU too): records written out
+    of order through it read back as their fp16 values, class ids and
+    seeds, through it and through numpy."""
+    from cream_tpu_torch.distill import LogitsReader, LogitsWriter, native
+    assert native.build().exists()
+    rng = np.random.default_rng(3)
+    N, K = 300, 100
+    vals = rng.random((N, K)).astype(np.float32) / K
+    idxs = rng.integers(0, 1000, (N, K)).astype(np.int32)
+    seeds = rng.integers(0, 2 ** 31, N).astype(np.int32)
+    w = LogitsWriter(str(tmp_path), 0, N, K, 1000)
+    assert w.native
+    order = rng.permutation(N)
+    for i in range(0, N, 64):
+        sel = order[i:i + 64]
+        w.write_batch(sel, seeds[sel], vals[sel], idxs[sel])
+    w.close()
+    ask = rng.permutation(N)
+    for use_native in (True, False):
+        r = LogitsReader(str(tmp_path), 0, use_native=use_native)
+        v, i, sd = r.read_batch(ask)
+        r.close()
+        np.testing.assert_array_equal(v, vals[ask].astype(np.float16).astype(np.float32))
+        np.testing.assert_array_equal(i, idxs[ask])
+        np.testing.assert_array_equal(sd, seeds[ask])
