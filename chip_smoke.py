@@ -65,6 +65,30 @@ non-zero):
      B=2 distill step against the JAX golden (loss 1e-4, grad norms 1e-3
      per tensor) and the bf16 step against the plain attention route (loss
      2 ulps, grad_norm 2%)
+ 9e. CLIP goldens (TinyCLIP's serving path: no TPU kernel lies on it, so
+     it launches none): tinyclip_vit_39m_16_text_19m and clip_resnet50 fp32
+     (B=2, TF32 off) on seeded weights against the JAX package's image
+     features, text features and logit scale stored in
+     tests/data/torch_port/ (1e-4); for the ViT CLIP also the pair under a
+     0/1 gate set (hidden channels, heads, MLP channels, whole branches)
+     and the ragged model `zoo.load.load_pruned_clip` builds from that
+     gated state_dict pruned
+ 9f. main path (CLIP pairs): tinyclip_vit_39m_16_text_19m and clip_resnet50
+     bf16 bs256 through cli.speed_test.pair_throughput (images and (B, 77)
+     token ids, both towers consumed): pairs/s, peak memory, device time by
+     kind of op from cli.profile_step.profile; bf16 features against fp32
+     on the same inputs (cosine >= 0.999 a row) and each image's best text
+     over the batch on rows whose fp32 top-2 margin is above 4 bf16 ulps
+ 9g. main path (zero-shot): cli.zero_shot.main on TinyCLIP-ViT-39M/16 in
+     bf16 and fp32: 1,000 ImageNet names x 80 templates through a merges
+     file learned from them, 1,024 synthetic images at bs256; the
+     tokenizer's host seconds, the text and image passes' seconds,
+     top-1/top-5; unit-norm classifier columns, bf16 against fp32 (cosine
+     >= 0.999 a class)
+ 9h. main path (CLIP-L/14-22k teacher): cli.save_logits with
+     clip_vit_large14_224_classifier, 21,841 classes, bf16 bs256, the
+     seeded 1k -> 22k mapping, top-100, then --check (value error <= 1e-3,
+     tie-aware miss rate 0); the teacher's img/s
  10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
      bf16 (tensor cores) and fp32 (CUDA cores), at EfficientViT-M5 bs512's
      and M0 bs1024's per-head shapes, bf16 the same bits on two launches;
@@ -2382,6 +2406,266 @@ def phase_pin_train() -> int:
     return launches
 
 
+# ---- TinyCLIP's serving path (no TPU kernel lies on it) ----
+
+CLIP_GOLDENS = ("tinyclip_vit_39m_16_text_19m", "clip_resnet50")
+CLIP_PAIRS = (("tinyclip_vit_39m_16_text_19m", 256), ("clip_resnet50", 256))
+CLIP_TEACHER_BATCH = 256
+CLIP_GATES = ("hidden_z", "heads_z", "mha_z", "intermediate_z", "ffn_z")
+
+
+def clip_gates(g, tower: str) -> dict:
+    """The `tower` ("vision" or "text") gate set stored in a CLIP golden."""
+    return {k: g[f"{tower}_{k}"] for k in CLIP_GATES}
+
+
+def clip_hard_prune(sd: dict, vision: dict, text: dict, head_dim: int = 64) -> dict:
+    """A CLIP state_dict (open_clip names) with 0/1 gates materialized, as
+    auto-weight-inheritance leaves a pruned checkpoint: gated-off hidden
+    channels, heads and MLP channels removed, and a branch whose gate is 0
+    (or whose heads or channels are all off) removed with its LayerNorm.
+    The ragged model `zoo.load.load_pruned_clip` builds from it computes
+    what the gated model does."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    out = {"logit_scale": sd["logit_scale"]}
+
+    def tower(masks: dict, tp: str, keys: dict, layers: int) -> None:
+        keep = np.flatnonzero(np.asarray(masks["hidden_z"]))
+        for name, axis in keys.items():
+            out[name] = np.take(sd[name], keep, axis=axis)
+        for i in range(layers):
+            p = f"{tp}.resblocks.{i}"
+            heads = np.flatnonzero(np.asarray(masks["heads_z"][i]))
+            inter = np.flatnonzero(np.asarray(masks["intermediate_z"][i]))
+            if float(masks["mha_z"][i]) != 0 and len(heads) and f"{p}.attn.in_proj_weight" in sd:
+                W = sd[f"{p}.ln_1.weight"].shape[0]
+                qkv = sd[f"{p}.attn.in_proj_weight"].reshape(3, -1, head_dim, W)
+                out[f"{p}.attn.in_proj_weight"] = qkv[:, heads][..., keep].reshape(-1, len(keep))
+                out[f"{p}.attn.in_proj_bias"] = sd[f"{p}.attn.in_proj_bias"].reshape(
+                    3, -1, head_dim)[:, heads].reshape(-1)
+                o = sd[f"{p}.attn.out_proj.weight"].reshape(W, -1, head_dim)
+                out[f"{p}.attn.out_proj.weight"] = o[keep][:, heads].reshape(len(keep), -1)
+                out[f"{p}.attn.out_proj.bias"] = sd[f"{p}.attn.out_proj.bias"][keep]
+                for n in ("weight", "bias"):
+                    out[f"{p}.ln_1.{n}"] = sd[f"{p}.ln_1.{n}"][keep]
+            if float(masks["ffn_z"][i]) != 0 and len(inter) and f"{p}.mlp.c_fc.weight" in sd:
+                out[f"{p}.mlp.c_fc.weight"] = sd[f"{p}.mlp.c_fc.weight"][inter][:, keep]
+                out[f"{p}.mlp.c_fc.bias"] = sd[f"{p}.mlp.c_fc.bias"][inter]
+                out[f"{p}.mlp.c_proj.weight"] = sd[f"{p}.mlp.c_proj.weight"][keep][:, inter]
+                out[f"{p}.mlp.c_proj.bias"] = sd[f"{p}.mlp.c_proj.bias"][keep]
+                for n in ("weight", "bias"):
+                    out[f"{p}.ln_2.{n}"] = sd[f"{p}.ln_2.{n}"][keep]
+
+    v_layers = sum(k.endswith(".ln_2.weight") for k in sd if k.startswith("visual."))
+    t_layers = sum(k.endswith(".ln_2.weight") and k.startswith("transformer.") for k in sd)
+    tower(vision, "visual.transformer",
+          {"visual.conv1.weight": 0, "visual.class_embedding": 0,
+           "visual.positional_embedding": 1, "visual.ln_pre.weight": 0,
+           "visual.ln_pre.bias": 0, "visual.ln_post.weight": 0, "visual.ln_post.bias": 0,
+           "visual.proj": 0}, v_layers)
+    tower(text, "transformer",
+          {"token_embedding.weight": 1, "positional_embedding": 1, "ln_final.weight": 0,
+           "ln_final.bias": 0, "text_projection": 0}, t_layers)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def clip_golden_images(seed: int, batch: int = 2, size: int = 224) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((batch, size, size, 3)).astype(np.float32)
+
+
+def phase_clip_golden(name: str) -> None:
+    """The fp32 pair (B=2, TF32 off) of `name` on seeded weights against the
+    JAX package's image features, text features and logit scale stored in
+    tests/data/torch_port/ (1e-4: unit-norm features). For the ViT CLIP
+    also the pair with a 0/1 gate set on both towers (hidden channels,
+    heads, MLP channels and whole branches off), and the ragged model
+    `zoo.load.load_pruned_clip` builds from the gated state_dict pruned, both
+    against the JAX gated features."""
+    from cream_tpu_torch.zoo.load import load_pruned_clip
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(DATA / f"{name}_seed0.npz")
+    model = create_model(name, device="cuda")
+    sd = seeded_state_dict(model, int(g["weight_seed"]))
+    model.load_state_dict(sd)
+    images = torch.from_numpy(clip_golden_images(int(g["input_seed"]))).cuda()
+    text = torch.from_numpy(g["text"]).cuda()
+
+    def err(feats, prefix: str = "") -> float:
+        return max(float((f.cpu() - torch.from_numpy(g[f"{prefix}{k}"])).abs().max())
+                   for f, k in zip(feats, ("image_features", "text_features")))
+
+    with torch.inference_mode():
+        img, txt, scale = model(images, text)
+        e = err((img, txt))
+        e_scale = abs(float(scale) - float(g["logit_scale"]))
+        line = (f"CLIP golden {name} fp32 B=2: image/text features max err {e:.2e}, "
+                f"logit scale err {e_scale:.2e} (bound 1e-4)")
+        check(e <= 1e-4 and e_scale <= 1e-4 * float(g["logit_scale"]),
+              f"{name} fp32 features err {e}, scale err {e_scale}")
+        if "gated_image_features" in g:
+            vm, tm = clip_gates(g, "vision"), clip_gates(g, "text")
+            on_card = [{k: torch.from_numpy(v).cuda() for k, v in m.items()} for m in (vm, tm)]
+            e_gated = err(model(images, text, *on_card)[:2], "gated_")
+            ragged, rsd = load_pruned_clip(name, clip_hard_prune(sd, vm, tm), device="cuda")
+            ragged.load_state_dict(rsd)
+            e_ragged = err(ragged(images, text)[:2], "gated_")
+            widths = (ragged.cfg.vision_width, ragged.cfg.text_width)
+            heads = [b.attn.heads if hasattr(b, "attn") else 0
+                     for b in ragged.visual.transformer.resblocks]
+            line += (f"; gated pair err {e_gated:.2e}; ragged model from the pruned "
+                     f"state_dict (hidden widths {widths}, vision heads/layer {heads}) err "
+                     f"{e_ragged:.2e}")
+            check(e_gated <= 1e-4 and e_ragged <= 1e-4,
+                  f"{name} gated err {e_gated}, ragged err {e_ragged}")
+    print(line)
+
+
+def row_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.cosine_similarity(a.float(), b.float(), dim=-1)
+
+
+def phase_clip_pairs(name: str, batch: int) -> dict:
+    """The pair main path of `name` at bf16 `batch`: pairs/s through
+    cli.speed_test.pair_throughput (both towers consumed), peak memory, the
+    device time by kind of op from cli.profile_step.profile; the bf16
+    features against an fp32 copy of the model on the same inputs (cosine
+    >= 0.999 a row) and each image's best text over the batch against
+    fp32's on rows whose fp32 top-2 margin is above 4 bf16 ulps."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import pair_inputs, pair_step, pair_throughput
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = create_model(name, device="cuda", dtype=torch.bfloat16)
+    sd = seeded_state_dict(model, 0)
+    model.load_state_dict(sd)
+    pps = pair_throughput(model, batch, torch.bfloat16, 20, 3)
+    images, text = pair_inputs(model, batch, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        img16, txt16, _ = model(images, text)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def fn():
+            with torch.inference_mode():
+                pair_step(model, images, text)
+
+        prof = profile(fn, steps=3, warmup=2, top=8)
+        ref = create_model(name, device="cuda", dtype=torch.float32)
+        ref.load_state_dict(sd)
+        img32, txt32, _ = ref(images.float(), text)
+    del ref
+    cos = torch.cat([row_cosine(img16, img32), row_cosine(txt16, txt32)])
+    agree, decided, agree_decided = top1_agreement(img16.float() @ txt16.float().T,
+                                                   img32 @ txt32.T)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:6])
+    print(f"main {name} bf16 pairs B={batch}: {pps:.1f} pairs/s (both towers, CUDA events, "
+          f"20 pair forwards after 3), peak memory {peak:.2f} GiB; profile: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a pair forward, idle "
+          f"share {prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by kind: "
+          f"{kinds}; bf16 vs fp32 features: min row cosine {float(cos.min()):.5f} (bound "
+          f"0.999); best text a row agrees on {agree:.4f} of rows, {agree_decided:.4f} of the "
+          f"{decided:.4f} whose fp32 top-2 margin is above 4 bf16 ulps [{card_info()}]")
+    check(float(cos.min()) >= 0.999, f"{name}: bf16 vs fp32 row cosine {float(cos.min())}")
+    check(agree_decided == 1.0, f"{name}: best-text disagreement on decided rows")
+    return {"pairs_per_s": pps, "peak_gib": peak, "device_ms": prof["device_ms"],
+            "wall_ms": prof["wall_ms"], "idle_share": prof["idle_share"],
+            "by_kind_ms": prof["by_kind_ms"]}
+
+
+def phase_zero_shot() -> dict:
+    """cli.zero_shot end to end, in bf16 and in fp32: TinyCLIP-ViT-39M/16
+    on seeded weights, OpenAI's 1,000 ImageNet class names x 80 templates
+    (80,000 prompts), a merges file learned from those names and templates
+    (the released one is not in the repository), 1,024 synthetic images in
+    bs256 batches with CLIP normalization. Each classifier column has unit
+    norm, and the bf16 classifier agrees with the fp32 one (cosine >= 0.999
+    a class). The accuracy of random weights on random images says only
+    that the pipeline runs."""
+    import tempfile
+
+    from cream_tpu_torch.cli import zero_shot
+    from cream_tpu_torch.data.tokenizer import learn_merges, write_merges
+    from cream_tpu_torch.train.zero_shot import openai_imagenet_constants
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names, templates = openai_imagenet_constants()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        bpe = Path(tmp) / "merges.txt.gz"
+        t0 = time.perf_counter()
+        write_merges(bpe, learn_merges(names + templates, 500))
+        learn_s = time.perf_counter() - t0
+        out = {}
+        for dtype in ("bfloat16", "float32"):
+            out[dtype] = zero_shot.main([
+                "--bpe", str(bpe), "model.name=tinyclip_vit_39m_16_text_19m",
+                f"model.dtype={dtype}", "data.dataset=synthetic", "data.batch_size=256"])
+    c16, c32 = (out[k]["classifier"].float() for k in ("bfloat16", "float32"))
+    norms16, norms32 = (torch.linalg.vector_norm(c, dim=0) for c in (c16, c32))
+    cos = F.cosine_similarity(c16, c32, dim=0)
+    r = out["bfloat16"]
+    print(f"zero-shot tinyclip_vit_39m_16_text_19m: {c16.shape[1]} classes x {len(templates)} "
+          f"templates; merges learned in {learn_s:.2f} s; bf16: tokenizer {r['tokenize_s']:.3f} "
+          f"s (host), text passes {r['encode_s']:.3f} s, image passes {r['image_s']:.3f} s "
+          f"({r['n']} images), top-1 {r['zeroshot_top1']:.3f} top-5 {r['zeroshot_top5']:.3f} "
+          f"(random weights and images: a pipeline check); fp32 text passes "
+          f"{out['float32']['encode_s']:.3f} s; column norms bf16 "
+          f"{float((norms16 - 1).abs().max()):.2e} / fp32 {float((norms32 - 1).abs().max()):.2e} "
+          f"from 1; bf16 vs fp32 classifier min cosine {float(cos.min()):.5f} (bound 0.999) "
+          f"[{card_info()}]")
+    check(float((norms32 - 1).abs().max()) <= 1e-5, "fp32 classifier columns not unit norm")
+    check(float((norms16 - 1).abs().max()) <= 8e-3, "bf16 classifier columns not unit norm")
+    check(float(cos.min()) >= 0.999, f"bf16 vs fp32 classifier cosine {float(cos.min())}")
+    check(r["n"] == 1024 and out["float32"]["n"] == 1024, "zero-shot did not see 1,024 images")
+    return r
+
+
+def phase_clip_teacher() -> float:
+    """cli.save_logits with the CLIP-ViT-L/14-22k teacher
+    (clip_vit_large14_224_classifier, 21,841 classes, seeded weights) at
+    bf16 bs256 over the synthetic set's 1,024 images, the seeded 1k -> 22k
+    mapping of phase_distill, top-100; then --check. Returns the teacher's
+    img/s."""
+    import tempfile
+
+    from cream_tpu_torch.cli import save_logits
+    from cream_tpu_torch.distill import LogitsReader
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        mapping = distill_mapping(tmp / "map.txt")
+        argv = ["model.name=clip_vit_large14_224_classifier", "model.num_classes=21841",
+                "model.dtype=bfloat16", "data.dataset=synthetic",
+                f"data.batch_size={CLIP_TEACHER_BATCH}", "distill.logits_topk=100",
+                "--allow-random", "--remap-1kto22k", str(tmp / "map.txt"),
+                "--out", str(tmp / "store")]
+        (saved,) = save_logits.main(argv)
+        reader = LogitsReader(str(tmp / "store"), 0)
+        vals, idxs, _ = reader.read_batch(np.arange(reader.num_samples))
+        reader.close()
+        med = {k: statistics.median(v[1:]) for k, v in saved["ms"].items()}
+        ips = CLIP_TEACHER_BATCH / med["teacher"] * 1e3
+        print(f"CLIP-L/14-22k teacher save_logits bf16 B={CLIP_TEACHER_BATCH}: "
+              f"{len(saved['ms']['teacher'])} batches, {saved['records']} records; per batch "
+              f"(median of batches 2-{len(saved['ms']['teacher'])}): teacher "
+              f"{med['teacher']:.3f} ms = {ips:.1f} img/s (mixup, forward, remap, softmax), "
+              f"host ms: upload {med['upload']:.3f}, top-K {med['topk']:.3f}, transfer "
+              f"{med['transfer']:.3f}, pack_write {med['pack_write']:.3f}; whole pass "
+              f"{saved['wall_ms'] / 1e3:.2f} s [{card_info()}]")
+        check(saved["records"] == 4 * CLIP_TEACHER_BATCH, f"{saved['records']} records")
+        check(not np.isin(idxs, np.flatnonzero(mapping < 0)).any(),
+              "an absent 22k class was stored")
+        check(bool((vals.sum(-1) <= 1 + 1e-3).all()), "a record's top-100 sums above 1")
+        (checked,) = save_logits.main(argv + ["--check"])
+        print(f"CLIP-L/14-22k save_logits --check: value max err "
+              f"{checked['value_max_err']:.3e} (bound 1e-3: the fp16 store), index diff rate "
+              f"{checked['index_diff_rate']:.4f} (JAX's metric, counts tie order), tie-aware "
+              f"miss rate {checked['index_miss_rate']:.4f} (bound 0) over {checked['n']}")
+        check(checked["value_max_err"] <= 1e-3, f"--check value error {checked['value_max_err']}")
+        check(checked["index_miss_rate"] == 0.0, f"--check miss rate {checked['index_miss_rate']}")
+    return ips
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -2433,6 +2717,13 @@ def main() -> None:
     phase_mini_swin()
     k1_s3_train, k2_s3_train = phase_train("s3_tiny", S3T_BATCH, 12)
     k1_distill, k2_distill = phase_distill()
+    launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+    for name in CLIP_GOLDENS:
+        phase_clip_golden(name)
+    clip_pairs = {name: phase_clip_pairs(name, batch) for name, batch in CLIP_PAIRS}
+    zero_shot = phase_zero_shot()
+    teacher_ips = phase_clip_teacher()
+    check((wa.LAUNCHES, wa.BWD_LAUNCHES) == launches, "the CLIP phases launched K1/K2")
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -2566,6 +2857,12 @@ def main() -> None:
           f"sites: each stride-2 site's own times), launches on the "
           f"mbconv_kernel/pin_layouts/both routes (and the pinned train step for K11); per "
           f"TinyViT-21M-384 bf16 bs64 forward (K10: 6 partitions + 6 reverses)")
+    print("CLIP serving path (plain PyTorch: no TPU kernel lies on it), bf16 bs256: " + ", ".join(
+        f"{n} {r['pairs_per_s']:.1f} pairs/s (device {r['device_ms']:.2f} ms a pair forward, "
+        f"idle share {r['idle_share']:.3f})" for n, r in clip_pairs.items())
+        + f"; clip_vit_large14_224_classifier (21,841 classes) {teacher_ips:.1f} img/s; "
+        f"zero-shot classifier build: tokenizer {zero_shot['tokenize_s']:.3f} s (host), text "
+        f"passes {zero_shot['encode_s']:.3f} s [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -8,6 +8,8 @@
     python -m cream_tpu_torch.cli.profile_step mbconv_kernel=true pin_layouts=true
     python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_384 --batch 64
     python -m cream_tpu_torch.cli.profile_step [--train] --models s3_tiny --batch 128
+    python -m cream_tpu_torch.cli.profile_step --models tinyclip_vit_39m_16_text_19m \
+        --batch 256                                      # a CLIP pair forward
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -20,8 +22,9 @@ power limit. The train steps are those of `speed_test.train_throughput`
 drop path). `--plain-attention` swaps every attention kernel for its plain
 PyTorch version (TinyViT's and Swin/S3's window attention, EfficientViT's
 CGA route "plain"); `key=value` words are model keyword arguments, as in
-`speed_test`; `--img-size` defaults to each model's own. A run without a
-CUDA device fails.
+`speed_test`; `--img-size` defaults to each model's own. A two-tower CLIP
+model runs `speed_test.pair_step` on `speed_test.pair_inputs` (both towers,
+their similarity matrix). A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -137,7 +140,8 @@ def use_plain_attention(model: torch.nn.Module) -> None:
 
 
 def main(argv=None):
-    from cream_tpu_torch.cli.speed_test import model_kwargs, train_step_fn
+    from cream_tpu_torch.cli.speed_test import (is_two_tower, model_kwargs, pair_inputs,
+                                                pair_step, train_step_fn)
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -168,6 +172,12 @@ def main(argv=None):
             use_plain_attention(model)
         if args.train:
             fn = train_step_fn(model, args.batch, model.img_size, dtype)
+        elif is_two_tower(model):
+            images, text = pair_inputs(model, args.batch, dtype)
+
+            def fn():
+                with torch.inference_mode():
+                    pair_step(model, images, text)
         else:
             x = torch.randn(args.batch, model.img_size, model.img_size, 3,
                             device="cuda").to(dtype)

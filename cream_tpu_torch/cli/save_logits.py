@@ -9,8 +9,11 @@ checks). `--check` re-runs the teacher, checks the stored seeds and
 reports the value error, the index-difference rate and the tie-aware miss
 rate (the reference's --check-saved-logits).
 
-The teacher must have real weights: `--torch-ckpt` (a released-layout
-.pth; position tables whose shapes differ are bicubic-remapped) or
+The teacher (any classifier the port registers: Swin, TinyViT,
+EfficientViT, or TinyViT's CLIP teacher `clip_vit_large14_224_classifier`)
+must have real weights: `--torch-ckpt` (a released-layout .pth; position
+tables whose shapes differ are bicubic-remapped; a CLIP teacher's
+historical layouts are normalized) or
 `--ckpt` (a checkpoint directory the port's trainer wrote);
 `--allow-random` takes seeded random weights, for smoke tests only. With
 a 22k-class teacher, `--remap-1kto22k` gathers the 1k classes' logits
@@ -21,6 +24,10 @@ replays it.
     python -m cream_tpu_torch.cli.save_logits model.name=swin_base \
         model.num_classes=21841 data.dataset=synthetic data.batch_size=256 \
         --torch-ckpt swin_base_patch4_window7_224_22k.pth \
+        --remap-1kto22k imagenet_1kto22k.txt --out ./logits
+    python -m cream_tpu_torch.cli.save_logits \
+        model.name=clip_vit_large14_224_classifier model.num_classes=21841 \
+        data.dataset=synthetic data.batch_size=256 --torch-ckpt <clip_l14_22k>.pth \
         --remap-1kto22k imagenet_1kto22k.txt --out ./logits
     python -m cream_tpu_torch.cli.save_logits --device cpu \
         model.name=swin_tiny model.dtype=float32 data.dataset=synthetic \

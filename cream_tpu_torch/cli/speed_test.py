@@ -10,11 +10,19 @@
     python -m cream_tpu_torch.cli.speed_test mbconv_kernel=true pin_layouts=true
     python -m cream_tpu_torch.cli.speed_test --models tiny_vit_21m_384 --batch 64
     python -m cream_tpu_torch.cli.speed_test [--train] --models s3_tiny --batch 128
+    python -m cream_tpu_torch.cli.speed_test --models tinyclip_vit_39m_16_text_19m \
+        clip_resnet50 --batch 256                        # CLIP: image-text pairs/s
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
 every param with no clipping, random images and int labels, the variant's
 drop path, bf16 compute with fp32 params.
+
+A two-tower CLIP model is timed as pairs (`pair_throughput`): NHWC images
+and (B, 77) token ids drawn in [0, 49408) from a seeded generator, as the
+JAX package's `bench_clip_pair` draws them (over the model's vocabulary), through both towers, and each
+iteration consumes both towers' features (their (B, B) similarity
+matrix), so the number is pairs/s of the whole model.
 
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
@@ -61,6 +69,59 @@ def throughput(model: torch.nn.Module, batch: int, img_size: int,
             model(x)
         end.record()
         end.synchronize()
+    return batch * n_iters / (start.elapsed_time(end) / 1e3)
+
+
+def is_two_tower(model: torch.nn.Module) -> bool:
+    return hasattr(model, "encode_image") and hasattr(model, "encode_text")
+
+
+def pair_inputs(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
+                seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """A CLIP pair batch on the model's CUDA device: (B, S, S, 3) normal
+    images in `dtype` and (B, context_length) token ids drawn over the
+    vocabulary ([0, 49408) for every registered CLIP)."""
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"throughput is measured on a CUDA device, "
+                           f"the model is on {device}")
+    gen = torch.Generator(device).manual_seed(seed)
+    s = model.img_size
+    images = torch.randn(batch, s, s, 3, generator=gen, device=device).to(dtype)
+    text = torch.randint(0, model.token_embedding.num_embeddings,
+                         (batch, model.context_length), generator=gen, device=device)
+    return images, text
+
+
+def pair_step(model: torch.nn.Module, images: torch.Tensor, text: torch.Tensor
+              ) -> torch.Tensor:
+    """One pair forward whose result reads both towers' features: the
+    scaled (B, B) image-text similarity."""
+    img, txt, scale = model(images, text)
+    return scale * img @ txt.T
+
+
+def pair_throughput(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
+                    n_iters: int = 20, warmup: int = 3) -> float:
+    """Image-text pairs/s of a two-tower CLIP `model` on its CUDA device:
+    `warmup` untimed pair forwards, then `n_iters` between two CUDA events,
+    under torch.inference_mode(); each forward's similarity matrix is
+    summed into a value read after the last, so both towers' outputs are
+    consumed."""
+    images, text = pair_inputs(model, batch, dtype)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        for _ in range(warmup):
+            pair_step(model, images, text)
+        total = torch.zeros((), device=images.device)
+        start.record()
+        for _ in range(n_iters):
+            total += pair_step(model, images, text).float().sum()
+        end.record()
+        end.synchronize()
+    if not torch.isfinite(total):
+        raise RuntimeError("the pair forwards gave a non-finite similarity")
     return batch * n_iters / (start.elapsed_time(end) / 1e3)
 
 
@@ -145,13 +206,19 @@ def main(argv=None):
         size = {} if args.img_size is None else {"img_size": args.img_size}
         model = create_model(name, device=args.device, dtype=dtype, **size, **kw)
         model.load_state_dict(seeded_state_dict(model, 0))
+        pairs = is_two_tower(model)
+        if pairs and args.train:
+            raise NotImplementedError(f"{name}: CLIP training is not ported")
         if args.train:
             ips = train_throughput(model, args.batch, model.img_size, dtype,
                                    args.iters)
+        elif pairs:
+            ips = pair_throughput(model, args.batch, dtype, args.iters)
         else:
             ips = throughput(model, args.batch, model.img_size, dtype, args.iters)
         results[name] = ips
-        print(json.dumps({"model": name, "img_per_s": ips, "batch": args.batch,
+        print(json.dumps({"model": name, "pairs_per_s" if pairs else "img_per_s": ips,
+                          "batch": args.batch,
                           "img_size": model.img_size,
                           "dtype": args.dtype, "train": args.train, **kw,
                           "card": card_info()}))

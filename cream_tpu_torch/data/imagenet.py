@@ -21,7 +21,7 @@ import numpy as np
 
 from cream_tpu_torch.data.det_aug import sample_seed
 from cream_tpu_torch.data.samplers import repeated_aug_order
-from cream_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from cream_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD
 
 
 class SyntheticDataset:
@@ -41,11 +41,12 @@ class SyntheticDataset:
         return arr, int(rng.integers(self.num_classes))
 
 
-def normalize_uint8(img: np.ndarray) -> np.ndarray:
-    """uint8 HWC -> float32 (img/255 - mean) / std, ImageNet constants."""
+def normalize_uint8(img: np.ndarray, clip_norm: bool = False) -> np.ndarray:
+    """uint8 HWC -> float32 (img/255 - mean) / std, ImageNet constants or,
+    with `clip_norm`, OpenAI CLIP's."""
+    mean, std = (CLIP_MEAN, CLIP_STD) if clip_norm else (IMAGENET_MEAN, IMAGENET_STD)
     x = img.astype(np.float32) / 255.0
-    return ((x - np.asarray(IMAGENET_MEAN, np.float32))
-            / np.asarray(IMAGENET_STD, np.float32))
+    return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
 def prefetch(it: Iterator, depth: int = 2) -> Iterator:
@@ -73,9 +74,9 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
         yield item
 
 
-def _batch(dataset, idx, pool) -> dict:
+def _batch(dataset, idx, pool, clip_norm: bool = False) -> dict:
     results = list(pool.map(lambda i: dataset.load(int(i)), idx))
-    return {"image": np.stack([normalize_uint8(r[0]) for r in results]),
+    return {"image": np.stack([normalize_uint8(r[0], clip_norm) for r in results]),
             "label": np.asarray([r[1] for r in results], np.int32),
             "index": np.asarray(idx, np.int32)}
 
@@ -105,13 +106,16 @@ def train_loader(dataset, batch_size: int, epoch: int, base_seed: int = 0,
             yield batch
 
 
-def eval_loader(dataset, batch_size: int, num_workers: int = 8) -> Iterator[dict]:
+def eval_loader(dataset, batch_size: int, num_workers: int = 8,
+                clip_norm: bool = False) -> Iterator[dict]:
     """Batches in dataset order; the final partial batch is padded with
-    label -1 (the eval step masks those), so every batch has one shape."""
+    label -1 (the eval step masks those), so every batch has one shape.
+    `clip_norm` normalizes with OpenAI CLIP's mean and std (CLIP models)."""
     n = len(dataset)
     with ThreadPoolExecutor(num_workers) as pool:
         for start in range(0, n, batch_size):
-            b = _batch(dataset, np.arange(start, min(start + batch_size, n)), pool)
+            b = _batch(dataset, np.arange(start, min(start + batch_size, n)), pool,
+                       clip_norm)
             pad = batch_size - len(b["label"])
             if pad:
                 b["image"] = np.concatenate(

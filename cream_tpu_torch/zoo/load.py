@@ -2,15 +2,22 @@
 and seeded random weights.
 
 The port's parameter names are the released microsoft/Cream TinyViT,
-EfficientViT, Swin/S3 and Mini-Swin names, so a released checkpoint loads
-with `model.load_state_dict` once `load_pth` has read it, and the JAX
+EfficientViT, Swin/S3 and Mini-Swin names and open_clip's CLIP names, so a
+released checkpoint loads with `model.load_state_dict` once `load_pth` (or,
+for a model of its own geometry, `load_for_model`) has read it, and the JAX
 package's `cream_tpu.zoo.import_torch.convert_tinyvit` /
-`convert_efficientvit` / `convert_swin` / `convert_mini_swin` map a port
+`convert_efficientvit` / `convert_swin` / `convert_mini_swin` /
+`convert_clip` / `convert_clip_classifier` / `convert_clip_rn` map a port
 state_dict to its variables. `state_dict_from_jax`,
-`efficientvit_state_dict_from_jax`, `swin_state_dict_from_jax` and
-`mini_swin_state_dict_from_jax` are their exact inverses;
-`bias_attention_state_dict_from_jax` carries a JAX `BiasAttention`'s
-variables to the port's module.
+`efficientvit_state_dict_from_jax`, `swin_state_dict_from_jax`,
+`mini_swin_state_dict_from_jax`, `clip_state_dict_from_jax`,
+`clip_classifier_state_dict_from_jax` and `clip_resnet_state_dict_from_jax`
+are their exact inverses; `bias_attention_state_dict_from_jax` carries a
+JAX `BiasAttention`'s variables to the port's module.
+
+CLIP checkpoints come in TinyCLIP's historical layouts too
+(`normalize_clip_layout`), and a TinyCLIP checkpoint pruned by
+auto-weight-inheritance builds its own ragged model (`load_pruned_clip`).
 """
 from __future__ import annotations
 
@@ -32,25 +39,233 @@ def load_pth(path: str) -> dict[str, torch.Tensor]:
     state_dict for the port's model. The buffers the model rebuilds
     (`REBUILT_BUFFERS`) are dropped, and 1x1 conv weights stored 2-D, as
     released EfficientViT files store some, get their two unit axes back
-    (the reference's `model/build.py:76-83` does the same)."""
+    (the reference's `model/build.py:76-83` does the same). A file holding
+    {"model": ...} or, as open_clip saves them, {"state_dict": ...} is
+    unwrapped."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and "model" in ckpt:
-        ckpt = ckpt["model"]
+    for key in ("model", "state_dict"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
     return {k: v[:, :, None, None] if k.endswith(".c.weight") and v.ndim == 2 else v
             for k, v in ckpt.items() if not k.endswith(REBUILT_BUFFERS)}
 
 
-def load_for_model(model: torch.nn.Module, path: str) -> dict[str, torch.Tensor]:
-    """`load_pth(path)` for `model`: where a position table's shape differs
-    from the model's (`attention_biases`, `relative_position_bias_table`,
-    `absolute_pos_embed`), it is bicubic-remapped (torch's A = -0.75) as the
-    JAX loader's `load_model_variables(template=...)` and the reference's
+def load_for_model(model: torch.nn.Module, ckpt) -> dict[str, torch.Tensor]:
+    """The state_dict for `model` from `ckpt`, a released-layout .pth path
+    (read by `load_pth`) or a state_dict. Where a position table's shape
+    differs from the model's (`attention_biases`,
+    `relative_position_bias_table`, `absolute_pos_embed`), it is
+    bicubic-remapped (torch's A = -0.75) as the JAX loader's
+    `load_model_variables(template=...)` and the reference's
     `load_pretrained` remap it (224 -> 384 -> 512 checkpoint inheritance);
-    any other mismatch raises."""
+    any other mismatch raises. A CLIP-family model (two-tower, classifier
+    teacher, ModifiedResNet tower) takes TinyCLIP's historical layouts
+    (`clip_state_dict_for`); a pruned TinyCLIP checkpoint needs the ragged
+    model `load_pruned_clip` builds."""
     from cream_tpu_torch.zoo.interpolate import remap_resolution
-    sd = load_pth(path)
+    sd = dict(ckpt) if isinstance(ckpt, Mapping) else load_pth(ckpt)
+    if _is_clip_family(model):
+        sd = clip_state_dict_for(model, sd)
     template = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     return {k: torch.as_tensor(v) for k, v in remap_resolution(sd, template).items()}
+
+
+# ---- CLIP family ----
+
+# scalars OpenAI's released CLIP files keep beside the weights
+CLIP_META_KEYS = ("input_resolution", "context_length", "vocab_size")
+
+
+def _is_clip_family(model: torch.nn.Module) -> bool:
+    from cream_tpu_torch.models.clip import CLIP, CLIPClassifier
+    from cream_tpu_torch.models.resnet import CLIPResNet, ModifiedResNet
+    return isinstance(model, (CLIP, CLIPClassifier, CLIPResNet, ModifiedResNet))
+
+
+def normalize_clip_layout(sd: Mapping) -> dict:
+    """TinyCLIP's historical checkpoint layouts -> open_clip's names (the
+    JAX package's rule; TinyCLIP model.py convert_to_new_checkpoint
+    :1115-1160): strip DDP's `module.`, map `_image_encoder.module.*` to
+    `visual.*` and `_text_encoder.module.*` to the top-level text names,
+    the auto-weight-inheritance `*_encoder_without_ddp` prefixes to the
+    same, and `_logit_scale.logit_scale` to `logit_scale`."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        k = k.replace("image_encoder_without_ddp", "_image_encoder") \
+             .replace("text_encoder_without_ddp", "_text_encoder")
+        if k == "_logit_scale.logit_scale":
+            k = "logit_scale"
+        if k.startswith("_image_encoder."):
+            k = k.replace("_image_encoder.", "", 1)
+            if k.startswith("module."):
+                k = "visual." + k[len("module."):]
+        elif k.startswith("_text_encoder."):
+            k = k.replace("_text_encoder.", "", 1)
+            if k.startswith("module."):
+                k = k[len("module."):]
+        out[k] = v
+    return out
+
+
+def clip_state_dict_for(model: torch.nn.Module, sd: Mapping) -> dict:
+    """A CLIP-family state_dict in open_clip's names for `model`: the
+    historical layouts normalized, OpenAI's scalar keys dropped, a 0-d
+    `logit_scale`, and for a bare ModifiedResNet tower the `visual.*` part
+    of a whole CLIP file. A checkpoint whose tower geometry differs from the
+    model's (a pruned one) raises."""
+    from cream_tpu_torch.models.clip import CLIP
+    from cream_tpu_torch.models.resnet import ModifiedResNet
+    sd = {k: v for k, v in normalize_clip_layout(sd).items() if k not in CLIP_META_KEYS}
+    if isinstance(model, ModifiedResNet) and any(k.startswith("visual.") for k in sd):
+        sd = {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}
+    if "logit_scale" in sd:
+        sd["logit_scale"] = torch.as_tensor(sd["logit_scale"]).reshape(())
+    if isinstance(model, CLIP):
+        c = model.cfg
+        want = clip_geometry(model.state_dict(), c.vision_layers, c.text_layers)
+        got = clip_geometry(sd, c.vision_layers, c.text_layers)
+        if got != want:
+            raise ValueError(f"the checkpoint's CLIP geometry {got} is not the model's "
+                             f"{want}: a pruned checkpoint builds its own ragged model "
+                             f"(zoo.load.load_pruned_clip)")
+    return sd
+
+
+def clip_geometry(sd: Mapping, vision_layers: int, text_layers: int,
+                  head_dim: int = 64) -> dict:
+    """The ragged CLIP's keyword arguments read off the shapes of a
+    state_dict's tensors or arrays, as the JAX package's
+    `convert_clip_pruned` reads them: each block's heads off
+    `in_proj_weight` (3 * heads * head_dim rows), its MLP width off
+    `mlp.c_fc`, a missing branch as 0; the hidden widths off
+    `visual.ln_pre` and `positional_embedding`; embed_dim off
+    `visual.proj`. `vision_layers`/`text_layers` are the family's full
+    depths, so a layer pruned away entirely keeps its slot."""
+    shape = lambda k: tuple(np.shape(sd[k])) if k in sd else None
+
+    def block(prefix: str) -> tuple[int, int]:
+        qkv, fc = shape(f"{prefix}.attn.in_proj_weight"), shape(f"{prefix}.mlp.c_fc.weight")
+        return (0 if qkv is None else qkv[0] // (3 * head_dim), 0 if fc is None else fc[0])
+
+    v = [block(f"visual.transformer.resblocks.{i}") for i in range(vision_layers)]
+    t = [block(f"transformer.resblocks.{i}") for i in range(text_layers)]
+    return dict(vision_width=shape("visual.ln_pre.weight")[0],
+                vision_heads=tuple(h for h, _ in v), vision_mlp_widths=tuple(m for _, m in v),
+                text_width=shape("positional_embedding")[1],
+                text_heads_per_layer=tuple(h for h, _ in t),
+                text_mlp_widths=tuple(m for _, m in t),
+                embed_dim=shape("visual.proj")[1])
+
+
+def load_pruned_clip(name, ckpt, *, device, dtype: torch.dtype = torch.float32,
+                     quick_gelu: bool = False, img_size: int | None = None):
+    """A TinyCLIP checkpoint (a .pth path or a state_dict, any historical
+    layout), pruned by auto-weight-inheritance or not -> (its CLIP model,
+    state_dict). `name` picks the family's config (its full depths), or is
+    a `CLIPConfig`; the kept heads, MLP widths and hidden widths come off
+    the checkpoint's shapes, as the JAX package's `load_pruned_clip` /
+    `convert_clip_pruned` read them, and the model is built ragged with
+    them: no gates, no zero-padding back to the full model."""
+    import dataclasses
+
+    from cream_tpu_torch.models.clip import CLIP, CLIP_CONFIGS
+    cfg = CLIP_CONFIGS[name] if isinstance(name, str) else name
+    sd = normalize_clip_layout(dict(ckpt) if isinstance(ckpt, Mapping) else load_pth(ckpt))
+    g = clip_geometry(sd, cfg.vision_layers, cfg.text_layers)
+    cfg = dataclasses.replace(cfg, embed_dim=g["embed_dim"], vision_width=g["vision_width"],
+                              text_width=g["text_width"],
+                              image_size=img_size or cfg.image_size)
+    model = CLIP(cfg, quick_gelu, g["vision_heads"], g["vision_mlp_widths"],
+                 g["text_heads_per_layer"], g["text_mlp_widths"], dtype=dtype,
+                 device=device).eval()
+    return model, load_for_model(model, sd)
+
+
+def _clip_blocks(w: "_Writer", fp: str, tp: str) -> None:
+    """A JAX CLIPTransformer's present blocks (`{fp}/resblocks_{i}`, each
+    branch only where it has params) -> `{tp}.resblocks.{i}.*`."""
+    for key, blk in w._get(w.params, fp).items():
+        f, t = f"{fp}/{key}", f"{tp}.resblocks.{int(key.split('_')[1])}"
+        if "attn" in blk:
+            w.ln(f"{f}/ln_1", f"{t}.ln_1")
+            qkv = blk["attn"]["in_proj"]
+            w.sd[f"{t}.attn.in_proj_weight"] = _dense(qkv["kernel"])
+            w.sd[f"{t}.attn.in_proj_bias"] = np.asarray(qkv["bias"])
+            w.dense(f"{f}/attn/out_proj", f"{t}.attn.out_proj")
+        if "c_fc" in blk:
+            w.ln(f"{f}/ln_2", f"{t}.ln_2")
+            w.dense(f"{f}/c_fc", f"{t}.mlp.c_fc")
+            w.dense(f"{f}/c_proj", f"{t}.mlp.c_proj")
+
+
+def _clip_vision(w: "_Writer", fp: str = "visual") -> None:
+    w.sd["visual.conv1.weight"] = _conv(w._get(w.params, f"{fp}/conv1/kernel"))
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        w.raw(f"{fp}/{name}", f"visual.{name}")
+    w.ln(f"{fp}/ln_pre", "visual.ln_pre")
+    w.ln(f"{fp}/ln_post", "visual.ln_post")
+    _clip_blocks(w, f"{fp}/transformer", "visual.transformer")
+
+
+def _clip_text(w: "_Writer", fp: str = "text") -> None:
+    w.raw(f"{fp}/token_embedding/embedding", "token_embedding.weight")
+    w.raw(f"{fp}/positional_embedding", "positional_embedding")
+    w.ln(f"{fp}/ln_final", "ln_final")
+    w.raw(f"{fp}/text_projection", "text_projection")
+    _clip_blocks(w, f"{fp}/transformer", "transformer")
+    w.raw("logit_scale", "logit_scale")
+
+
+def clip_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIP variables (full or ragged, e.g. `prune_clip`'s)
+    -> the port's state_dict (open_clip names). Inverse of `convert_clip`
+    / `convert_clip_pruned`."""
+    w = _Writer(variables)
+    _clip_vision(w)
+    _clip_text(w)
+    return w.state_dict()
+
+
+def clip_classifier_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIPClassifier variables -> the port's state_dict.
+    Inverse of `convert_clip_classifier`."""
+    w = _Writer(variables)
+    _clip_vision(w)
+    w.dense("head", "head")
+    return w.state_dict()
+
+
+def clip_resnet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIPResNet variables (or a bare ModifiedResNet
+    tower's) -> the port's state_dict. Inverse of `convert_clip_rn` /
+    `convert_clip_resnet_tower`."""
+    w = _Writer(variables)
+    two_tower = "visual" in w.params
+    fp, tp = ("visual/", "visual.") if two_tower else ("", "")
+    for i in (1, 2, 3):
+        w.sd[f"{tp}conv{i}.weight"] = _conv(w._get(w.params, f"{fp}conv{i}/kernel"))
+        w.bn(f"{fp}bn{i}", f"{tp}bn{i}")
+    tower = w._get(w.params, fp.rstrip("/")) if two_tower else w.params
+    for key in tower:
+        if not key.startswith("layer"):
+            continue
+        li, bi = key[len("layer"):].split("_")
+        f, t = f"{fp}{key}", f"{tp}layer{li}.{bi}"
+        for c in (1, 2, 3):
+            w.sd[f"{t}.conv{c}.weight"] = _conv(w._get(w.params, f"{f}/conv{c}/kernel"))
+            w.bn(f"{f}/bn{c}", f"{t}.bn{c}")
+        if "downsample_conv" in tower[key]:
+            w.sd[f"{t}.downsample.0.weight"] = _conv(
+                w._get(w.params, f"{f}/downsample_conv/kernel"))
+            w.bn(f"{f}/downsample_bn", f"{t}.downsample.1")
+    w.raw(f"{fp}attnpool/positional_embedding", f"{tp}attnpool.positional_embedding")
+    for p in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        w.dense(f"{fp}attnpool/{p}", f"{tp}attnpool.{p}")
+    if two_tower:
+        _clip_text(w)
+    return w.state_dict()
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -293,7 +508,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
     Conv/Linear weights ~ N(0, 1/fan_in); biases ~ N(0, 0.02²); BN and LN
     scales (including MBConv.conv3's, which init at 0) ~ U(0.5, 1.5);
     running means ~ N(0, 0.1²), running variances ~ U(0.5, 1.5);
-    attention_biases ~ N(0, 0.5²).
+    attention_biases ~ N(0, 0.5²); CLIP's `logit_scale` is its initial
+    log(1/0.07), drawing nothing.
 
     A model whose residual stream has no normalisation (EfficientViT) names
     the scales of its residual branches' last BNs in `SEEDED_BRANCH_ENDS`
@@ -308,6 +524,9 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
         shape = tuple(t.shape)
         if name.endswith("num_batches_tracked"):
             out[name] = torch.zeros_like(t, device="cpu")
+            continue
+        if name == "logit_scale":                      # CLIP's initial temperature
+            out[name] = torch.tensor(float(np.log(1 / 0.07)))
             continue
         if name.endswith("running_var"):
             a = rng.uniform(0.5, 1.5, shape)

@@ -33,9 +33,11 @@ narrow TinyViT whose pin_layouts and mbconv_kernel routes agree with the
 plain one; Swin's attention at S3-Tiny's and Swin-B's four stage shapes
 (qkv_major, the shift mask, grads into the bias table and the qkv bias
 through K2), with S3-Tiny, Swin-T, Mini-Swin-T and Swin-B launching 12, 12,
-0 and 24 K1 a forward and S3-Tiny's train step 12 K1 + 12 K2; and the
+0 and 24 K1 a forward and S3-Tiny's train step 12 K1 + 12 K2; the
 sparse logits store's native codec (it needs only g++, so it also runs
-without a card).
+without a card); and TinyCLIP's serving path, which runs no kernel: the
+narrow ViT and RN CLIPs (gated and ragged too) in fp32 on the card against
+the CPU, bf16 against fp32, and the pair timing.
 """
 import numpy as np
 import pytest
@@ -1112,3 +1114,97 @@ def test_native_codec_round_trip(tmp_path):
         np.testing.assert_array_equal(v, vals[ask].astype(np.float16).astype(np.float32))
         np.testing.assert_array_equal(i, idxs[ask])
         np.testing.assert_array_equal(sd, seeds[ask])
+
+
+# ---- TinyCLIP's serving path: plain PyTorch (no TPU kernel lies on it), the
+# card against the CPU ----
+
+_CLIP_NARROW = dict(embed_dim=64, vision_width=128, vision_layers=2, vision_patch=16,
+                    image_size=64, text_width=128, text_layers=2, text_heads=2,
+                    context_length=16, vocab_size=1000)
+
+
+def _narrow_clip_pair(card, kind, dtype, **ragged):
+    """The narrow ViT ("vit") or RN ("rn") two-tower CLIP on seeded weights,
+    fp32 on the CPU and `dtype` on the card."""
+    from cream_tpu_torch.models.clip import CLIP, CLIPConfig
+    from cream_tpu_torch.models.resnet import CLIPResNet
+
+    def build(device, dt):
+        if kind == "vit":
+            return CLIP(CLIPConfig(**_CLIP_NARROW), dtype=dt, device=device, **ragged)
+        return CLIPResNet((2, 1, 1, 1), 32, 8, 64, 16, 128, 2, 2, 16, 1000, dtype=dt,
+                          device=device)
+
+    cpu = build("cpu", torch.float32).eval()
+    sd = seeded_state_dict(cpu, 0)
+    cpu.load_state_dict(sd)
+    gpu = build(card, dtype).eval()
+    gpu.load_state_dict(sd)
+    return cpu, gpu
+
+
+def _clip_inputs(batch=4):
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.standard_normal((batch, 64, 64, 3)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(1, 998, (batch, 16)))
+    text[:, 0], text[torch.arange(batch), torch.arange(batch) + 5] = 998, 999
+    return images, text
+
+
+def _clip_gates(rng, width=128, layers=2, heads=2, mlp=512):
+    g = {"hidden_z": rng.uniform(0.3, 1.5, width), "heads_z": rng.uniform(0.3, 1.5, (layers, heads)),
+         "mha_z": rng.uniform(0.5, 1.5, layers), "intermediate_z": rng.uniform(0.3, 1.5, (layers, mlp)),
+         "ffn_z": rng.uniform(0.5, 1.5, layers)}
+    g["hidden_z"][: width // 4] = 0
+    g["heads_z"][0, 0] = g["mha_z"][1] = g["ffn_z"][0] = 0
+    g["intermediate_z"][:, : mlp // 3] = 0
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in g.items()}
+
+
+def _run_clip(model, images, text, *gates):
+    device = next(model.parameters()).device
+    move = lambda g: None if g is None else {k: v.to(device) for k, v in g.items()}
+    with torch.inference_mode():
+        return [o.float().cpu() for o in model(images.to(device), text.to(device),
+                                               *(move(g) for g in gates))]
+
+
+@pytest.mark.parametrize("kind", ["vit", "rn"])
+def test_narrow_clip_fp32_on_the_card_matches_the_cpu(card, kind):
+    cpu, gpu = _narrow_clip_pair(card, kind, torch.float32)
+    images, text = _clip_inputs()
+    for got, want in zip(_run_clip(gpu, images, text), _run_clip(cpu, images, text)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_gated_and_ragged_clip_on_the_card_match_the_cpu(card):
+    rng = np.random.default_rng(2)
+    vm, tm = _clip_gates(rng), _clip_gates(rng)
+    images, text = _clip_inputs()
+    cpu, gpu = _narrow_clip_pair(card, "vit", torch.float32)
+    for got, want in zip(_run_clip(gpu, images, text, vm, tm),
+                         _run_clip(cpu, images, text, vm, tm)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    cpu, gpu = _narrow_clip_pair(card, "vit", torch.float32, vision_heads=(2, 0),
+                                 vision_mlp_widths=(0, 300), text_heads_per_layer=(1, 2),
+                                 text_mlp_widths=(256, 0))
+    for got, want in zip(_run_clip(gpu, images, text), _run_clip(cpu, images, text)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["vit", "rn"])
+def test_narrow_clip_bf16_features_match_fp32_on_the_card(card, kind):
+    _, gpu32 = _narrow_clip_pair(card, kind, torch.float32)
+    _, gpu16 = _narrow_clip_pair(card, kind, torch.bfloat16)
+    images, text = _clip_inputs()
+    for got, want in zip(_run_clip(gpu16, images, text)[:2], _run_clip(gpu32, images, text)[:2]):
+        assert float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()) >= 0.999
+
+
+def test_pair_timing_runs_on_the_card_and_refuses_a_cpu_model(card):
+    from cream_tpu_torch.cli.speed_test import pair_throughput
+    cpu, gpu = _narrow_clip_pair(card, "vit", torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pair_throughput(cpu, 2)
+    assert pair_throughput(gpu, 8, n_iters=2, warmup=1) > 0
