@@ -89,6 +89,25 @@ non-zero):
      clip_vit_large14_224_classifier, 21,841 classes, bf16 bs256, the
      seeded 1k -> 22k mapping, top-100, then --check (value error <= 1e-3,
      tie-aware miss rate 0); the teacher's img/s
+ 9i. TinyCLIP train golden (TinyCLIP's training path: no TPU kernel lies on
+     it either): one fp32 B=2 L0 distillation step of TinyCLIP-39M/16 (TF32
+     off; the stored uniforms for both towers' masks) against the JAX
+     package's loss, grad norms and L0 grads stored in tests/data/torch_port/
+     (loss and global grad norm 1e-4, per-tensor grad norms 1e-3, L0 grads
+     1e-3 of their largest)
+ 9j. main path (TinyCLIP training): the L0 distillation step of
+     TinyCLIP-39M/16 at bf16 bs256 through
+     cli.speed_test.tinyclip_train_throughput with remat off and on
+     (tinyclip_39m_train_throughput pairs/s, peak memory; the first loss the
+     same within 2 bf16 ulps and less memory with remat), device time by
+     kind of op from cli.profile_step.profile
+ 9k. 20 steps on one bs256 batch: the loss falls, both towers' expected
+     sparsity rises toward the target; then prune_clip on the card: the
+     trained student's fp32 features with its deterministic masks (a seeded
+     quarter of each gate set pushed off) against the ragged model's (1e-4),
+     params before and after
+ 9l. cli.tinyclip_pipeline.main --synthetic on cuda: two L0 stages at the
+     JAX package's smoke size, each shrinking both towers
  10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
      bf16 (tensor cores) and fp32 (CUDA cores), at EfficientViT-M5 bs512's
      and M0 bs1024's per-head shapes, bf16 the same bits on two launches;
@@ -198,6 +217,7 @@ from cream_tpu_torch.cli.inference import predict  # noqa: E402
 from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
                                             train_throughput)
 from cream_tpu_torch.models import create_model  # noqa: E402
+from cream_tpu_torch.models.clip import prune_clip, prune_clip_state_dict  # noqa: E402
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
 from cream_tpu_torch.nn.attention import BiasAttention, WindowBiasAttention  # noqa: E402
 from cream_tpu_torch.nn.swin import SwinWindowAttention  # noqa: E402
@@ -2420,53 +2440,14 @@ def clip_gates(g, tower: str) -> dict:
 
 
 def clip_hard_prune(sd: dict, vision: dict, text: dict, head_dim: int = 64) -> dict:
-    """A CLIP state_dict (open_clip names) with 0/1 gates materialized, as
-    auto-weight-inheritance leaves a pruned checkpoint: gated-off hidden
-    channels, heads and MLP channels removed, and a branch whose gate is 0
-    (or whose heads or channels are all off) removed with its LayerNorm.
-    The ragged model `zoo.load.load_pruned_clip` builds from it computes
-    what the gated model does."""
-    sd = {k: np.asarray(v) for k, v in sd.items()}
-    out = {"logit_scale": sd["logit_scale"]}
-
-    def tower(masks: dict, tp: str, keys: dict, layers: int) -> None:
-        keep = np.flatnonzero(np.asarray(masks["hidden_z"]))
-        for name, axis in keys.items():
-            out[name] = np.take(sd[name], keep, axis=axis)
-        for i in range(layers):
-            p = f"{tp}.resblocks.{i}"
-            heads = np.flatnonzero(np.asarray(masks["heads_z"][i]))
-            inter = np.flatnonzero(np.asarray(masks["intermediate_z"][i]))
-            if float(masks["mha_z"][i]) != 0 and len(heads) and f"{p}.attn.in_proj_weight" in sd:
-                W = sd[f"{p}.ln_1.weight"].shape[0]
-                qkv = sd[f"{p}.attn.in_proj_weight"].reshape(3, -1, head_dim, W)
-                out[f"{p}.attn.in_proj_weight"] = qkv[:, heads][..., keep].reshape(-1, len(keep))
-                out[f"{p}.attn.in_proj_bias"] = sd[f"{p}.attn.in_proj_bias"].reshape(
-                    3, -1, head_dim)[:, heads].reshape(-1)
-                o = sd[f"{p}.attn.out_proj.weight"].reshape(W, -1, head_dim)
-                out[f"{p}.attn.out_proj.weight"] = o[keep][:, heads].reshape(len(keep), -1)
-                out[f"{p}.attn.out_proj.bias"] = sd[f"{p}.attn.out_proj.bias"][keep]
-                for n in ("weight", "bias"):
-                    out[f"{p}.ln_1.{n}"] = sd[f"{p}.ln_1.{n}"][keep]
-            if float(masks["ffn_z"][i]) != 0 and len(inter) and f"{p}.mlp.c_fc.weight" in sd:
-                out[f"{p}.mlp.c_fc.weight"] = sd[f"{p}.mlp.c_fc.weight"][inter][:, keep]
-                out[f"{p}.mlp.c_fc.bias"] = sd[f"{p}.mlp.c_fc.bias"][inter]
-                out[f"{p}.mlp.c_proj.weight"] = sd[f"{p}.mlp.c_proj.weight"][keep][:, inter]
-                out[f"{p}.mlp.c_proj.bias"] = sd[f"{p}.mlp.c_proj.bias"][keep]
-                for n in ("weight", "bias"):
-                    out[f"{p}.ln_2.{n}"] = sd[f"{p}.ln_2.{n}"][keep]
-
-    v_layers = sum(k.endswith(".ln_2.weight") for k in sd if k.startswith("visual."))
-    t_layers = sum(k.endswith(".ln_2.weight") and k.startswith("transformer.") for k in sd)
-    tower(vision, "visual.transformer",
-          {"visual.conv1.weight": 0, "visual.class_embedding": 0,
-           "visual.positional_embedding": 1, "visual.ln_pre.weight": 0,
-           "visual.ln_pre.bias": 0, "visual.ln_post.weight": 0, "visual.ln_post.bias": 0,
-           "visual.proj": 0}, v_layers)
-    tower(text, "transformer",
-          {"token_embedding.weight": 1, "positional_embedding": 1, "ln_final.weight": 0,
-           "ln_final.bias": 0, "text_projection": 0}, t_layers)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    """A CLIP state_dict (open_clip names) with 0/1 gates materialized by
+    `models.clip.prune_clip_state_dict` (the state_dict half of
+    `prune_clip`), as auto-weight-inheritance leaves a pruned checkpoint:
+    gated-off hidden channels, heads and MLP channels removed, and a branch
+    whose gate is 0 (or whose heads or channels are all off) removed with
+    its LayerNorm. The ragged model `zoo.load.load_pruned_clip` builds from
+    it computes what the gated model does."""
+    return prune_clip_state_dict(sd, vision, text, head_dim)
 
 
 def clip_golden_images(seed: int, batch: int = 2, size: int = 224) -> np.ndarray:
@@ -2666,6 +2647,188 @@ def phase_clip_teacher() -> float:
     return ips
 
 
+# ---- TinyCLIP's training path (no TPU kernel lies on it) ----
+
+TINYCLIP = "tinyclip_vit_39m_16_text_19m"
+CLIP_TRAIN_GOLDEN = DATA / "tinyclip_39m_train_seed0.npz"
+CLIP_TRAIN_BATCH = 256
+
+
+def clip_train_golden_step(g, device) -> tuple[torch.Tensor, dict, dict]:
+    """The L0 distillation step of TinyCLIP-39M/16 that the golden `g`
+    stores (fp32, B=2, seeded weights, gates from its log-alpha, its
+    uniforms for each tower's masks, its step of the sparsity warmup) on
+    `device`: (loss, grads by param name, L0 grads by name)."""
+    from cream_tpu_torch.cli.tinyclip_pipeline import L0Distill
+    model = create_model(TINYCLIP, device=device)
+    model.load_state_dict(seeded_state_dict(model, int(g["weight_seed"])))
+    trainer = L0Distill(model, lr=1e-4, l0_lr=1e-2, target_sparsity=float(g["target"]),
+                        sparsity_warmup=int(g["warmup"]),
+                        l0_init_mean=float(g["l0_init_mean"]))
+    trainer.steps = int(g["step"])
+    images = torch.from_numpy(clip_golden_images(int(g["input_seed"]))).to(device)
+    text = torch.from_numpy(g["text"]).to(device)
+    uniforms = {k: {m: torch.from_numpy(g[f"u_{k}_{m}"]).to(device)
+                    for m in CLIP_GATES if f"u_{k}_{m}" in g} for k in ("v", "t")}
+    loss, _ = trainer.loss(images, text, uniforms=uniforms)
+    params = dict(model.named_parameters())
+    l0 = trainer.named_l0()
+    grads = torch.autograd.grad(loss, [*params.values(), *l0.values()])
+    return (loss.detach(), dict(zip(params, grads[:len(params)])),
+            {k: v.cpu().numpy() for k, v in zip(l0, grads[len(params):])})
+
+
+def l0_grad_errors(g, l0_grads: dict) -> dict:
+    """Each L0 grad's max abs error against the golden's, over its largest
+    magnitude."""
+    return {k: float(np.abs(v - g[f"l0grad_{k}"]).max() / np.abs(g[f"l0grad_{k}"]).max())
+            for k, v in l0_grads.items()}
+
+
+def phase_clip_train_golden() -> None:
+    """The fp32 B=2 L0 distillation step of TinyCLIP-39M/16 (TF32 off) on
+    the card against the JAX golden stored by
+    tests/test_torch_tinyclip_train.py: the loss and global grad norm
+    (1e-4 relative), every per-tensor grad norm (1e-3), every L0 grad
+    (1e-3 of its largest magnitude)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = np.load(CLIP_TRAIN_GOLDEN)
+    loss, grads, l0_grads = clip_train_golden_step(g, "cuda")
+    check_step_golden(f"TinyCLIP-39M/16 L0 distill golden (step {int(g['step'])})", g, loss,
+                      grads)
+    errs = l0_grad_errors(g, l0_grads)
+    worst = max(errs, key=errs.get)
+    print(f"TinyCLIP-39M/16 L0 distill golden: {len(errs)} L0 grads (loga, multipliers), "
+          f"worst max-abs err over max magnitude {errs[worst]:.2e} ({worst}; bound 1e-3)")
+    check(errs[worst] <= 1e-3, f"L0 grads vs the golden: {errs}")
+
+
+def phase_clip_train(batch: int = CLIP_TRAIN_BATCH) -> dict:
+    """The TinyCLIP-39M/16 training main path: its L0 distillation step at
+    bf16 `batch` (fp32 params) through cli.speed_test.
+    tinyclip_train_throughput, with remat off and on: pairs/s (CUDA events,
+    10 steps after 3), peak memory; the first step's loss the same with
+    remat within 2 bf16 ulps, and less memory with it; the device time by
+    kind of op of the step without remat (cli.profile_step.profile)."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import (tinyclip_train_step_fn,
+                                                tinyclip_train_throughput)
+    out = {}
+    for remat in (False, True):
+        model = create_model(TINYCLIP, device="cuda", dtype=torch.bfloat16, remat=remat)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        out[remat] = tinyclip_train_throughput(model, batch, 10, 3)
+        if not remat:
+            _, fn = tinyclip_train_step_fn(model, batch)
+            out["profile"] = profile(fn, steps=3, warmup=2, top=8)
+        del model
+        torch.cuda.empty_cache()
+    off, on, prof = out[False], out[True], out["profile"]
+    d_loss = abs(on["first_loss"] - off["first_loss"])
+    ulp = float(bf16_ulp(torch.tensor(off["first_loss"])))
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
+    print(f"main TinyCLIP-39M/16 L0 distill train bf16 B={batch} "
+          f"(tinyclip_39m_train_throughput): {off['pairs_per_s']:.1f} pairs/s "
+          f"({off['ms_per_step']:.2f} ms a step by CUDA events), peak memory "
+          f"{off['peak_gib']:.2f} GiB; remat {on['pairs_per_s']:.1f} pairs/s "
+          f"({on['ms_per_step']:.2f} ms), peak {on['peak_gib']:.2f} GiB; first loss "
+          f"{off['first_loss']:.6f} / {on['first_loss']:.6f} (diff {d_loss:.2e}, bound 2 bf16 "
+          f"ulps = {2 * ulp:.2e}); profile (no remat): wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
+          f"{prof['launches']:.0f} launches; device ms by kind: {kinds} [{card_info()}]")
+    check(d_loss <= 2 * ulp, f"remat changed the first loss by {d_loss}")
+    check(on["peak_gib"] < off["peak_gib"], "remat did not lower the peak memory")
+    return out
+
+
+def phase_clip_train_steps(batch: int = CLIP_TRAIN_BATCH, steps: int = 20) -> dict:
+    """`steps` L0 distillation steps of TinyCLIP-39M/16 bf16 on one `batch`
+    batch (the step of phase_clip_train): the loss falls and both towers'
+    expected sparsity rises toward the target. Then the fuse on the card:
+    the trained student in fp32 (TF32 off) with its deterministic masks, a
+    seeded quarter of each gate set's log-alphas first pushed to -10 so the
+    fuse removes hidden channels, heads and MLP channels, against
+    `prune_clip`'s ragged model on the same pairs: features within 1e-4;
+    params before and after."""
+    from cream_tpu_torch.cli.speed_test import pair_inputs, tinyclip_train_step_fn
+    from cream_tpu_torch.distill.l0 import named_l0
+    model = create_model(TINYCLIP, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    trainer, run = tinyclip_train_step_fn(model, batch)
+    losses, sparsity = [], []
+    for _ in range(steps):
+        loss, s = run()
+        losses.append(float(loss))
+        sparsity.append({k: float(v) for k, v in s.items()})
+    target = trainer.target_sparsity
+    print(f"TinyCLIP-39M/16 L0 distill bf16 B={batch}, {steps} steps on one batch: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; expected sparsity vision "
+          f"{sparsity[0]['v']:.3e} -> {sparsity[-1]['v']:.3e}, text {sparsity[0]['t']:.3e} "
+          f"-> {sparsity[-1]['t']:.3e} (target {target}, warmed up over "
+          f"{trainer.sparsity_warmup} steps)")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(sparsity[0][k] < sparsity[-1][k] < target for k in ("v", "t")),
+          f"the expected sparsity did not rise toward {target}: {sparsity}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for p in trainer.l0.values():
+            for k, t in named_l0(p).items():
+                if "loga" in k:
+                    flat = t.view(-1)
+                    flat[torch.from_numpy(rng.permutation(flat.numel())[:flat.numel() // 4])
+                         .to(flat.device)] = -10.0
+    masks = trainer.masks()
+    full = create_model(TINYCLIP, device="cuda")
+    sd = model.state_dict()
+    full.load_state_dict(sd)
+    pruned, pruned_sd = prune_clip(sd, full.cfg, masks["v"], masks["t"], device="cuda")
+    images, text = pair_inputs(full, 64, torch.float32, seed=5)
+    with torch.no_grad():
+        want = full(images, text, masks["v"], masks["t"])
+        got = pruned(images, text)
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    before, after = (sum(int(v.numel()) for v in d.values()) for d in (sd, pruned_sd))
+    heads = [b.attn.heads if hasattr(b, "attn") else 0 for b in pruned.visual.transformer.resblocks]
+    print(f"fuse on the card (prune_clip): params {before} -> {after} ({after / before:.2%}); "
+          f"hidden widths {pruned.cfg.vision_width} / {pruned.cfg.text_width}, vision heads "
+          f"a layer {heads}; pruned vs masked fp32 features (B=64) max err {err:.2e} "
+          f"(bound 1e-4)")
+    check(after < before and pruned.cfg.vision_width < full.cfg.vision_width
+          and pruned.cfg.text_width < full.cfg.text_width, "the fuse removed nothing")
+    check(err <= 1e-4, f"pruned vs masked features err {err}")
+    return {"losses": losses, "sparsity": sparsity, "params": (before, after), "fuse_err": err}
+
+
+def phase_clip_pipeline() -> list:
+    """cli.tinyclip_pipeline.main on the card at the JAX package's smoke
+    size (`--synthetic`, two stages 0.25 and 0.333, 30 steps of bs8, gates
+    from log-alpha 2 at lr 0.5): each stage shrinks both towers, the final
+    pair similarity is finite; its wall seconds."""
+    import tempfile
+
+    from cream_tpu_torch.cli import tinyclip_pipeline
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        report = tinyclip_pipeline.main([
+            "--synthetic", "--sparsities", "0.25", "0.333", "--steps", "30",
+            "--batch-size", "8", "--l0-lr", "0.5", "--l0-init-mean", "2.0", "--out", tmp])
+        wall = time.perf_counter() - t0
+    stages = [r for r in report if "params" in r]
+    print(f"cli.tinyclip_pipeline on cuda (2 L0 stages, 30 steps each, bs8): params "
+          f"{[r['params'] for r in stages]}, vision widths "
+          f"{[r['vision_width'] for r in stages]}, text widths "
+          f"{[r.get('text_width', 128) for r in stages]}, final pair similarity "
+          f"{report[-1]['final_pair_similarity']:.4f}; {wall:.1f} s")
+    for a, b in zip(stages, stages[1:]):
+        check(b["params"] < a["params"] and b["vision_width"] < a["vision_width"]
+              and b["text_width"] < a.get("text_width", 128), f"a stage did not shrink: {b}")
+    return report
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -2723,6 +2886,10 @@ def main() -> None:
     clip_pairs = {name: phase_clip_pairs(name, batch) for name, batch in CLIP_PAIRS}
     zero_shot = phase_zero_shot()
     teacher_ips = phase_clip_teacher()
+    phase_clip_train_golden()
+    clip_train = phase_clip_train()
+    clip_steps = phase_clip_train_steps()
+    clip_stages = phase_clip_pipeline()
     check((wa.LAUNCHES, wa.BWD_LAUNCHES) == launches, "the CLIP phases launched K1/K2")
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
@@ -2863,6 +3030,16 @@ def main() -> None:
         + f"; clip_vit_large14_224_classifier (21,841 classes) {teacher_ips:.1f} img/s; "
         f"zero-shot classifier build: tokenizer {zero_shot['tokenize_s']:.3f} s (host), text "
         f"passes {zero_shot['encode_s']:.3f} s [{card}]")
+    print(f"CLIP training path (plain PyTorch: no TPU kernel lies on it): "
+          f"tinyclip_39m_train_throughput bf16 bs{CLIP_TRAIN_BATCH} "
+          f"{clip_train[False]['pairs_per_s']:.1f} pairs/s (peak {clip_train[False]['peak_gib']:.2f} "
+          f"GiB; device {clip_train['profile']['device_ms']:.2f} ms a step, idle share "
+          f"{clip_train['profile']['idle_share']:.3f}), with remat "
+          f"{clip_train[True]['pairs_per_s']:.1f} pairs/s (peak {clip_train[True]['peak_gib']:.2f} "
+          f"GiB); 20 steps: loss {clip_steps['losses'][0]:.4f} -> {clip_steps['losses'][-1]:.4f}; "
+          f"fuse {clip_steps['params'][0]} -> {clip_steps['params'][1]} params (err "
+          f"{clip_steps['fuse_err']:.2e}); pipeline params "
+          f"{[r['params'] for r in clip_stages if 'params' in r]} [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,8 @@
     python -m cream_tpu_torch.cli.profile_step --models tiny_vit_21m_384 --batch 64
     python -m cream_tpu_torch.cli.profile_step [--train] --models s3_tiny --batch 128
     python -m cream_tpu_torch.cli.profile_step --models tinyclip_vit_39m_16_text_19m \
-        --batch 256                                      # a CLIP pair forward
+        --batch 256 [--train]                            # a CLIP pair forward
+                                                         # (--train: the L0 distill step)
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -24,7 +25,8 @@ PyTorch version (TinyViT's and Swin/S3's window attention, EfficientViT's
 CGA route "plain"); `key=value` words are model keyword arguments, as in
 `speed_test`; `--img-size` defaults to each model's own. A two-tower CLIP
 model runs `speed_test.pair_step` on `speed_test.pair_inputs` (both towers,
-their similarity matrix). A run without a CUDA device fails.
+their similarity matrix); with `--train`, TinyCLIP's L0 distillation step
+(`speed_test.tinyclip_train_step_fn`). A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -141,7 +143,8 @@ def use_plain_attention(model: torch.nn.Module) -> None:
 
 def main(argv=None):
     from cream_tpu_torch.cli.speed_test import (is_two_tower, model_kwargs, pair_inputs,
-                                                pair_step, train_step_fn)
+                                                pair_step, tinyclip_train_step_fn,
+                                                train_step_fn)
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -170,7 +173,9 @@ def main(argv=None):
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
             use_plain_attention(model)
-        if args.train:
+        if args.train and is_two_tower(model):
+            _, fn = tinyclip_train_step_fn(model, args.batch)
+        elif args.train:
             fn = train_step_fn(model, args.batch, model.img_size, dtype)
         elif is_two_tower(model):
             images, text = pair_inputs(model, args.batch, dtype)

@@ -12,6 +12,8 @@
     python -m cream_tpu_torch.cli.speed_test [--train] --models s3_tiny --batch 128
     python -m cream_tpu_torch.cli.speed_test --models tinyclip_vit_39m_16_text_19m \
         clip_resnet50 --batch 256                        # CLIP: image-text pairs/s
+    python -m cream_tpu_torch.cli.speed_test --train \
+        --models tinyclip_vit_39m_16_text_19m [remat=true]  # TinyCLIP's L0 distill step
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -22,7 +24,9 @@ A two-tower CLIP model is timed as pairs (`pair_throughput`): NHWC images
 and (B, 77) token ids drawn in [0, 49408) from a seeded generator, as the
 JAX package's `bench_clip_pair` draws them (over the model's vocabulary), through both towers, and each
 iteration consumes both towers' features (their (B, B) similarity
-matrix), so the number is pairs/s of the whole model.
+matrix), so the number is pairs/s of the whole model. With `--train` a
+two-tower ViT CLIP is timed through TinyCLIP's L0 distillation step
+(`tinyclip_train_throughput`, the JAX package's `bench_tinyclip_train`).
 
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
@@ -35,6 +39,7 @@ import argparse
 import json
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -166,6 +171,55 @@ def train_throughput(model: torch.nn.Module, batch: int, img_size: int,
     return batch * n_iters / (start.elapsed_time(end) / 1e3)
 
 
+def tinyclip_train_step_fn(model: torch.nn.Module, batch: int, seed: int = 0):
+    """(the trainer, a zero-argument function that runs one step): TinyCLIP's
+    L0 distillation step (`cli.tinyclip_pipeline.L0Distill`) on `model`'s
+    CUDA device as the JAX package's `bench_tinyclip_train` sets it up:
+    gates on both towers (hidden, heads, intermediate) from log-alpha 10,
+    target sparsity 0.25 over a 1,000-step warmup, Adam 1e-4 on the
+    weights and 1e-2 on the gates and multipliers, the contrastive loss at
+    weight 1, a frozen teacher copy; one batch of `pair_inputs` in the
+    model's compute dtype, the masks' noise from a seeded generator."""
+    from cream_tpu_torch.cli.tinyclip_pipeline import L0Distill
+    from cream_tpu_torch.models.clip import CLIP
+    if not isinstance(model, CLIP):
+        raise TypeError(f"TinyCLIP's train step takes a two-tower ViT CLIP, not "
+                        f"{type(model).__name__}")
+    images, text = pair_inputs(model, batch, model.dtype, seed)
+    trainer = L0Distill(model, lr=1e-4, l0_lr=1e-2, target_sparsity=0.25,
+                        sparsity_warmup=1000, contrastive_weight=1.0, l0_init_mean=10.0)
+    gen = torch.Generator(images.device).manual_seed(seed + 3)
+    return trainer, lambda: trainer.step(images, text, generator=gen)
+
+
+def tinyclip_train_throughput(model: torch.nn.Module, batch: int = 256, n_iters: int = 10,
+                              warmup: int = 3) -> dict:
+    """Train pairs/s of TinyCLIP's L0 distillation step on `model` (a
+    two-tower ViT CLIP on a CUDA device; `tinyclip_train_step_fn`):
+    `warmup` untimed steps, then `n_iters` between two CUDA events; the
+    peak device memory over the timed steps (weights, teacher, gates and
+    both optimizers' slots included); the first step's loss and the
+    losses of all steps."""
+    _, run = tinyclip_train_step_fn(model, batch)
+    losses = [run()[0] for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_iters):
+        losses.append(run()[0])
+    end.record()
+    end.synchronize()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"TinyCLIP train steps gave a non-finite loss: {losses}")
+    ms = start.elapsed_time(end) / n_iters
+    return {"pairs_per_s": batch / ms * 1e3, "ms_per_step": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "first_loss": losses[0], "losses": losses}
+
+
 def model_kwargs(opts: list[str]) -> dict:
     """`key=value` words -> keyword arguments for `create_model`, values
     parsed as config overrides are (numbers, booleans, null, else str)."""
@@ -208,8 +262,8 @@ def main(argv=None):
         model.load_state_dict(seeded_state_dict(model, 0))
         pairs = is_two_tower(model)
         if pairs and args.train:
-            raise NotImplementedError(f"{name}: CLIP training is not ported")
-        if args.train:
+            ips = tinyclip_train_throughput(model, args.batch, args.iters)["pairs_per_s"]
+        elif args.train:
             ips = train_throughput(model, args.batch, model.img_size, dtype,
                                    args.iters)
         elif pairs:

@@ -2,8 +2,8 @@
 teacher.
 
 Counterpart of `cream_tpu/models/clip.py` (TinyCLIP/src/open_clip/model.py:
-VisualTransformer, the text Transformer and CLIP), eval only. Every block
-takes TinyCLIP's gate set:
+VisualTransformer, the text Transformer and CLIP). Every block takes
+TinyCLIP's gate set:
 
   hidden_z (width,)        multiplies the vision embeddings and every
                            residual branch's output; LayerNorm statistics
@@ -16,6 +16,8 @@ takes TinyCLIP's gate set:
 Head counts and MLP widths are per layer, so a pruned (ragged) model is an
 ordinary instance: a block with 0 heads or MLP width 0 skips that sublayer
 and owns no parameters for it. `head_dim` stays 64 when the width is pruned.
+`prune_clip` materializes a gated model as such a ragged one (host-side),
+and `remat=True` recomputes each block in the backward.
 
 Rounding points are the JAX package's: parameters are fp32 and cast to the
 compute dtype per call; LayerNorm statistics are fp32; q is scaled by
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cream_tpu_torch.models.registry import register_model
 from cream_tpu_torch.nn.act import gelu
@@ -170,16 +173,16 @@ def _layer_gates(masks: Optional[dict], i: int) -> dict:
 
 
 class CLIPTransformer(nn.Module):
-    """`resblocks`, with per-layer head counts and MLP widths."""
+    """`resblocks`, with per-layer head counts and MLP widths. With `remat`
+    each block's activations are recomputed in the backward instead of
+    kept (`torch.utils.checkpoint`, non-reentrant, one block at a time), as
+    the JAX package's `nn.remat` does: the same values, less memory."""
 
     def __init__(self, width: int, layers: int, heads: Sequence[int],
                  mlp_widths: Sequence[int], act: str = "gelu", remat: bool = False, *,
                  dtype: torch.dtype, device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "CLIPTransformer(remat=True) is a training memory option; the port "
-                "evaluates only")
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads[i], mlp_widths[i], act,
                                    dtype=dtype, device=device)
@@ -187,7 +190,11 @@ class CLIPTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask=None, masks: Optional[dict] = None):
         for i, block in enumerate(self.resblocks):
-            x = block(x, attn_mask, **_layer_gates(masks, i))
+            gates = _layer_gates(masks, i)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, attn_mask, use_reentrant=False, **gates)
+            else:
+                x = block(x, attn_mask, **gates)
         return x
 
 
@@ -314,7 +321,11 @@ class CLIP(TextTower):
                          text_heads_per_layer or [c.text_heads] * c.text_layers,
                          text_mlp_widths, c.embed_dim, act, remat, dtype=dtype,
                          device=device)
-        self.cfg, self.img_size = cfg, c.image_size
+        self.cfg, self.img_size, self.quick_gelu = cfg, c.image_size, quick_gelu
+        # the per-layer geometry as given (None: uniform), which the L0
+        # gates of a ragged model follow
+        self.vision_heads, self.vision_mlp_widths = vision_heads, vision_mlp_widths
+        self.text_heads_per_layer, self.text_mlp_widths = text_heads_per_layer, text_mlp_widths
         self.visual = VisionTower(c.image_size, c.vision_patch, c.vision_width,
                                   c.vision_layers, vision_heads, vision_mlp_widths,
                                   c.embed_dim, act, remat, dtype=dtype, device=device)
@@ -347,6 +358,138 @@ class CLIPClassifier(nn.Module):
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         return linear(self.head, self.visual(image), self.dtype)
+
+
+def _np_gate(g) -> Optional[np.ndarray]:
+    if g is None:
+        return None
+    if isinstance(g, torch.Tensor):
+        g = g.detach().cpu()
+    return np.asarray(g, np.float32)
+
+
+def _prune_tower(sd: dict, masks: dict, head_dim: int, text: bool) -> dict:
+    """One tower's pruned state_dict entries (the reference's per-module
+    .prune(): model.py:70-100 LayerNorm, :139-167 Mlp, :169-207
+    MultiheadAttention). The arithmetic is the JAX package's `_prune_tower`
+    in the same order on the transposed layouts, so the values are its
+    bits: gates multiply fp32 numpy arrays, a branch gate as a Python
+    float."""
+    hz = _np_gate(masks.get("hidden_z"))
+    pre = "" if text else "visual."
+    W = sd["ln_final.weight" if text else "visual.ln_pre.weight"].shape[0]
+    keep = np.where(hz != 0)[0] if hz is not None else np.arange(W)
+    new_w = len(keep)
+    out = {}
+
+    def ln(p):
+        for n in ("weight", "bias"):
+            out[f"{p}.{n}"] = sd[f"{p}.{n}"][keep]
+
+    if text:
+        emb, pos = sd["token_embedding.weight"], sd["positional_embedding"]
+        if hz is not None:
+            emb, pos = emb * hz[None, :], pos * hz[None, :]
+        out["token_embedding.weight"] = emb[:, keep]
+        out["positional_embedding"] = pos[:, keep]
+        ln("ln_final")
+        out["text_projection"] = sd["text_projection"][keep]
+    else:
+        conv = sd["visual.conv1.weight"]                        # (W, 3, p, p)
+        cls, pos = sd["visual.class_embedding"], sd["visual.positional_embedding"]
+        if hz is not None:
+            conv = conv * hz[:, None, None, None]
+            cls, pos = cls * hz, pos * hz[None, :]
+        out["visual.conv1.weight"] = conv[keep]
+        out["visual.class_embedding"] = cls[keep]
+        out["visual.positional_embedding"] = pos[:, keep]
+        ln("visual.ln_pre")
+        ln("visual.ln_post")
+        out["visual.proj"] = sd["visual.proj"][keep]
+
+    blocks = f"{pre}transformer.resblocks."
+    present = sorted({int(k[len(blocks):].split(".")[0]) for k in sd if k.startswith(blocks)})
+    for i in present:
+        p = f"{blocks}{i}"
+        heads_z = _np_gate(masks["heads_z"][i]) if masks.get("heads_z") is not None else None
+        mha_z = float(masks["mha_z"][i]) if masks.get("mha_z") is not None else 1.0
+        inter_z = _np_gate(masks["intermediate_z"][i]) \
+            if masks.get("intermediate_z") is not None else None
+        ffn_z = float(masks["ffn_z"][i]) if masks.get("ffn_z") is not None else 1.0
+        # a branch a previous prune removed stays removed
+        has_attn = f"{p}.attn.in_proj_weight" in sd
+        has_ffn = f"{p}.mlp.c_fc.weight" in sd
+        H = sd[f"{p}.attn.in_proj_weight"].shape[0] // (3 * head_dim) if has_attn else 0
+        head_r = np.where(heads_z != 0)[0] if heads_z is not None else np.arange(H)
+        I = sd[f"{p}.mlp.c_fc.weight"].shape[0] if has_ffn else 0
+        inter_r = np.where(inter_z != 0)[0] if inter_z is not None else np.arange(I)
+        # a branch whose gate is 0, or whose heads or channels are all off,
+        # goes with its LayerNorm: the block skips it
+        if has_attn and mha_z != 0.0 and len(head_r):
+            qkv = sd[f"{p}.attn.in_proj_weight"].reshape(3, H, head_dim, W)
+            out[f"{p}.attn.in_proj_weight"] = qkv[:, head_r][..., keep].reshape(-1, new_w)
+            out[f"{p}.attn.in_proj_bias"] = sd[f"{p}.attn.in_proj_bias"].reshape(
+                3, H, head_dim)[:, head_r].reshape(-1)
+            o = sd[f"{p}.attn.out_proj.weight"]                 # (W, H * hd)
+            o = o * (1.0 if hz is None else hz[:, None]) * mha_z
+            if heads_z is not None:
+                o = o.reshape(W, H, head_dim) * heads_z[None, :, None]
+            o = o.reshape(W, H, head_dim)[keep][:, head_r]
+            ob = sd[f"{p}.attn.out_proj.bias"]
+            ob = (ob * (1.0 if hz is None else hz)) * mha_z
+            ln(f"{p}.ln_1")
+            out[f"{p}.attn.out_proj.weight"] = o.reshape(new_w, -1)
+            out[f"{p}.attn.out_proj.bias"] = ob[keep]
+        if has_ffn and ffn_z != 0.0 and len(inter_r):
+            out[f"{p}.mlp.c_fc.weight"] = sd[f"{p}.mlp.c_fc.weight"][inter_r][:, keep]
+            out[f"{p}.mlp.c_fc.bias"] = sd[f"{p}.mlp.c_fc.bias"][inter_r]
+            c = sd[f"{p}.mlp.c_proj.weight"]                    # (W, I)
+            c = c * (1.0 if inter_z is None else inter_z[None, :]) \
+                * (1.0 if hz is None else hz[:, None]) * ffn_z
+            cb = sd[f"{p}.mlp.c_proj.bias"]
+            cb = (cb * (1.0 if hz is None else hz)) * ffn_z
+            ln(f"{p}.ln_2")
+            out[f"{p}.mlp.c_proj.weight"] = c[keep][:, inter_r]
+            out[f"{p}.mlp.c_proj.bias"] = cb[keep]
+    return out
+
+
+def prune_clip_state_dict(state_dict, vision_masks: dict | None, text_masks: dict | None,
+                          head_dim: int = 64) -> dict[str, torch.Tensor]:
+    """A CLIP state_dict (open_clip names, full or ragged) with its gates
+    materialized: gated-off hidden channels, heads and MLP channels
+    removed; a branch whose gate is 0, or whose heads or channels are all
+    off, removed with its LayerNorm; the soft gate values folded into the
+    weights (hidden_z into conv1, the class and positional embeddings, the
+    token embedding, out_proj and c_proj; heads_z into out_proj's columns;
+    intermediate_z into c_proj's; mha_z / ffn_z into the branch outputs).
+    A tower without masks is kept as it is. Returns fp32 CPU tensors."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in state_dict.items()}
+    out = {k: v for k, v in sd.items() if k == "logit_scale"}
+    for masks, text in ((vision_masks, False), (text_masks, True)):
+        mine = {k: v for k, v in sd.items()
+                if k != "logit_scale" and k.startswith("visual.") != text}
+        out.update(_prune_tower(sd, masks, head_dim, text) if masks else mine)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def prune_clip(state_dict, cfg: CLIPConfig, vision_masks: dict | None,
+               text_masks: dict | None, quick_gelu: bool = False, *,
+               dtype: torch.dtype = torch.float32, device="cpu", head_dim: int = 64):
+    """An L0-pruned CLIP materialized (host-side, as the JAX package's
+    `prune_clip`): (the ragged model on `device` with the pruned weights
+    loaded, its state_dict). `cfg` gives the family's depths and input
+    sizes; the widths, heads and MLP widths come off the pruned shapes."""
+    from cream_tpu_torch.zoo.load import clip_geometry
+    sd = prune_clip_state_dict(state_dict, vision_masks, text_masks, head_dim)
+    g = clip_geometry(sd, cfg.vision_layers, cfg.text_layers, head_dim)
+    new_cfg = dataclasses.replace(cfg, embed_dim=g.pop("embed_dim"),
+                                  vision_width=g.pop("vision_width"),
+                                  text_width=g.pop("text_width"))
+    model = CLIP(new_cfg, quick_gelu, **g, dtype=dtype, device=device)
+    model.load_state_dict(sd)
+    return model, sd
 
 
 def _with_img_size(cfg: CLIPConfig, img_size: int | None) -> CLIPConfig:

@@ -279,8 +279,8 @@ def test_pruned_checkpoint_loader_matches_convert_clip_pruned(tmp_path):
 
 
 def test_hard_prune_of_the_smoke_matches_prune_clip():
-    """chip_smoke's 0/1-gate pruning (the card's ragged check) gives the
-    state_dict JAX's prune_clip gives."""
+    """chip_smoke's 0/1-gate pruning (the card's ragged check, the port's
+    `prune_clip`) gives the state_dict JAX's prune_clip gives."""
     pm, pv, _, fv, vm, tm = _jax_pruned()
     want = clip_state_dict_from_jax(pv)
     got = chip_smoke.clip_hard_prune(clip_state_dict_from_jax(fv), vm, tm)
@@ -320,9 +320,25 @@ def test_load_for_model_takes_historical_layouts_and_refuses_a_pruned_one(tmp_pa
         load_for_model(model, pruned)
 
 
-def test_remat_is_refused():
-    with pytest.raises(NotImplementedError):
-        CLIPTransformer(64, 1, (1,), (64,), remat=True, dtype=torch.float32)
+def test_remat_gives_the_same_features_and_grads():
+    """remat=True (each block recomputed in the backward) against
+    remat=False on the same weights and gates: bit-identical features and
+    grads of every parameter and gate."""
+    images, text = (torch.from_numpy(x) for x in pair_inputs())
+    rng = np.random.default_rng(5)
+    vm, tm = (gate_set(rng, 128, 2, 2, 512) for _ in range(2))
+    out = []
+    for remat in (False, True):
+        model = narrow_clip(remat=remat)
+        assert all(m.remat == remat for m in model.modules() if isinstance(m, CLIPTransformer))
+        gates = [{k: torch.from_numpy(v).requires_grad_() for k, v in g.items()}
+                 for g in (vm, tm)]
+        img, txt, scale = model(images, text, *gates)
+        loss = (img * txt).sum() * scale
+        leaves = [*model.parameters(), *gates[0].values(), *gates[1].values()]
+        out.append([img, txt, *torch.autograd.grad(loss, leaves)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 # ---- the classifier teacher and the ResNet towers ----

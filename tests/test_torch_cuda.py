@@ -37,7 +37,10 @@ through K2), with S3-Tiny, Swin-T, Mini-Swin-T and Swin-B launching 12, 12,
 sparse logits store's native codec (it needs only g++, so it also runs
 without a card); and TinyCLIP's serving path, which runs no kernel: the
 narrow ViT and RN CLIPs (gated and ragged too) in fp32 on the card against
-the CPU, bf16 against fp32, and the pair timing.
+the CPU, bf16 against fp32, and the pair timing; TinyCLIP's training path,
+which runs none either: the narrow L0 distillation step in fp32 on the card
+against the CPU (the same uniforms), its prune on the card, and the train
+timing with and without remat.
 """
 import numpy as np
 import pytest
@@ -1208,3 +1211,69 @@ def test_pair_timing_runs_on_the_card_and_refuses_a_cpu_model(card):
     with pytest.raises(RuntimeError, match="CUDA"):
         pair_throughput(cpu, 2)
     assert pair_throughput(gpu, 8, n_iters=2, warmup=1) > 0
+
+
+# ---- TinyCLIP's training path: plain PyTorch, the card against the CPU ----
+
+def _l0_trainer(device, dtype=torch.float32, remat=False):
+    from cream_tpu_torch.cli.tinyclip_pipeline import L0Distill
+    from cream_tpu_torch.models.clip import CLIP, CLIPConfig
+    model = CLIP(CLIPConfig(**_CLIP_NARROW), dtype=dtype, device=device, remat=remat)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    return L0Distill(model, lr=1e-3, l0_lr=0.1, target_sparsity=0.25, sparsity_warmup=2,
+                     l0_init_mean=2.0)
+
+
+def test_l0_distill_steps_on_the_card_match_the_cpu(card):
+    """Two fp32 L0 distillation steps on the same uniforms: the losses and
+    sparsities (1e-5), the multipliers (1e-5), the weights and gates within
+    Adam's 2 * lr a step; the fuse on the card gives the CPU's state_dict
+    shapes and its features (1e-5)."""
+    from cream_tpu_torch.distill.l0 import named_l0
+    from cream_tpu_torch.models.clip import prune_clip
+    cpu, gpu = _l0_trainer("cpu"), _l0_trainer(card)
+    images, text = _clip_inputs()
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        uniforms = {k: {m: torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, tuple(t.shape))
+                                            .astype(np.float32))
+                        for m, t in zip(("hidden_z", "heads_z", "intermediate_z"),
+                                        (p["hidden_loga"], p["heads_loga"],
+                                         p["intermediate_loga"]))}
+                    for k, p in cpu.l0.items()}
+        lc, sc = cpu.step(images, text, uniforms=uniforms)
+        lg, sg = gpu.step(images.to(card), text.to(card), uniforms={
+            k: {m: u.to(card) for m, u in v.items()} for k, v in uniforms.items()})
+        torch.testing.assert_close(lg.cpu(), lc, atol=0, rtol=1e-5)
+        for k in sc:
+            torch.testing.assert_close(sg[k].cpu(), sc[k], atol=1e-5, rtol=0)
+    for (k, a), b in zip(named_l0(cpu.l0["v"]).items(), named_l0(gpu.l0["v"]).values()):
+        tol = 1e-5 if k.startswith("lambda") else 2 * 0.1 * 2
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=tol, rtol=0)
+    for k, v in cpu.student.state_dict().items():
+        torch.testing.assert_close(gpu.student.state_dict()[k].cpu(), v, atol=2 * 1e-3 * 2,
+                                   rtol=0)
+    masks = {k: {m: None if z is None else (tuple(r.cpu() for r in z) if isinstance(z, tuple)
+                                            else z.cpu()) for m, z in g.items()}
+             for k, g in gpu.masks().items()}
+    sd = {k: v.cpu() for k, v in gpu.student.state_dict().items()}
+    pc, _ = prune_clip(sd, gpu.student.cfg, masks["v"], masks["t"])
+    pg, sdg = prune_clip(gpu.student.state_dict(), gpu.student.cfg, gpu.masks()["v"],
+                         gpu.masks()["t"], device=card)
+    assert {k: tuple(v.shape) for k, v in sdg.items()} == \
+        {k: tuple(v.shape) for k, v in pc.state_dict().items()}
+    for got, want in zip(_run_clip(pg, images, text), _run_clip(pc, images, text)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_tinyclip_train_timing_on_the_card_with_and_without_remat(card):
+    from cream_tpu_torch.cli.speed_test import tinyclip_train_throughput
+    from cream_tpu_torch.models.clip import CLIP, CLIPConfig
+    out = []
+    for remat in (False, True):
+        model = CLIP(CLIPConfig(**_CLIP_NARROW), dtype=torch.bfloat16, device=card,
+                     remat=remat)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        out.append(tinyclip_train_throughput(model, 8, n_iters=2, warmup=1))
+    assert all(r["pairs_per_s"] > 0 for r in out)
+    assert out[0]["first_loss"] == out[1]["first_loss"]
