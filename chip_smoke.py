@@ -108,6 +108,24 @@ non-zero):
      params before and after
  9l. cli.tinyclip_pipeline.main --synthetic on cuda: two L0 stages at the
      JAX package's smoke size, each shrinking both towers
+ 9m. DeiT iRPE goldens (no TPU kernel lies on the DeiT / Mini-DeiT path):
+     deit_small_patch16_224_ctx_product_50_shared_k,
+     deit_tiny_patch16_224_ctx_product_50_shared_qkv and
+     mini_deit_small_patch16_224 fp32 (B=2, TF32 off) on seeded weights
+     against the JAX package's logits stored in tests/data/torch_port/
+     (1e-3), and one fp32 B=2 DeiT-S iRPE-K train step against the JAX loss,
+     per-tensor grad norms and rpe_k table grads stored beside them
+ 9n. main path (DeiT / Mini-DeiT eval): DeiT-S iRPE-K and Mini-DeiT-S bf16
+     bs256 through cli.speed_test.throughput: img/s, peak memory, device
+     time by kind of op (cli.profile_step.profile); bf16 vs fp32 top-1 on
+     images whose fp32 top-2 margin is above 4 bf16 ulps
+ 9o. main path (DeiT / Mini-DeiT train): the same two at bf16 bs256, drop
+     path 0.1: the loss falls over 20 steps on one batch; train img/s
+     through cli.speed_test.train_throughput, peak memory, device time by
+     kind (the iRPE gather and its scatter-add backward named)
+ 9p. Mini-Swin-T bf16 bs128 with capture_distill: logits bit for bit those
+     without capture; the count and shapes of the qkv and hidden states.
+     No kernel launches in 9m-9p.
  10. K5 vs plain: the CGA attention-core kernel against `cga_attention_ref`,
      bf16 (tensor cores) and fp32 (CUDA cores), at EfficientViT-M5 bs512's
      and M0 bs1024's per-head shapes, bf16 the same bits on two launches;
@@ -2829,6 +2847,179 @@ def phase_clip_pipeline() -> list:
     return report
 
 
+# DeiT with iRPE and Mini-DeiT (no TPU kernel lies on their path: the
+# attention and the iRPE gather are plain tensor math), and Mini-Swin's
+# distillation capture
+DEIT_S_K = "deit_small_patch16_224_ctx_product_50_shared_k"
+MINI_DEIT_S = "mini_deit_small_patch16_224"
+DEIT_GOLDENS = (DEIT_S_K, "deit_tiny_patch16_224_ctx_product_50_shared_qkv", MINI_DEIT_S)
+DEIT_TRAIN_GOLDEN = DATA / "deit_small_rpe_k_train_seed0.npz"
+DEIT_BATCH = 256
+# the PERF.md metric stem of each main-path model
+DEIT_METRICS = {DEIT_S_K: "deit_small_rpe_k_224", MINI_DEIT_S: "mini_deit_small_224"}
+
+
+def no_tf32() -> None:
+    """fp32 products in fp32: the goldens and the fp32 references hold no
+    TF32 rounding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def kernel_counts() -> tuple:
+    """Every kernel wrapper's launch count (K1-K11)."""
+    return (wa.LAUNCHES, wa.BWD_LAUNCHES, bias_attention.LAUNCHES, cga.LAUNCHES,
+            cga_core.LAUNCHES, mbconv.LAUNCHES, tuple(dwconv.LAUNCHES.values()),
+            window_relayout.LAUNCHES, layout_pin.LAUNCHES)
+
+
+def phase_deit_goldens() -> None:
+    """The fp32 B=2 logits (TF32 off) of DeiT-S iRPE-K, DeiT-Ti iRPE-QKV and
+    Mini-DeiT-S on seeded weights against the JAX goldens (1e-3), and one
+    fp32 B=2 DeiT-S iRPE-K train step (drop path 0) against the JAX train
+    golden: loss and grad norm 1e-4, per-tensor grad norms 1e-3, the 12
+    rpe_k tables' grads within 1e-3 of their largest magnitude (the gather's
+    backward adds with atomics on the card)."""
+    no_tf32()
+    for name in DEIT_GOLDENS:
+        phase_golden(name, DATA / f"{name}_seed0.npz")
+    g = np.load(DEIT_TRAIN_GOLDEN)
+    rng = np.random.default_rng(int(g["input_seed"]))
+    x = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 2)]
+    m = create_model(DEIT_S_K, device="cuda")
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    loss, _, grads = loss_and_grads(m, {"image": torch.from_numpy(x).cuda(),
+                                        "label": torch.from_numpy(y).cuda()}, soft_target_ce)
+    check_step_golden("train golden DeiT-S iRPE-K", g, loss, grads)
+    tables = torch.stack([grads[f"blocks.{i}.attn.rpe_k.lookup_table_weight"]
+                          for i in range(12)]).cpu().numpy()
+    err = float(np.abs(tables - g["table_grads"]).max() / np.abs(g["table_grads"]).max())
+    print(f"train golden DeiT-S iRPE-K: the 12 rpe_k tables' grads (gather backward, a "
+          f"scatter-add) max err / max |grad| {err:.2e} (bound 1e-3)")
+    check(err <= 1e-3, f"rpe_k table grads err {err}")
+
+
+def phase_deit_eval(name: str, batch: int = DEIT_BATCH) -> dict:
+    """An iRPE eval main path at bf16 `batch`: img/s through
+    cli.speed_test.throughput (CUDA events, 20 forwards after 3), peak
+    memory of a predict, device time by kind of op (cli.profile_step.profile);
+    bf16 top-1 against an fp32 copy (TF32 off) on 512 low-frequency images,
+    counted on those whose fp32 top-2 margin is above 4 bf16 ulps (need >=
+    0.99 on >= 100)."""
+    from cream_tpu_torch.cli.profile_step import profile
+    no_tf32()
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(3)
+    model = create_model(name, device="cuda", dtype=dtype)
+    sd = seeded_state_dict(model, 0)
+    model.load_state_dict(sd)
+    ips = throughput(model, batch, 224, dtype, 20, 3)
+    images = [smooth_images(gen, batch) for _ in range(512 // batch)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = torch.cat([predict(model, x) for x in images])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x16 = images[0].to(dtype)
+
+    def fn():
+        with torch.inference_mode():
+            model(x16)
+
+    prof = profile(fn, steps=3, warmup=2, top=8)
+    ref = create_model(name, device="cuda")
+    ref.load_state_dict(sd)
+    want = torch.cat([predict(ref, x) for x in images])
+    del ref
+    agree, decided, agree_decided = top1_agreement(logits, want)
+    n_decided = round(decided * len(want))
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
+    print(f"main {name} bf16 B={batch} ({DEIT_METRICS[name]}_infer_throughput): {ips:.1f} img/s "
+          f"(CUDA events, 20 forwards after 3), peak memory {peak:.2f} GiB; profile: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a forward, idle share "
+          f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by kind: "
+          f"{kinds}; bf16 vs fp32 top-1 {agree:.4f} over {len(want)} images, {agree_decided:.4f} "
+          f"on the {n_decided} whose fp32 top-2 margin is above 4 bf16 ulps (need >= 0.99 on "
+          f">= 100) [{card_info()}]")
+    check(logits.shape == (len(want), 1000) and bool(torch.isfinite(logits).all()),
+          f"{name}: bf16 logits not finite")
+    check(n_decided >= 100 and agree_decided >= 0.99,
+          f"{name}: bf16 vs fp32 top-1 {agree_decided} on {n_decided} decided images")
+    return {"img_per_s": ips, "peak_gib": peak, **{k: prof[k] for k in (
+        "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms", "top_kernels_ms")}}
+
+
+def phase_deit_train(name: str, batch: int = DEIT_BATCH, steps: int = 20) -> dict:
+    """An iRPE train main path at bf16 `batch` (fp32 params), drop path 0.1
+    (DeiT's --drop-path): `steps` steps of train.make_train_step (AdamW 1e-3,
+    wd 0.05, clip 5) on one batch, the loss falls; train img/s through
+    cli.speed_test.train_throughput (the step of `bench.py:407-466`, CUDA
+    events over 10 steps after 3) with the peak memory over them; device
+    time by kind of op of that step (cli.profile_step.profile): the gather
+    and its scatter-add backward by name."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import train_step_fn
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(4)
+    model = create_model(name, device="cuda", dtype=dtype, drop_path_rate=0.1)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    x = smooth_images(gen, batch).to(dtype)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                         params=dict(model.named_parameters())))
+    step = make_train_step(loss_fn=soft_target_ce)
+    data = {"image": x, "label": F.one_hot(labels, 1000).float()}
+    losses = [float(step(state, data, 0)[1]["loss"]) for _ in range(steps)]
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ips = train_throughput(model, batch, 224, dtype, 10, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile(train_step_fn(model, batch, 224, dtype), steps=3, warmup=2, top=8)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:10])
+    print(f"train {name} bf16 B={batch}, drop path 0.1: loss over {steps} steps on one batch "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; ({DEIT_METRICS[name]}_train_throughput) "
+          f"{ips:.1f} img/s (CUDA events, 10 steps after 3), peak memory {peak:.2f} GiB; "
+          f"profile: wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a step, "
+          f"idle share {prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by "
+          f"kind: {kinds} [{card_info()}]")
+    check(all(np.isfinite(losses)), f"{name}: train loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{name}: train loss did not fall: {losses}")
+    return {"img_per_s": ips, "peak_gib": peak, "losses": losses, **{k: prof[k] for k in (
+        "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms", "top_kernels_ms")}}
+
+
+def phase_mini_swin_capture(batch: int = S3T_BATCH) -> dict:
+    """Mini-Swin-T bf16 `batch` forward with capture_distill (MiniViT's
+    distillation states): the logits bit for bit those without capture,
+    one qkv and one hidden state per executed layer; their count and
+    shapes."""
+    dtype = torch.bfloat16
+    model = create_model("mini_swin_tiny", device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    x = smooth_images(torch.Generator("cuda").manual_seed(5), batch).to(dtype)
+    plain = predict(model, x)
+    model.capture_distill = True
+    with torch.inference_mode():
+        logits, captures = model(x)
+    model.capture_distill = False
+    shapes: dict = {}
+    for key in ("qkv_states", "hidden"):
+        for t in captures[key]:
+            shapes[(key, tuple(t.shape))] = shapes.get((key, tuple(t.shape)), 0) + 1
+    same = torch.equal(logits.float(), plain)
+    print(f"Mini-Swin-T bf16 B={batch} with capture_distill: logits bit-identical to the "
+          f"forward without capture: {same}; {len(captures['qkv_states'])} qkv states, "
+          f"{len(captures['hidden'])} hidden states: "
+          + ", ".join(f"{k} {list(s)} x{n}" for (k, s), n in shapes.items()))
+    check(same, "capture_distill changed the logits")
+    check(len(captures["qkv_states"]) == len(captures["hidden"]) == 12,
+          "capture: one qkv and one hidden state per executed layer (12)")
+    check(all(bool(torch.isfinite(t).all()) for v in captures.values() for t in v),
+          "capture: non-finite states")
+    return {"count": len(captures["qkv_states"]), "shapes": shapes}
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -2891,6 +3082,12 @@ def main() -> None:
     clip_steps = phase_clip_train_steps()
     clip_stages = phase_clip_pipeline()
     check((wa.LAUNCHES, wa.BWD_LAUNCHES) == launches, "the CLIP phases launched K1/K2")
+    counts = kernel_counts()
+    phase_deit_goldens()
+    deit_eval = {name: phase_deit_eval(name) for name in DEIT_METRICS}
+    deit_train = {name: phase_deit_train(name) for name in DEIT_METRICS}
+    capture = phase_mini_swin_capture()
+    check(kernel_counts() == counts, "the DeiT, Mini-DeiT or capture phases launched a kernel")
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -3040,6 +3237,15 @@ def main() -> None:
           f"fuse {clip_steps['params'][0]} -> {clip_steps['params'][1]} params (err "
           f"{clip_steps['fuse_err']:.2e}); pipeline params "
           f"{[r['params'] for r in clip_stages if 'params' in r]} [{card}]")
+    print("DeiT iRPE / Mini-DeiT paths (plain PyTorch: no TPU kernel lies on them), bf16: "
+          + "; ".join(f"{DEIT_METRICS[n]}_infer_throughput {deit_eval[n]['img_per_s']:.1f} img/s "
+                      f"(bs{DEIT_BATCH}, device {deit_eval[n]['device_ms']:.2f} ms, idle "
+                      f"{deit_eval[n]['idle_share']:.3f}), {DEIT_METRICS[n]}_train_throughput "
+                      f"{deit_train[n]['img_per_s']:.1f} img/s (peak {deit_train[n]['peak_gib']:.2f} "
+                      f"GiB, device {deit_train[n]['device_ms']:.2f} ms a step, idle "
+                      f"{deit_train[n]['idle_share']:.3f})" for n in DEIT_METRICS)
+          + f"; Mini-Swin-T capture: {capture['count']} qkv + {capture['count']} hidden states "
+          f"[{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -11,6 +11,9 @@
     python -m cream_tpu_torch.cli.profile_step --models tinyclip_vit_39m_16_text_19m \
         --batch 256 [--train]                            # a CLIP pair forward
                                                          # (--train: the L0 distill step)
+    python -m cream_tpu_torch.cli.profile_step [--train] \
+        --models deit_small_patch16_224_ctx_product_50_shared_k \
+        mini_deit_small_patch16_224 drop_path_rate=0.1   # iRPE: gather / scatter-add
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -62,6 +65,10 @@ KINDS = [
     ("GELU", r"gelu"),
     ("softmax", r"softmax"),
     ("optimizer (foreach / multi-tensor)", r"foreach|multi_tensor"),
+    # torch.gather and its backward share one kernel template; the
+    # backward's scatter-add carries ReduceAdd (iRPE's bucket gather)
+    ("scatter-add (gather backward)", r"scatter.*reduceadd|scatter_add"),
+    ("gather", r"gather"),
     ("reductions", r"reduce"),
     ("copies and casts", r"copy|cat|index|gather|scatter|transpose|permute"),
     ("elementwise", r"elementwise|vectorized|unrolled"),

@@ -14,6 +14,9 @@
         clip_resnet50 --batch 256                        # CLIP: image-text pairs/s
     python -m cream_tpu_torch.cli.speed_test --train \
         --models tinyclip_vit_39m_16_text_19m [remat=true]  # TinyCLIP's L0 distill step
+    python -m cream_tpu_torch.cli.speed_test [--train] \
+        --models deit_small_patch16_224_ctx_product_50_shared_k \
+        mini_deit_small_patch16_224 drop_path_rate=0.1   # DeiT-S iRPE-K, Mini-DeiT-S
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on

@@ -8,7 +8,9 @@ Counterpart of `cream_tpu/models/swin.py`, eval and train:
     attention and MLP `share_num` times with alternating shift, per-repeat
     LayerNorms, per-repeat head transforms proj_l/proj_w around the softmax
     and a per-repeat 7x7 depthwise local conv
-    (MiniViT/Mini-Swin/models/swin_transformer_minivit.py:200-344).
+    (MiniViT/Mini-Swin/models/swin_transformer_minivit.py:200-344), each
+    behind MiniViT's switch; `capture_distill` also returns the qkv and
+    hidden states MiniViT's distillation reads.
 
 NHWC activations; input (B, img_size, img_size, 3). Each block's window is
 min(window, H, W) at its stage's map size, which follows from `img_size`.
@@ -113,20 +115,26 @@ class _Pyramid(nn.Module):
             self.layers.append(TinyViTLayer(make_blocks(s, (res, res)), down))
             res //= 2
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """Logits of NHWC images. In train mode with drop path on,
-        `generator` supplies its draws (required then)."""
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape[1:]) != (self.img_size, self.img_size, 3):
             raise ValueError(f"expected (B, {self.img_size}, {self.img_size}, 3)"
                              f" NHWC input, got {tuple(x.shape)}")
-        x = self.patch_embed(x)
-        for layer in self.layers:
-            x = layer(x, generator)
+        return self.patch_embed(x)
+
+    def pool_head(self, x: torch.Tensor) -> torch.Tensor:
         x = layer_norm(self.norm, x, self.dtype).mean(dim=(1, 2))
         if self.num_classes > 0:
             x = linear(self.head, x, self.dtype)
         return x
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits of NHWC images. In train mode with drop path on,
+        `generator` supplies its draws (required then)."""
+        x = self.embed(x)
+        for layer in self.layers:
+            x = layer(x, generator)
+        return self.pool_head(x)
 
 
 class SwinTransformer(_Pyramid):
@@ -159,31 +167,48 @@ class SwinTransformer(_Pyramid):
 
 
 class MiniSwinBlock(nn.Module):
-    """One physical block executed `share_num` times with shared attn/MLP;
-    each repeat has its own norm1/norm2, proj_l/proj_w head transforms and
-    local LN + 7x7 depthwise conv (`x = h + conv(h)` on the LN output h)."""
+    """One physical block executed `share_num` times with shared attn/MLP.
+    Each repeat has its own norm1/norm2 (`is_sep_layernorm`; else one
+    `norm1`/`norm2` for all), proj_l/proj_w head transforms
+    (`is_transform_heads`) and local LN + 7x7 depthwise conv
+    (`is_transform_ffn`: `x = h + conv(h)` on the LN output h)."""
 
     def __init__(self, dim: int, num_heads: int, window: int, share_num: int,
                  init_shift: bool, resolution: tuple[int, int],
                  mlp_ratio: float = 4.0, drop_path_rates: Sequence[float] = (0.0,),
-                 use_kernel: bool = True, *, dtype, device):
+                 use_kernel: bool = True, is_sep_layernorm: bool = True,
+                 is_transform_heads: bool = True, is_transform_ffn: bool = True, *,
+                 dtype, device):
         super().__init__()
         self.share_num, self.init_shift = share_num, init_shift
         self.drop_path_rates, self.dtype = tuple(drop_path_rates), dtype
+        self.is_sep_layernorm = is_sep_layernorm
+        self.is_transform_heads, self.is_transform_ffn = is_transform_heads, is_transform_ffn
         self.window = min(window, *resolution)
         kw = dict(device=device)
         self.attn = SwinWindowAttention(dim, self.window, num_heads,
                                         use_kernel=use_kernel, dtype=dtype, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype, **kw)
         reps = range(share_num)
-        self.norm1_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw) for _ in reps)
-        self.norm2_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw) for _ in reps)
-        self.proj_l = nn.ModuleList(nn.Linear(num_heads, num_heads, **kw) for _ in reps)
-        self.proj_w = nn.ModuleList(nn.Linear(num_heads, num_heads, **kw) for _ in reps)
-        self.local_norm_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw)
-                                             for _ in reps)
-        self.local_conv_list = nn.ModuleList(nn.Conv2d(dim, dim, 7, padding=3, groups=dim,
-                                                       **kw) for _ in reps)
+        if is_sep_layernorm:
+            self.norm1_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw) for _ in reps)
+            self.norm2_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw) for _ in reps)
+        else:
+            self.norm1 = nn.LayerNorm(dim, eps=1e-5, **kw)
+            self.norm2 = nn.LayerNorm(dim, eps=1e-5, **kw)
+        if is_transform_heads:
+            self.proj_l = nn.ModuleList(nn.Linear(num_heads, num_heads, **kw) for _ in reps)
+            self.proj_w = nn.ModuleList(nn.Linear(num_heads, num_heads, **kw) for _ in reps)
+        if is_transform_ffn:
+            self.local_norm_list = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5, **kw)
+                                                 for _ in reps)
+            self.local_conv_list = nn.ModuleList(nn.Conv2d(dim, dim, 7, padding=3,
+                                                           groups=dim, **kw) for _ in reps)
+
+    def _norm(self, which: int, r: int) -> nn.LayerNorm:
+        if self.is_sep_layernorm:
+            return (self.norm1_list if which == 1 else self.norm2_list)[r]
+        return self.norm1 if which == 1 else self.norm2
 
     def _head_transform(self, fc: nn.Linear):
         """fc as the JAX package's Dense(dtype) applies it: input and
@@ -196,22 +221,31 @@ class MiniSwinBlock(nn.Module):
                      conv.bias.to(self.dtype), padding=3, groups=conv.groups)
         return y.permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        _, H, W, _ = x.shape
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                captures: dict | None = None) -> torch.Tensor:
+        """With `captures` ({"qkv_states": [], "hidden": []}), each repeat
+        appends its attention's qkv (3, B·windows, heads, N, d) and its
+        output (B, H·W, C), as the JAX package sows them."""
+        B, H, W, C = x.shape
         eval_, dt = not self.training, self.dtype
         is_shift = self.init_shift
         for r in range(self.share_num):
             shift = self.window // 2 if (is_shift and self.window < min(H, W)) else 0
-            h = swin_attend(layer_norm(self.norm1_list[r], x, dt), self.attn,
-                            self.window, shift,
-                            proj_l=self._head_transform(self.proj_l[r]),
-                            proj_w=self._head_transform(self.proj_w[r]))
+            transforms = {}
+            if self.is_transform_heads:
+                transforms = dict(proj_l=self._head_transform(self.proj_l[r]),
+                                  proj_w=self._head_transform(self.proj_w[r]))
+            h = swin_attend(layer_norm(self._norm(1, r), x, dt), self.attn,
+                            self.window, shift, **transforms,
+                            capture=None if captures is None else captures["qkv_states"])
             x = x + drop_path(h, self.drop_path_rates[r], eval_, generator)
-            h = layer_norm(self.local_norm_list[r], x, dt)
-            x = h + self._local_conv(r, h)
-            h = self.mlp(layer_norm(self.norm2_list[r], x, dt))
+            if self.is_transform_ffn:
+                h = layer_norm(self.local_norm_list[r], x, dt)
+                x = h + self._local_conv(r, h)
+            h = self.mlp(layer_norm(self._norm(2, r), x, dt))
             x = x + drop_path(h, self.drop_path_rates[r], eval_, generator)
+            if captures is not None:
+                captures["hidden"].append(x.reshape(B, H * W, C))
             is_shift = not is_shift
         return x
 
@@ -219,18 +253,33 @@ class MiniSwinBlock(nn.Module):
 class MiniSwin(_Pyramid):
     """Swin with weight multiplexing: stage s's depths[s] executed layers
     share depths[s] // share physical blocks, share = min(share_num,
-    depths[s]) (BasicLayer grouping, swin_transformer_minivit.py:487-504)."""
+    depths[s]) (BasicLayer grouping, swin_transformer_minivit.py:487-504).
+
+    `is_sep_layernorm`, `is_transform_heads`, `is_transform_ffn`: MiniViT's
+    switches (every registered variant has all three on). With
+    `capture_distill` the forward returns (logits, captures): MiniViT's
+    distillation states in the JAX package's `intermediates` order, as
+    {"qkv_states": [...], "hidden": [...]}, one entry per executed layer in
+    call order (`MiniSwinBlock.forward`). Capture takes the attention's
+    plain route, as JAX's `sow_qkv` does; without it the forward is
+    unchanged."""
 
     def __init__(self, img_size: int = 224, num_classes: int = 1000,
                  embed_dims: Sequence[int] = (96, 192, 384, 768),
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, share_num: int = 2,
-                 drop_path_rate: float = 0.1, use_kernel: bool = True, *,
+                 drop_path_rate: float = 0.1, use_kernel: bool = True,
+                 is_sep_layernorm: bool = True, is_transform_heads: bool = True,
+                 is_transform_ffn: bool = True, capture_distill: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__(img_size, num_classes, embed_dims, dtype, device)
+        self.capture_distill = capture_distill
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        switches = dict(is_sep_layernorm=is_sep_layernorm,
+                        is_transform_heads=is_transform_heads,
+                        is_transform_ffn=is_transform_ffn)
 
         def blocks(s, res):
             share = min(share_num, depths[s])
@@ -238,9 +287,21 @@ class MiniSwin(_Pyramid):
             return [MiniSwinBlock(embed_dims[s], num_heads[s], window_size, share,
                                   (b * share) % 2 == 1, res, mlp_ratio,
                                   dpr[base + b * share: base + (b + 1) * share],
-                                  use_kernel, dtype=dtype, device=device)
+                                  use_kernel, **switches, dtype=dtype, device=device)
                     for b in range(depths[s] // share)]
         self._stages(embed_dims, depths, blocks, dtype, device)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        if not self.capture_distill:
+            return super().forward(x, generator)
+        captures = {"qkv_states": [], "hidden": []}
+        x = self.embed(x)
+        for layer in self.layers:
+            for block in layer.blocks:
+                x = block(x, generator, captures)
+            if layer.downsample is not None:
+                x = layer.downsample(x)
+        return self.pool_head(x), captures
 
 
 # ---- registry ----
@@ -276,10 +337,12 @@ _MINI_SWIN = {
 def _factory(name: str, cls, cfg: dict, default_dp: float):
     def factory(num_classes: int = 1000, drop_path_rate: float | None = None,
                 img_size: int = 224, use_kernel: bool = True, *, device,
-                dtype=torch.float32):
+                dtype=torch.float32, **options):
+        """`options`: the class's other keyword arguments (Mini-Swin's
+        switches and `capture_distill`)."""
         dp = default_dp if drop_path_rate is None else drop_path_rate
         return cls(img_size=img_size, num_classes=num_classes, drop_path_rate=dp,
-                   use_kernel=use_kernel, dtype=dtype, device=device, **cfg)
+                   use_kernel=use_kernel, dtype=dtype, device=device, **cfg, **options)
     factory.__name__ = name
     return factory
 

@@ -89,10 +89,11 @@ class SwinWindowAttention(nn.Module):
     `window_attention_ref`. Both scale the fp32 scores, not q.
 
     With MiniViT's head transforms `proj_l`/`proj_w` (callables on the
-    (..., heads) axis): the JAX package's plain route, which it takes for
-    them on every device — q scaled in the compute dtype, fp32 scores plus
-    the bias, `proj_l`, the mask, softmax, `proj_w`, P in the compute dtype,
-    P.V."""
+    (..., heads) axis), or with `capture` (a list that gets the qkv states,
+    as the JAX package's `sow_qkv`): the JAX package's plain route, which it
+    takes for them on every device — q scaled in the compute dtype, fp32
+    scores plus the bias, `proj_l`, the mask, softmax, `proj_w`, P in the
+    compute dtype, P.V."""
 
     def __init__(self, dim: int, window: int, num_heads: int,
                  head_dim: int | None = None, use_kernel: bool = True, *,
@@ -128,12 +129,12 @@ class SwinWindowAttention(nn.Module):
         return self.relative_position_bias_table[idx].view(N, N, -1).permute(2, 0, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                proj_l=None, proj_w=None) -> torch.Tensor:
+                proj_l=None, proj_w=None, capture: list | None = None) -> torch.Tensor:
         _, Hp, Wp, _ = x.shape
         if Hp % self.window or Wp % self.window:
             raise ValueError(f"map {Hp}x{Wp} is not a multiple of window {self.window}")
         x = x.to(self.dtype)
-        if proj_l is None and proj_w is None:
+        if proj_l is None and proj_w is None and capture is None:
             qkv = F.linear(x, self.qkv.weight.to(self.dtype))
             attention = (fused_window_attention if self.kernel_path(x)
                          else window_attention_ref)
@@ -141,18 +142,21 @@ class SwinWindowAttention(nn.Module):
                             heads=self.heads, kd=self.head_dim, dv=self.head_dim,
                             layout="qkv_major", qkv_bias=self.qkv.bias)
         else:
-            out = self.forward_transformed(x, mask, proj_l, proj_w)
+            out = self.forward_transformed(x, mask, proj_l, proj_w, capture)
         return linear(self.proj, out, self.dtype)
 
     def forward_transformed(self, x: torch.Tensor, mask: torch.Tensor | None,
-                            proj_l, proj_w) -> torch.Tensor:
+                            proj_l, proj_w, capture: list | None = None) -> torch.Tensor:
         """The plain route with head transforms (`cream_tpu/nn/swin.py:
-        125-158`). Returns (B, Hp, Wp, heads*head_dim)."""
+        125-158`); `capture` gets the qkv states (3, Bn, heads, N, d).
+        Returns (B, Hp, Wp, heads*head_dim)."""
         _, Hp, Wp, _ = x.shape
         h, d, N, dt = self.heads, self.head_dim, self.window ** 2, self.dtype
         w = window_partition(x, self.window)[0]                      # (Bn, N, C)
         # the bias added to the GEMM's rounded output, as flax's Dense does
         qkv = F.linear(w, self.qkv.weight.to(dt)) + self.qkv.bias.to(dt)
+        if capture is not None:
+            capture.append(qkv.view(w.shape[0], N, 3, h, d).permute(2, 0, 3, 1, 4))
         q, k, v = split_qkv(qkv, "qkv_major", h, d, d)
         q = q * d ** -0.5                                            # in dt
         s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
@@ -170,7 +174,8 @@ class SwinWindowAttention(nn.Module):
 
 
 def swin_attend(x: torch.Tensor, attn: SwinWindowAttention, window: int,
-                shift: int, proj_l=None, proj_w=None) -> torch.Tensor:
+                shift: int, proj_l=None, proj_w=None,
+                capture: list | None = None) -> torch.Tensor:
     """Roll, window-attend, unroll: one (shifted) window attention pass over
     a (B, H, W, C) map.
 
@@ -191,7 +196,7 @@ def swin_attend(x: torch.Tensor, attn: SwinWindowAttention, window: int,
     if shift > 0:
         x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
         mask = shifted_window_mask_tensor(Hp, Wp, window, shift, x.device)
-    x = attn(x, mask, proj_l, proj_w)
+    x = attn(x, mask, proj_l, proj_w, capture)
     if shift > 0:
         x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
     if (Hp, Wp) != (H, W):

@@ -40,6 +40,12 @@ def loss_and_grads(model: torch.nn.Module, batch, loss_fn: Callable,
     param name). BatchNorm's running stats update as a side effect."""
     model.train()
     logits = model(batch["image"], generator)
+    if isinstance(logits, tuple):
+        raise TypeError(
+            f"{type(model).__name__} returned a tuple in train mode (a distilled DeiT's "
+            "(head, head_dist) pair, or Mini-Swin's distillation captures): this step "
+            "takes logits; DeiT's hard or soft distillation needs a teacher "
+            "(train.losses.deit_distillation_loss), which no train step wires yet")
     loss = loss_fn(logits, batch["label"])
     params = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(params.values()))

@@ -2,15 +2,18 @@
 and seeded random weights.
 
 The port's parameter names are the released microsoft/Cream TinyViT,
-EfficientViT, Swin/S3 and Mini-Swin names and open_clip's CLIP names, so a
+EfficientViT, Swin/S3, Mini-Swin, DeiT(+iRPE) and Mini-DeiT names and
+open_clip's CLIP names, so a
 released checkpoint loads with `model.load_state_dict` once `load_pth` (or,
 for a model of its own geometry, `load_for_model`) has read it, and the JAX
 package's `cream_tpu.zoo.import_torch.convert_tinyvit` /
 `convert_efficientvit` / `convert_swin` / `convert_mini_swin` /
-`convert_clip` / `convert_clip_classifier` / `convert_clip_rn` map a port
-state_dict to its variables. `state_dict_from_jax`,
-`efficientvit_state_dict_from_jax`, `swin_state_dict_from_jax`,
-`mini_swin_state_dict_from_jax`, `clip_state_dict_from_jax`,
+`convert_clip` / `convert_clip_classifier` / `convert_clip_rn` /
+`convert_deit_rpe` / `convert_mini_deit` map a port state_dict to its
+variables. `state_dict_from_jax`, `efficientvit_state_dict_from_jax`,
+`swin_state_dict_from_jax`, `mini_swin_state_dict_from_jax`,
+`deit_rpe_state_dict_from_jax`, `mini_deit_state_dict_from_jax`,
+`clip_state_dict_from_jax`,
 `clip_classifier_state_dict_from_jax` and `clip_resnet_state_dict_from_jax`
 are their exact inverses; `bias_attention_state_dict_from_jax` carries a
 JAX `BiasAttention`'s variables to the port's module.
@@ -479,8 +482,9 @@ def mini_swin_state_dict_from_jax(variables: Mapping, with_head: bool = True
     """The JAX package's MiniSwin variables -> the port's state_dict
     (released Mini-Swin names: shared `attn`/`mlp` per physical block,
     per-repeat `norm1_list.{r}`, `norm2_list.{r}`, `proj_l.{r}`,
-    `proj_w.{r}`, `local_norm_list.{r}`, `local_conv_list.{r}`). Inverse of
-    `convert_mini_swin`."""
+    `proj_w.{r}`, `local_norm_list.{r}`, `local_conv_list.{r}`; with
+    `is_sep_layernorm` off one `norm1`/`norm2`, and without the head or FFN
+    transforms none of theirs). Inverse of `convert_mini_swin`."""
     w = _Writer(variables)
     _swin_stem_and_head(w, with_head)
     for s, n in sorted(_swin_blocks(w.params).items()):
@@ -488,15 +492,96 @@ def mini_swin_state_dict_from_jax(variables: Mapping, with_head: bool = True
             fp, tp = f"layers_{s}_block_{i}", f"layers.{s}.blocks.{i}"
             _swin_attn_mlp(w, fp, tp)
             block = w._get(w.params, fp)
-            for r in range(sum(k.startswith("norm1_list_") for k in block)):
-                w.ln(f"{fp}/norm1_list_{r}", f"{tp}.norm1_list.{r}")
-                w.ln(f"{fp}/norm2_list_{r}", f"{tp}.norm2_list.{r}")
-                w.dense(f"{fp}/proj_l_{r}", f"{tp}.proj_l.{r}")
-                w.dense(f"{fp}/proj_w_{r}", f"{tp}.proj_w.{r}")
+            if "norm1" in block:
+                w.ln(f"{fp}/norm1", f"{tp}.norm1")
+                w.ln(f"{fp}/norm2", f"{tp}.norm2")
+            per_repeat = [int(k.rsplit("_", 1)[1]) for k in block
+                          if k.startswith(("norm1_list_", "proj_l_", "local_norm_list_"))]
+            for r in range(max(per_repeat, default=-1) + 1):
+                if f"norm1_list_{r}" in block:
+                    w.ln(f"{fp}/norm1_list_{r}", f"{tp}.norm1_list.{r}")
+                    w.ln(f"{fp}/norm2_list_{r}", f"{tp}.norm2_list.{r}")
+                if f"proj_l_{r}" in block:
+                    w.dense(f"{fp}/proj_l_{r}", f"{tp}.proj_l.{r}")
+                    w.dense(f"{fp}/proj_w_{r}", f"{tp}.proj_w.{r}")
                 if f"local_norm_list_{r}" in block:
                     w.ln(f"{fp}/local_norm_list_{r}", f"{tp}.local_norm_list.{r}")
                     w.conv_biased(f"{fp}/local_conv_list_{r}", f"{tp}.local_conv_list.{r}")
         _swin_downsample(w, s)
+    return w.state_dict()
+
+
+def _irpe_from_jax(w: _Writer, fp: str, tp: str) -> None:
+    """An IRPE's tables, and a cross method's `rp_rows` / `rp_cols`."""
+    for key in w._get(w.params, fp):
+        if key in ("rp_rows", "rp_cols"):
+            _irpe_from_jax(w, f"{fp}/{key}", f"{tp}.{key}")
+        else:
+            w.raw(f"{fp}/{key}", f"{tp}.{key}")
+
+
+def _n_blocks(params: Mapping) -> int:
+    return sum(k.startswith("blocks_") for k in params)
+
+
+def deit_rpe_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                                 ) -> dict[str, torch.Tensor]:
+    """The JAX package's RPEVisionTransformer variables -> the port's
+    state_dict (the reference's DeiT(+iRPE) names: `blocks.{i}.attn.rpe_{q,k,v}.
+    lookup_table_{weight,bias}`, `....rp_rows` / `rp_cols` for the cross
+    method, `dist_token` and `head_dist` when distilled). Inverse of
+    `convert_deit_rpe`."""
+    w = _Writer(variables)
+    for key in ("cls_token", "dist_token", "pos_embed"):
+        if key in w.params:
+            w.raw(key, key)
+    w.conv_biased("patch_embed", "patch_embed.proj")
+    for i in range(_n_blocks(w.params)):
+        fp, tp = f"blocks_{i}", f"blocks.{i}"
+        w.ln(f"{fp}/norm1", f"{tp}.norm1")
+        w.ln(f"{fp}/norm2", f"{tp}.norm2")
+        w.dense(f"{fp}/attn/qkv", f"{tp}.attn.qkv")
+        w.dense(f"{fp}/attn/proj", f"{tp}.attn.proj")
+        for r in ("rpe_q", "rpe_k", "rpe_v"):
+            if r in w.params[fp]["attn"]:
+                _irpe_from_jax(w, f"{fp}/attn/{r}", f"{tp}.attn.{r}")
+        w.dense(f"{fp}/mlp_fc1", f"{tp}.mlp.fc1")
+        w.dense(f"{fp}/mlp_fc2", f"{tp}.mlp.fc2")
+    w.ln("norm", "norm")
+    for head in ("head", "head_dist"):
+        if with_head and head in w.params:
+            w.dense(head, head)
+    return w.state_dict()
+
+
+def mini_deit_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX package's MiniDeiT variables -> the port's state_dict (the
+    reference's Mini-DeiT names: shared `blocks.{i}.block.{attn.qkv,
+    attn.proj,mlp.fc1,mlp.fc2}`, per repeat `norm{1,2}.instances.{r}`,
+    `attn.rpe_k.instances.{r}.lookup_table_weight` and
+    `attn.conv_{l,w}.instances.{r}.weight` as (h, h, 1, 1) convs). Inverse
+    of `convert_mini_deit`."""
+    w = _Writer(variables)
+    w.raw("pos_embed", "pos_embed")
+    w.conv_biased("patch_embed", "patch_embed.proj")
+    for i in range(_n_blocks(w.params)):
+        fp, tp = f"blocks_{i}", f"blocks.{i}.block"
+        for src, dst in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                         ("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2")):
+            w.dense(f"{fp}/{src}", f"{tp}.{dst}")
+        block = w.params[fp]
+        for r in range(sum(k.startswith("norm1_") for k in block)):
+            w.ln(f"{fp}/norm1_{r}", f"{tp}.norm1.instances.{r}")
+            w.ln(f"{fp}/norm2_{r}", f"{tp}.norm2.instances.{r}")
+            _irpe_from_jax(w, f"{fp}/rpe_k_{r}", f"{tp}.attn.rpe_k.instances.{r}")
+            for conv in ("conv_l", "conv_w"):
+                if f"{conv}_{r}" in block:      # Dense (h_in, h_out) -> (h_out, h_in, 1, 1)
+                    kernel = np.asarray(block[f"{conv}_{r}"]["kernel"])
+                    w.sd[f"{tp}.attn.{conv}.instances.{r}.weight"] = kernel.T[:, :, None, None]
+    w.ln("norm", "norm")
+    if with_head and "head" in w.params:
+        w.dense("head", "head")
     return w.state_dict()
 
 
@@ -508,7 +593,9 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
     Conv/Linear weights ~ N(0, 1/fan_in); biases ~ N(0, 0.02²); BN and LN
     scales (including MBConv.conv3's, which init at 0) ~ U(0.5, 1.5);
     running means ~ N(0, 0.1²), running variances ~ U(0.5, 1.5);
-    attention_biases ~ N(0, 0.5²); CLIP's `logit_scale` is its initial
+    attention_biases ~ N(0, 0.5²); iRPE's `lookup_table_weight` /
+    `lookup_table_bias` (zero at init, which would hide a dropped or
+    misindexed term) ~ N(0, 0.05²); CLIP's `logit_scale` is its initial
     log(1/0.07), drawing nothing.
 
     A model whose residual stream has no normalisation (EfficientViT) names
@@ -534,6 +621,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int = 0
             a = rng.normal(0.0, 0.1, shape)
         elif name.endswith("attention_biases"):
             a = rng.normal(0.0, 0.5, shape)
+        elif name.endswith(("lookup_table_weight", "lookup_table_bias")):
+            a = rng.normal(0.0, 0.05, shape)
         elif name.endswith("bias"):
             a = rng.normal(0.0, 0.02, shape)
         elif t.ndim == 1:

@@ -40,7 +40,10 @@ narrow ViT and RN CLIPs (gated and ragged too) in fp32 on the card against
 the CPU, bf16 against fp32, and the pair timing; TinyCLIP's training path,
 which runs none either: the narrow L0 distillation step in fp32 on the card
 against the CPU (the same uniforms), its prune on the card, and the train
-timing with and without remat.
+timing with and without remat; DeiT with iRPE and Mini-DeiT, which run none
+either: `IRPE` at DeiT-S's shape and narrow models in fp32 on the card
+against the CPU (the gather's scatter-add sums with atomics on the card),
+and Mini-Swin's distillation capture.
 """
 import numpy as np
 import pytest
@@ -1277,3 +1280,104 @@ def test_tinyclip_train_timing_on_the_card_with_and_without_remat(card):
         out.append(tinyclip_train_throughput(model, 8, n_iters=2, warmup=1))
     assert all(r["pairs_per_s"] > 0 for r in out)
     assert out[0]["first_loss"] == out[1]["first_loss"]
+
+
+# ---- DeiT with iRPE and Mini-DeiT: plain PyTorch, the card against the CPU ----
+
+def _narrow_irpe_model(kind, device, dtype=torch.float32):
+    from cream_tpu_torch.models.deit_rpe import RPEVisionTransformer
+    from cream_tpu_torch.models.mini_deit import MiniDeiT
+    from cream_tpu_torch.ops.rpe import get_rpe_config
+    kw = dict(num_classes=10, img_size=32, patch_size=8, embed_dim=64, num_heads=2,
+              dtype=dtype, device=device)
+    if kind == "mini":
+        m = MiniDeiT(depth=4, **kw)
+    else:
+        m = RPEVisionTransformer(depth=2, distilled=kind == "distilled", rpe_config=get_rpe_config(
+            1.9, "product", "ctx", True, 1, "qkv"), **kw)
+    m.load_state_dict(seeded_state_dict(m, 5))
+    return m
+
+
+@pytest.mark.parametrize("transposed", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_irpe_at_deit_s_shape_on_the_card_matches_the_cpu(card, transposed, dtype):
+    """IRPE at DeiT-S's shape (6 heads of 64, 197 tokens, 50 buckets; B=8),
+    fp32 tables: the output within 1e-5 of the largest |out| in fp32 and 2
+    bf16 ulps in bf16; the input's and the table's grads within 1e-5 (fp32)
+    or 2% (bf16) of their largest magnitude: the gather's backward is a
+    scatter-add, whose atomics sum in another order on the card."""
+    from cream_tpu_torch.nn.rpe import IRPE
+    from cream_tpu_torch.ops.rpe import get_rpe_config
+    cfg = get_rpe_config(1.9, "product", "ctx", True, 1, "k").rpe_k
+    rng = np.random.default_rng(0)
+    shape = (8, 6, 197, 64) if transposed else (8, 6, 197, 197)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    table = torch.from_numpy(rng.normal(0, 0.05, (1, 64, 50) if transposed else (1, 50, 64))
+                             .astype(np.float32))
+    outs = []
+    for device in ("cpu", card):
+        m = IRPE(64, 6, cfg, 14, 14, transposed=transposed, dtype=dtype, device=device)
+        with torch.no_grad():
+            m.lookup_table_weight.copy_(table)
+        xi = x.to(device, copy=True).requires_grad_()
+        y = m(xi)
+        (y.float() * y.float()).sum().backward()
+        outs.append([t.float().cpu() for t in (y, xi.grad, m.lookup_table_weight.grad)])
+    for got, want in zip(outs[1], outs[0]):
+        top = want.abs().max().item()
+        lim = 1e-5 * top if dtype == torch.float32 else (
+            2 * 2.0 ** (np.floor(np.log2(top)) - 7) if got is outs[1][0] else 2e-2 * top)
+        assert (got - want).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("kind", ["qkv", "distilled", "mini"])
+def test_narrow_irpe_models_on_the_card_match_the_cpu(card, kind):
+    """fp32 eval logits within 1e-5 of the CPU's; for DeiT iRPE-QKV and
+    Mini-DeiT one train step's loss (1e-5) and grads (1e-4 of each tensor's
+    largest grad, the gather's scatter-add summing with atomics, plus 1e-6
+    of the largest grad of all: DeiT's last rpe_k table and k bias have
+    grads at float noise); a distilled model's train-mode pair is refused
+    by the plain step."""
+    from cream_tpu_torch.train.losses import soft_target_ce
+    from cream_tpu_torch.train.steps import loss_and_grads
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[rng.integers(0, 10, 4)])
+    runs = []
+    for device in ("cpu", card):
+        m = _narrow_irpe_model(kind, device).eval()
+        with torch.no_grad():
+            logits = m(x.to(device)).cpu()
+        if kind == "distilled":
+            with pytest.raises(TypeError, match="tuple in train mode"):
+                loss_and_grads(m, {"image": x.to(device), "label": y.to(device)}, soft_target_ce)
+            runs.append((logits, None, {}))
+            continue
+        loss, _, grads = loss_and_grads(m, {"image": x.to(device), "label": y.to(device)},
+                                        soft_target_ce)
+        runs.append((logits, loss.cpu(), {k: g.cpu() for k, g in grads.items()}))
+    (l_cpu, loss_cpu, g_cpu), (l_gpu, loss_gpu, g_gpu) = runs
+    torch.testing.assert_close(l_gpu, l_cpu, atol=1e-5, rtol=1e-5)
+    if kind != "distilled":
+        torch.testing.assert_close(loss_gpu, loss_cpu, atol=0, rtol=1e-5)
+        top = max(g.abs().max() for g in g_cpu.values())
+        for k, want in g_cpu.items():
+            assert (g_gpu[k] - want).abs().max() <= 1e-4 * want.abs().max() + 1e-6 * top, k
+
+
+def test_mini_swin_capture_on_the_card(card):
+    """Mini-Swin's distillation capture on the card: the logits bit for bit
+    those without it, one qkv and one hidden state per executed layer."""
+    from cream_tpu_torch.models.swin import MiniSwin
+    m = MiniSwin(img_size=64, embed_dims=(32, 64, 64, 128), depths=(2, 2, 2, 2),
+                 num_heads=(1, 2, 2, 4), num_classes=10, dtype=torch.bfloat16, device=card)
+    m.load_state_dict(seeded_state_dict(m, 5))
+    x = torch.randn(2, 64, 64, 3, device=card).bfloat16()
+    with torch.inference_mode():
+        plain = m.eval()(x)
+        m.capture_distill = True
+        logits, captures = m(x)
+    assert torch.equal(logits, plain)
+    assert len(captures["qkv_states"]) == len(captures["hidden"]) == 8
+    assert captures["hidden"][0].shape == (2, 256, 32)
