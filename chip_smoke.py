@@ -151,8 +151,9 @@ non-zero):
      CUDA-graph replay (the folds warmed first), 3 interleaved rounds
  14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
      versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites,
-     TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites and three
-     odd stride-2 maps; dx and dw the same bits on two launches; kernel,
+     TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites, three
+     odd stride-2 maps and Cream's 19 site shapes at bs128 (`models.cream.
+     dw3x3_sites`); dx and dw the same bits on two launches; kernel,
      plain, library (cuDNN) and bound times per model site by CUDA-graph
      replay, K9's backward (a tile kernel) on a line of its own per site
      with its plan, summed per M5 train step and per TinyViT-21M-224 train
@@ -202,6 +203,26 @@ non-zero):
      launches, logits bit-identical to library), both; top-1 agreement of
      the K6 route with library; img/s interleaved; the fp32 golden with
      both routes on
+ 9q. AutoFormer goldens: autoformer_supernet_tiny fp32 B=2 at the smallest,
+     largest and a sampled config against the JAX logits stored in
+     tests/data/torch_port/ (1e-3), extract_subnet against the supernet
+     (1e-5 of the largest |logit|), one fp32 supernet train step against the
+     JAX loss and per-tensor grad norms, every grad outside the config 0
+ 9r. AutoFormer-T supernet training bf16 bs128: cli.supernet_train.main
+     (one short epoch into build/), then 3 + 10 steps at sampled configs
+     (img/s median, min, max; the largest config's; peak memory), the loss
+     falls over 20 steps at the largest config, one model object throughout
+ 9s. evolution search (BASELINE.json configs[3]): cli.search_evolution.main
+     on 9r's checkpoint, 1,024 synthetic images at bf16 bs256, population 16,
+     2 epochs, window 5-6 M: candidates/s, eval img/s; the best config's
+     AutoFormerSubnet img/s and its top-1 against the supernet
+ 9t. Cream childnets: cream_604 (224) and cream_14 (64) fp32 goldens,
+     cream_604 bf16 bs256 img/s, cream_481 on "fused" (K7/K9 at its k3 sites)
+     against "library"; no depthwise site refused
+ 9u. Cream search: cli.search_cream.main at 224, then the supernet train
+     step bf16 bs128 on "library" and "fused" over one seeded path sequence
+     (K7/K9 launches per step, loss and grad norm between routes, img/s,
+     peak memory, the meta step's ms); no depthwise site refused
  24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
@@ -236,10 +257,11 @@ from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
                                             train_throughput)
 from cream_tpu_torch.models import create_model  # noqa: E402
 from cream_tpu_torch.models.clip import prune_clip, prune_clip_state_dict  # noqa: E402
+from cream_tpu_torch.models.cream import dw3x3_path_sites, dw3x3_sites  # noqa: E402
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
 from cream_tpu_torch.nn.attention import BiasAttention, WindowBiasAttention  # noqa: E402
 from cream_tpu_torch.nn.swin import SwinWindowAttention  # noqa: E402
-from cream_tpu_torch.nn.layers import (ConvBN, MBConv, set_dw_kernel,  # noqa: E402
+from cream_tpu_torch.nn.layers import (DW_REFUSED, ConvBN, MBConv, set_dw_kernel,  # noqa: E402
                                        set_mbconv_kernel)
 from cream_tpu_torch.ops import (bias_attention, build, cga, cga_core, dwconv,  # noqa: E402
                                  layout_pin, mbconv, window_relayout)
@@ -1630,12 +1652,13 @@ def dw_library(x, w9, dy, stride):
 
 def phase_dw(gen) -> tuple[dict, dict]:
     """K7/K8/K9 against their plain versions at the M5 and TinyViT-21M
-    depthwise shapes and at odd stride-2 maps, bf16 and fp32; dw bits on two
-    launches; bf16 times at the model sites. Returns the worst bf16 errors
-    by kernel and the times by shape."""
+    depthwise shapes, at odd stride-2 maps and at Cream's 19 site shapes
+    (bs128), bf16 and fp32; dw bits on two launches; bf16 times at the M5
+    and TinyViT sites. Returns the worst bf16 errors by kernel and the times
+    by shape."""
     worst = dict.fromkeys(dwconv.LAUNCHES, 0.0)
     times = {}
-    for name, B, H, W, C, stride, per in DW_M5 + DW_TINYVIT + DW_S2_ODD:
+    for name, B, H, W, C, stride, per in DW_M5 + DW_TINYVIT + DW_S2_ODD + DW_CREAM:
         fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
         for dtype in (torch.bfloat16, torch.float32):
             x, w9, dy = dw_inputs(gen, B, H, W, C, stride, dtype)
@@ -3020,6 +3043,421 @@ def phase_mini_swin_capture(batch: int = S3T_BATCH) -> dict:
     return {"count": len(captures["qkv_states"]), "shapes": shapes}
 
 
+# One-shot NAS: AutoFormer's supernet, its training and
+# evolution search (no TPU kernel: JAX's attention is plain jnp), and
+# Cream's supernet and childnets, whose depthwise 3x3 sites reach K7/K9 on
+# "fused"
+AF = "autoformer_supernet_tiny"
+AF_GOLDEN = DATA / "autoformer_supernet_tiny_seed0.npz"
+AF_TRAIN_GOLDEN = DATA / "autoformer_supernet_tiny_train_seed0.npz"
+AF_BATCH, EVO_BATCH, CREAM_BATCH = 128, 256, 128
+# Cream's 19 depthwise 3x3 site shapes at the supernet step's batch, held
+# to the plain versions in `phase_dw` (checked, not timed)
+DW_CREAM = [(f"cream_{i}", *shape, stride, 0)
+            for i, (stride, shape) in enumerate(dw3x3_sites(batch=CREAM_BATCH))]
+
+
+def af_inactive_grads_zero(config: dict, grads: dict) -> bool:
+    """Whether every grad outside `config`'s slices of the super weights is
+    exactly 0 (the embed columns past its width, the qkv / fc rows past its
+    heads and MLP widths, the blocks past its depth)."""
+    from cream_tpu_torch.models.autoformer import HEAD_DIM, ffn_dims
+    emb, depth = config["embed_dim"][0], config["layer_num"]
+    zero = [grads["cls_token"][..., emb:], grads["pos_embed"][..., emb:],
+            grads["patch_embed_super.proj.weight"][emb:], grads["head.weight"][:, emb:],
+            grads["norm.weight"][emb:]]
+    for i, (heads, ffn) in enumerate(zip(config["num_heads"], ffn_dims(config))):
+        p, qd = f"blocks.{i}", heads * HEAD_DIM
+        zero += [grads[f"{p}.attn.qkv.weight"][3 * qd:], grads[f"{p}.attn.qkv.weight"][:, emb:],
+                 grads[f"{p}.attn.proj.weight"][emb:], grads[f"{p}.attn.proj.weight"][:, qd:],
+                 grads[f"{p}.fc1.weight"][ffn:], grads[f"{p}.fc2.weight"][:, ffn:]]
+    zero += [g for k, g in grads.items() if k.startswith("blocks.")
+             and int(k.split(".")[1]) >= depth]
+    return all(not bool(t.any()) for t in zero)
+
+
+def phase_autoformer_goldens() -> None:
+    """9q. autoformer_supernet_tiny fp32 B=2 (TF32 off) at the smallest,
+    largest and a sampled config against the JAX package's logits (1e-3);
+    `extract_subnet`'s logits against the supernet's at each (1e-5 of the
+    largest |logit|); one fp32 B=2 supernet train step (drop path 0) at a
+    sampled config against the JAX loss and per-tensor grad norms
+    (`check_step_golden`: 1e-4, 1e-3), every grad outside the config's
+    slices exactly 0."""
+    from cream_tpu_torch.models.autoformer import extract_subnet, fixed_config
+    no_tf32()
+    g = np.load(AF_GOLDEN)
+    x = torch.from_numpy(np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)).cuda()
+    m = create_model(AF, device="cuda")
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    for spec in ("smallest", "largest", "seed:1"):
+        config = fixed_config(m.space, spec)
+        check(json.loads(str(g[f"config_{spec}"])) == config, f"golden config {spec}")
+        with torch.no_grad():
+            logits = m(x, config=config)
+            sub = extract_subnet(m, config)(x)
+        err = float(np.abs(logits.cpu().numpy() - g[f"logits_{spec}"]).max())
+        sub_err = float((sub - logits).abs().max() / logits.abs().max())
+        print(f"golden {AF} fp32 B=2 at {spec} (depth {config['layer_num']}, embed "
+              f"{config['embed_dim'][0]}) vs JAX logits: max_abs_err={err:.3e} bound=1e-3; "
+              f"extract_subnet vs the supernet: {sub_err:.2e} of the largest |logit| "
+              f"(bound 1e-5) [{card_info()}]")
+        check(bool(torch.isfinite(logits).all()) and err <= 1e-3, f"{AF} golden {spec}: {err}")
+        check(sub_err <= 1e-5, f"{AF} subnet at {spec}: {sub_err}")
+    g = np.load(AF_TRAIN_GOLDEN)
+    rng = np.random.default_rng(int(g["input_seed"]) + 1)
+    x = torch.from_numpy(rng.standard_normal((2, 224, 224, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, 2)).cuda()
+    m = create_model(AF, device="cuda", drop_path_rate=0.0)
+    m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+    config = json.loads(str(g["config"]))
+    m.train()
+    loss = F.cross_entropy(m(x, config=config), y)
+    params = dict(m.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                 materialize_grads=True)))
+    check_step_golden(f"train golden {AF} (depth {config['layer_num']})", g, loss.detach(),
+                      grads)
+    check(af_inactive_grads_zero(config, grads), f"{AF}: a grad outside the config is not 0")
+    print(f"train golden {AF}: every grad outside the config's slices exactly 0 "
+          f"[{card_info()}]")
+
+
+def timed_steps(run, n: int) -> list[float]:
+    """ms of each of `n` calls of `run`, CUDA events around each."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def phase_autoformer_train() -> tuple[str, dict]:
+    """9r. AutoFormer-T supernet training, bf16 compute, fp32 params, bs128
+    at 224: `cli.supernet_train.main` runs one epoch (4 steps of synthetic
+    data) into a directory under build/ (its checkpoint feeds 9s); then
+    `make_supernet_train_step` (AdamW 1e-3, wd 0.05, clip 5, drop path 0.1)
+    for 3 warmup and 10 timed steps at configs drawn by default_rng(0), img/s
+    per step (median, min, max), the largest config's img/s (5 steps after
+    2) and the peak memory over the timed steps; 20 steps on one batch at
+    the largest config, the loss falls; no module or parameter storage of
+    the one supernet object changes across the configs. Returns (the
+    checkpoint directory, numbers)."""
+    from cream_tpu_torch.cli import supernet_train
+    from cream_tpu_torch.models.autoformer import fixed_config, sample_config
+    from cream_tpu_torch.nas.supernet_engine import make_supernet_train_step
+    out_dir = ROOT / "build" / "chip_smoke_nas"
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt = supernet_train.main(["--space", "tiny", "data.dataset=synthetic",
+                                f"data.batch_size={AF_BATCH}", "train.epochs=1",
+                                "train.warmup_epochs=0", f"output={out_dir}"])
+    cli_s = time.perf_counter() - t0
+    dtype = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(8)
+    m = create_model(AF, device="cuda", dtype=dtype)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    modules = [id(mod) for mod in m.modules()]
+    storages = {n: p.data_ptr() for n, p in m.named_parameters()}
+    state = TrainState(m, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                     params=dict(m.named_parameters())))
+    step = make_supernet_train_step()
+    batch = {"image": smooth_images(gen, AF_BATCH).to(dtype),
+             "label": torch.randint(0, 1000, (AF_BATCH,), generator=gen, device="cuda")}
+    rng = np.random.default_rng(0)
+    configs = [sample_config(rng, m.space) for _ in range(13)]
+    for c in configs[:3]:
+        step(state, batch, c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = iter(configs[3:])
+    ms = timed_steps(lambda: step(state, batch, next(it)), 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ips = [AF_BATCH / t * 1e3 for t in ms]
+    largest = fixed_config(m.space, "largest")
+    for _ in range(2):
+        step(state, batch, largest)
+    ips_largest = AF_BATCH / statistics.median(
+        timed_steps(lambda: step(state, batch, largest), 5)) * 1e3
+    losses = [float(step(state, batch, largest)[1]["loss"]) for _ in range(20)]
+    same = ([id(mod) for mod in m.modules()] == modules
+            and {n: p.data_ptr() for n, p in m.named_parameters()} == storages)
+    print(f"cli.supernet_train --space tiny bf16 bs{AF_BATCH}, 1 epoch of 4 steps: "
+          f"{cli_s:.1f} s, checkpoint {Path(ckpt).relative_to(ROOT)} [{card_info()}]")
+    print(f"train {AF} bf16 B={AF_BATCH} (autoformer_t_supernet_train_throughput), a sampled "
+          f"config a step (depths {[c['layer_num'] for c in configs[3:]]}): median "
+          f"{statistics.median(ips):.1f} img/s (min {min(ips):.1f}, max {max(ips):.1f}; CUDA "
+          f"events a step, 10 steps after 3), the largest config {ips_largest:.1f} img/s; "
+          f"peak memory {peak:.2f} GiB; 20 steps on one batch at the largest config: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; one model object and the same parameter "
+          f"storages across the configs: {same} [{card_info()}]")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{AF} loss did not fall: {losses}")
+    check(same, f"{AF}: a module or parameter storage changed between configs")
+    return ckpt, {"img_per_s_median": statistics.median(ips), "img_per_s_min": min(ips),
+                  "img_per_s_max": max(ips), "img_per_s_largest": ips_largest,
+                  "peak_gib": peak, "losses": losses}
+
+
+def phase_evolution(ckpt: str) -> dict:
+    """9s. BASELINE.json configs[3]: `cli.search_evolution.main` on 9r's
+    checkpoint, 1,024 synthetic val images at bf16 bs256, the tiny space,
+    population 16, 2 epochs, parameter window 5-6 M (around AutoFormer-T's
+    5.7 M): candidates scored per second and eval img/s (the CLI's own
+    clock around the search); the best config's `AutoFormerSubnet` bf16
+    bs256 through `throughput`, and its top-1 against the supernet at that
+    config on 512 low-frequency images (>= 99% on those whose top-2 margin
+    is above 4 bf16 ulps)."""
+    import contextlib
+    import io
+    import re
+
+    from cream_tpu_torch.cli import search_evolution
+    from cream_tpu_torch.core.checkpoint import restore_params
+    from cream_tpu_torch.models.autoformer import config_param_count, extract_subnet
+    out = ROOT / "build" / "chip_smoke_nas"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        top = search_evolution.main([
+            "--space", "tiny", "--ckpt", ckpt, "--param-min", "5e6", "--param-max", "6e6",
+            "--population", "16", "--max-eval-batches", "4", "--epochs", "2",
+            "--out", str(out / "evo.json"), "data.dataset=synthetic",
+            f"data.batch_size={EVO_BATCH}"])
+    text = buf.getvalue()
+    line = next(s for s in text.splitlines() if s.startswith("evolution: ") and "scored" in s)
+    n, wall = re.match(r"evolution: (\d+) candidates scored in ([\d.]+) s", line).groups()
+    n_images = int(re.search(r"over (\d+) images", line).group(1))
+    history = json.load(open(out / "evo.json"))["state"]["history"]
+    score, best = top[0]
+    dtype = torch.bfloat16
+    m = create_model(AF, device="cuda", dtype=dtype)
+    m.load_state_dict(restore_params(ckpt))
+    m.eval()
+    sub = extract_subnet(m, best)
+    ips = throughput(sub, EVO_BATCH, 224, dtype, 20, 3)
+    gen = torch.Generator("cuda").manual_seed(9)
+    images = [smooth_images(gen, EVO_BATCH).to(dtype) for _ in range(2)]
+    with torch.inference_mode():
+        got = torch.cat([sub(x).float() for x in images])
+        ref = torch.cat([m(x, config=best).float() for x in images])
+    agree, decided, agree_decided = top1_agreement(got, ref)
+    n_dec = round(decided * len(ref))
+    print(f"cli.search_evolution (BASELINE configs[3]) bf16, {EVO_BATCH}-image batches x 4, "
+          f"population 16, 2 epochs, window 5-6 M: {line[len('evolution: '):]}; best "
+          f"{score:.4f} at depth {best['layer_num']}, embed {best['embed_dim'][0]}, "
+          f"{config_param_count(best) / 1e6:.3f} M params [{card_info()}]")
+    print(f"AutoFormerSubnet of the best config bf16 B={EVO_BATCH} "
+          f"(autoformer_subnet_infer_throughput): {ips:.1f} img/s; top-1 vs the supernet at "
+          f"that config {agree:.4f} over {len(ref)} images, {agree_decided:.4f} on the "
+          f"{n_dec} decided (need >= 0.99 on >= 100) [{card_info()}]")
+    check(len(history) > 16 and 5e6 <= config_param_count(best) <= 6e6, "evolution search")
+    check(n_dec >= 100 and agree_decided >= 0.99, f"subnet vs supernet top-1 {agree_decided}")
+    return {"candidates": int(n), "search_s": float(wall),
+            "candidates_per_s": int(n) / float(wall),
+            "eval_img_per_s": int(n) * n_images / float(wall), "subnet_img_per_s": ips,
+            "best": best, "best_score": score}
+
+
+def phase_cream_childnets() -> dict:
+    """9t. cream_604 at 224 and cream_14 at 64, fp32 B=2 (TF32 off) on
+    seeded weights (BN statistics away from 0/1) against the JAX package's
+    logits (1e-3); cream_604 bf16 bs256 eval img/s (`throughput`);
+    cream_481 bf16 bs256 on "fused" against "library": its K7 launches a
+    forward (the depthwise-separable block and its four k3 layers), logits
+    within 8 bf16 ulps of the largest |logit|, top-1 on decided images."""
+    no_tf32()
+    for name in ("cream_604", "cream_14"):
+        g = np.load(DATA / f"{name}_seed0.npz")
+        m = create_model(name, device="cuda")
+        m.load_state_dict(seeded_state_dict(m, int(g["weight_seed"])))
+        x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+            (2, m.img_size, m.img_size, 3)).astype(np.float32)
+        logits = predict(m, torch.from_numpy(x)).cpu().numpy()
+        err = float(np.abs(logits - g["logits"]).max())
+        print(f"golden {name} fp32 B=2 at {m.img_size} vs JAX logits: max_abs_err={err:.3e} "
+              f"bound=1e-3 (max |logit| {np.abs(g['logits']).max():.3f}) [{card_info()}]")
+        check(bool(np.isfinite(logits).all()) and err <= 1e-3, f"{name} golden {err}")
+    dtype = torch.bfloat16
+    m = create_model("cream_604", device="cuda", dtype=dtype)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    ips604 = throughput(m, BATCH, 224, dtype, 20, 3)
+    gen = torch.Generator("cuda").manual_seed(10)
+    x = smooth_images(gen, BATCH).to(dtype)
+    out, launches = {}, {}
+    DW_REFUSED.clear()
+    for route in ("library", "fused"):
+        m = create_model("cream_481", device="cuda", dtype=dtype)
+        m.load_state_dict(seeded_state_dict(m, 0))
+        set_dw_kernel(m, route)
+        dwconv.reset_launches()
+        out[route] = predict(m, x)
+        torch.cuda.synchronize()
+        launches[route] = dict(dwconv.LAUNCHES)
+    ips481 = throughput(m, BATCH, 224, dtype, 20, 3)
+    err = float((out["fused"] - out["library"]).abs().max())
+    lim = 8 * float(bf16_ulp(out["library"].abs().max()))
+    agree, decided, agree_decided = top1_agreement(out["fused"], out["library"])
+    s1, s2 = dw3x3_path_sites(m.arch, m.stages, m.released_quirk)
+    print(f"cream_604 bf16 B={BATCH} (cream_604_infer_throughput): {ips604:.1f} img/s; "
+          f"cream_481 bf16 B={BATCH} fused: K7/K9 launches a forward {launches['fused']} "
+          f"(want {s1} K7, {s2} K9: the ds block + its k3 layers; library "
+          f"{launches['library']}), logits "
+          f"vs library max |diff| {err:.3e} (bound 8 ulps {lim:.3e}), top-1 {agree:.4f} "
+          f"({agree_decided:.4f} on the {decided:.3f} decided), {ips481:.1f} img/s fused; "
+          f"depthwise sites the kernels refused (library conv instead): {dict(DW_REFUSED)} "
+          f"[{card_info()}]")
+    want = {"k7_fwd": s1, "k7_bwd": 0, "k8": 0, "k9_fwd": s2, "k9_bwd": 0}
+    check(launches["fused"] == want and sum(launches["library"].values()) == 0,
+          f"cream_481 K7/K9 launches {launches}, want {want} on fused")
+    check(err <= lim, f"cream_481 fused vs library logits {err} > {lim}")
+    check(not DW_REFUSED, f"cream_481: the kernels refused depthwise sites {dict(DW_REFUSED)}")
+    return {"cream_604_img_per_s": ips604, "cream_481_fused_img_per_s": ips481,
+            "k7_per_forward": launches["fused"]["k7_fwd"]}
+
+
+def cream_dw_launches(stages, student, teacher) -> dict:
+    """K7/K9 launches of one Cream supernet step on "fused": each path's
+    sites (`models.cream.dw3x3_path_sites`), forward in the student's train
+    pass and the teacher's eval pass, backward in the student's only."""
+    s1, s2 = dw3x3_path_sites(student, stages)
+    t1, t2 = dw3x3_path_sites(teacher, stages) if teacher is not None else (0, 0)
+    return {"k7_fwd": s1 + t1, "k7_bwd": s1, "k8": 0, "k9_fwd": s2 + t2, "k9_bwd": s2}
+
+
+def phase_cream_search() -> dict:
+    """9u. `cli.search_cream.main` at 224 (fp32, bs16, 1,000 classes, 2
+    epochs of 3 steps, the board open from epoch 1): the board fills, the
+    meta step runs, the extracted childnet passes the CLI's <= 1e-4 check.
+    Then the supernet's train step (`make_cream_train_step`, SGD 0.01 /
+    0.9) in bf16 at bs128 over one seeded sequence of 13 paths (KD against
+    its first path from step 2 on, meta value 0.5), from the same weights
+    on "library" and on "fused": K7/K9 launches in each of the first 3 steps
+    equal to the paths' sites (`cream_dw_launches`), the first step's loss
+    within 2 bf16 ulps and grad norm within 2% between routes; after the
+    other 10 paths once on each route, img/s of their 10 steps in 2
+    interleaved rounds, peak memory; and the meta step's ms (bf16, the
+    CLI's slice of a quarter of the batch, CUDA events, median of 5 after
+    one)."""
+    import tempfile
+
+    from cream_tpu_torch.cli import search_cream
+    from cream_tpu_torch.models.cream import SEARCH_STAGES, MetaMatchingHead
+    from cream_tpu_torch.nas import cream as nas
+    from cream_tpu_torch.train.optim import make_sgd
+    calls = []
+    real = search_cream.make_meta_update_step
+
+    def counting(*a, **k):
+        step = real(*a, **k)
+        return lambda *b: calls.append(1) or step(*b)
+    search_cream.make_meta_update_step = counting
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            t0 = time.perf_counter()
+            result = search_cream.main(["--epochs", "2", "--steps", "3", "--batch-size", "16",
+                                        "--meta-sta-epoch", "0", "--lr", "0.01",
+                                        "--img-size", "224", "--out", f"{tmp}/cream.json"])
+            cli_s = time.perf_counter() - t0
+    finally:
+        search_cream.make_meta_update_step = real
+    print(f"cli.search_cream at 224 fp32 bs16 (2 epochs of 3 steps): stages sta_num "
+          f"{result['sta_num']}, board {result['history'][-1]['board']}, {len(calls)} meta "
+          f"steps, best path {result['best_arch']} ({result['best_flops'] / 1e6:.1f} M MACs), "
+          f"childnet vs supernet max |diff| {result['childnet_parity_maxdiff']:.2e} (bound "
+          f"1e-4); {cli_s:.1f} s [{card_info()}]")
+    check(result["history"][-1]["board"] >= 1 and calls, "search_cream: board or meta step")
+    check(result["childnet_parity_maxdiff"] <= 1e-4, "search_cream childnet parity")
+
+    dtype, routes = torch.bfloat16, ("library", "fused")
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = smooth_images(gen, CREAM_BATCH).to(dtype)
+    batch = {"image": x, "label": torch.randint(0, 1000, (CREAM_BATCH,), generator=gen,
+                                                device="cuda")}
+    rng = np.random.default_rng(0)
+    paths = [nas.sample_architecture(rng, [d for _, d, _ in SEARCH_STAGES]).tolist()
+             for _ in range(13)]
+    models = {}
+    for route in routes:
+        models[route] = create_model("cream_supernet", device="cuda", dtype=dtype)
+        models[route].load_state_dict(seeded_state_dict(models[route], 0))
+        set_dw_kernel(models[route], route)
+    step = nas.make_cream_train_step()
+
+    def run(state, i):
+        kd = i > 0
+        return step(state, batch, paths[i % 13], paths[0] if kd else None, 0.5, kd)[1]
+
+    states = {r: TrainState(models[r], make_sgd(0.01, momentum=0.9)) for r in routes}
+    first, per_step = {}, []
+    DW_REFUSED.clear()
+    for route in routes:
+        dwconv.reset_launches()
+        first[route] = run(states[route], 0)
+        torch.cuda.synchronize()
+        if route == "fused":
+            per_step.append(dict(dwconv.LAUNCHES))
+            check(per_step[-1] == cream_dw_launches(SEARCH_STAGES, paths[0], None),
+                  f"cream step 1: launches {per_step[-1]}")
+            for i in (1, 2):
+                dwconv.reset_launches()
+                run(states[route], i)
+                torch.cuda.synchronize()
+                per_step.append(dict(dwconv.LAUNCHES))
+                check(per_step[-1] == cream_dw_launches(SEARCH_STAGES, paths[i], paths[0]),
+                      f"cream step {i + 1}: launches {per_step[-1]}")
+        else:
+            run(states[route], 1)
+            run(states[route], 2)
+            check(sum(dwconv.LAUNCHES.values()) == 0, "library route launched a dw kernel")
+    # the rest of the sequence once on each route before the clock: a path's
+    # first step meets conv shapes (k5, k7 choices) not seen before
+    for route in routes:
+        for i in range(3, 13):
+            run(states[route], i)
+    ips = {r: [] for r in routes}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for order in (routes, routes[::-1]):
+        for route in order:
+            counter = iter(range(3, 13))
+            ms = timed_steps(lambda: run(states[route], next(counter)), 10)
+            ips[route].append(CREAM_BATCH * 10 / sum(ms) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sl = CREAM_BATCH // 4                      # the CLI's slice: a quarter of the batch
+    meta = MetaMatchingHead(sl * 1000, device="cuda")
+    meta_step = nas.make_meta_update_step(models["fused"], meta, 0.01, sl)
+    kd = torch.softmax(torch.randn(sl, 1000, generator=gen, device="cuda"), -1)
+    meta_ms = statistics.median(timed_steps(
+        lambda: meta_step(x[:2 * sl], batch["label"][:2 * sl], paths[1], paths[0], kd), 6)[1:])
+    l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
+    g_ref, g_k = float(first["library"]["grad_norm"]), float(first["fused"]["grad_norm"])
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+    k9 = [s["k9_fwd"] for s in per_step]
+    print(f"train cream_supernet bf16 B={CREAM_BATCH} (cream_supernet_train_throughput), "
+          f"seeded paths, KD from step 2: K7/K9 launches per step on fused {per_step} (the "
+          f"paths' sites), library none; step 1 fused vs library: loss {l_k:.5f} vs "
+          f"{l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), grad_norm "
+          f"{g_k:.4f} vs {g_ref:.4f} (rel {abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2); img/s "
+          f"(10 steps after each path once, CUDA events, rounds library, fused / fused, "
+          f"library): "
+          + "; ".join(f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])}" for r in routes)
+          + f"; peak memory {peak:.2f} GiB; meta step (bf16, slice {sl} x 1,000 classes) "
+          f"{meta_ms:.2f} ms; depthwise sites the kernels refused: {dict(DW_REFUSED)} "
+          f"[{card_info()}]")
+    check(np.isfinite(l_k) and abs(l_k - l_ref) <= loss_lim, f"cream loss {l_k} vs {l_ref}")
+    check(abs(g_k - g_ref) <= 2e-2 * g_ref, f"cream grad_norm {g_k} vs {g_ref}")
+    check(sum(k9) > 0, "no K9 launch on the Cream path sequence")
+    check(not DW_REFUSED, f"cream step: the kernels refused depthwise sites {dict(DW_REFUSED)}")
+    return {"launches_per_step": per_step, "img_per_s": ips, "peak_gib": peak,
+            "meta_ms": meta_ms, "cli_s": cli_s,
+            "launches": {k: sum(s[k] for s in per_step) for k in per_step[0]}}
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -3088,6 +3526,14 @@ def main() -> None:
     deit_train = {name: phase_deit_train(name) for name in DEIT_METRICS}
     capture = phase_mini_swin_capture()
     check(kernel_counts() == counts, "the DeiT, Mini-DeiT or capture phases launched a kernel")
+    t_nas = time.time()
+    phase_autoformer_goldens()
+    af_ckpt, af_train = phase_autoformer_train()
+    evo = phase_evolution(af_ckpt)
+    check(kernel_counts() == counts, "the AutoFormer phases launched a kernel")
+    cream_eval = phase_cream_childnets()
+    cream = phase_cream_search()
+    nas_s = time.time() - t_nas
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -3144,12 +3590,14 @@ def main() -> None:
         rows.append({
             "name": f"dwconv_{key}", "route": "cuda", "source": "cream_tpu_torch/csrc/dwconv.cu",
             "replaces": f"cream_tpu/ops/dwconv.py:{src_line}",
-            "launches": evit_train[route][key] + tv_train[key], "max_abs_err": worst_dw[key],
+            "launches": evit_train[route][key] + tv_train[key] + cream["launches"][key],
+            "max_abs_err": worst_dw[key],
             **{k: sum(tdw[n][kind][k] * per for n, per in sites)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": max((tdw[n][kind] for n, _ in sites),
                             key=lambda r: r["bound_ms"])["bound_by"],
-            "tinyvit21m_step": per_step(tdw, DW_TINYVIT, kind, stride)})
+            "tinyvit21m_step": per_step(tdw, DW_TINYVIT, kind, stride),
+            "cream_supernet_step_launches": [n[key] for n in cream["launches_per_step"]]})
         if stride == 2:                                   # K9: each site's own times
             rows[-1]["sites"] = {n: {k: tdw[n][kind][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms")} | {"per_step": per}
@@ -3246,6 +3694,19 @@ def main() -> None:
                       f"{deit_train[n]['idle_share']:.3f})" for n in DEIT_METRICS)
           + f"; Mini-Swin-T capture: {capture['count']} qkv + {capture['count']} hidden states "
           f"[{card}]")
+    print(f"one-shot NAS (phases 9q-9u, {nas_s:.1f} s): AutoFormer-T supernet train bf16 "
+          f"bs{AF_BATCH} {af_train['img_per_s_median']:.1f} img/s median over sampled configs "
+          f"({af_train['img_per_s_min']:.1f}-{af_train['img_per_s_max']:.1f}; largest "
+          f"{af_train['img_per_s_largest']:.1f}; peak {af_train['peak_gib']:.2f} GiB); evolution "
+          f"{evo['candidates']} candidates in {evo['search_s']:.2f} s "
+          f"({evo['candidates_per_s']:.2f}/s, {evo['eval_img_per_s']:.1f} img/s), the best "
+          f"subnet {evo['subnet_img_per_s']:.1f} img/s (bs{EVO_BATCH}); cream_604 "
+          f"{cream_eval['cream_604_img_per_s']:.1f} img/s (bs{BATCH}); Cream supernet step "
+          f"bf16 bs{CREAM_BATCH} library / fused "
+          + " / ".join(f"{statistics.median(cream['img_per_s'][r]):.1f}"
+                       for r in ("library", "fused"))
+          + f" img/s (medians), meta step {cream['meta_ms']:.2f} ms; K7/K9 launches on the "
+          f"Cream fused steps {cream['launches']} [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -14,6 +14,9 @@
     python -m cream_tpu_torch.cli.profile_step [--train] \
         --models deit_small_patch16_224_ctx_product_50_shared_k \
         mini_deit_small_patch16_224 drop_path_rate=0.1   # iRPE: gather / scatter-add
+    python -m cream_tpu_torch.cli.profile_step [--train] --models \
+        autoformer_supernet_tiny cream_supernet --batch 128 config=largest  # a supernet at
+                                                         # a fixed config (smallest, seed:N)
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per

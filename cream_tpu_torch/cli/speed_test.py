@@ -17,6 +17,10 @@
     python -m cream_tpu_torch.cli.speed_test [--train] \
         --models deit_small_patch16_224_ctx_product_50_shared_k \
         mini_deit_small_patch16_224 drop_path_rate=0.1   # DeiT-S iRPE-K, Mini-DeiT-S
+    python -m cream_tpu_torch.cli.speed_test [--train] --models \
+        autoformer_supernet_tiny cream_supernet --batch 128 config=largest  # smallest, seed:N
+    python -m cream_tpu_torch.cli.speed_test --models cream_604 cream_481 \
+        --batch 256 [dw_kernel=fused]                    # Cream's released childnets
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -30,6 +34,12 @@ iteration consumes both towers' features (their (B, B) similarity
 matrix), so the number is pairs/s of the whole model. With `--train` a
 two-tower ViT CLIP is timed through TinyCLIP's L0 distillation step
 (`tinyclip_train_throughput`, the JAX package's `bench_tinyclip_train`).
+
+A supernet (`autoformer_supernet_*`, `cream_supernet`) is timed at the
+fixed config its `config=` option names (`smallest`, `largest`, `seed:N`);
+with `--train` through its own step (`nas.supernet_engine.
+make_supernet_train_step`, `nas.cream.make_cream_train_step` without KD),
+which gives the params off that path zero grads.
 
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
@@ -151,9 +161,30 @@ def train_step_fn(model: torch.nn.Module, batch: int, img_size: int,
                     device=device).to(dtype)
     labels = torch.randint(0, num_classes, (batch,), generator=gen, device=device)
     state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=None))
-    step = make_train_step()
     data = {"image": x, "label": labels}
+    step = supernet_step(model)
+    if step is None:
+        step = make_train_step()
     return lambda: step(state, data, 3)
+
+
+def supernet_step(model: torch.nn.Module):
+    """A supernet's own train step at the config fixed at its build, as
+    `make_train_step`'s step(state, batch, seed) (the params off that path
+    get zero grads: `train.steps.supernet_grads`), or None for a fixed
+    model."""
+    from cream_tpu_torch.models.autoformer import AutoFormerSuper
+    from cream_tpu_torch.models.cream import CreamSupernet
+    if isinstance(model, AutoFormerSuper):
+        from cream_tpu_torch.nas.supernet_engine import make_supernet_train_step
+        af_step = make_supernet_train_step()
+        return lambda state, batch, seed: af_step(state, batch, model.config, seed)
+    if isinstance(model, CreamSupernet):
+        from cream_tpu_torch.nas.cream import make_cream_train_step
+        cream_step = make_cream_train_step()
+        return lambda state, batch, seed: cream_step(state, batch, model.config, None, 0.0,
+                                                     False)
+    return None
 
 
 def train_throughput(model: torch.nn.Module, batch: int, img_size: int,

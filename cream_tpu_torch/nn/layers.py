@@ -69,6 +69,71 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor,
     return y
 
 
+# depthwise sites a kernel route refused by shape, so they ran the library
+# conv: (route, stride, shape) -> calls since import (or since a reset)
+DW_REFUSED: dict[tuple, int] = {}
+
+
+def is_dw3x3(conv: nn.Conv2d, stride: int, padding: int, groups: int) -> bool:
+    """A depthwise 3x3 pad-1 conv of stride 1 or 2: the kernels' sites."""
+    return (conv.kernel_size == (3, 3) and padding == 1 and stride in (1, 2)
+            and groups == conv.out_channels == conv.in_channels)
+
+
+def dw_route(mode: str, conv: nn.Conv2d, stride: int, padding: int, groups: int,
+             x: torch.Tensor):
+    """The kernel function that route `mode` takes for the conv `conv` on the
+    NHWC input x, or None for the library conv (see `ConvBN`). A depthwise
+    3x3 site whose shape the kernel refuses is counted in `DW_REFUSED`."""
+    if mode == "library" or not is_dw3x3(conv, stride, padding, groups) \
+            or x.shape[-1] != conv.out_channels:
+        return None
+    if stride == 1:
+        if dwconv.supports_fused(x.shape):
+            return dwconv.dw_conv3x3_fused if mode == "fused" else dwconv.dw_conv3x3_wg
+    elif mode == "fused" and dwconv.supports_fused_s2(x.shape):
+        return dwconv.dw_conv3x3s2_fused
+    elif mode == "wgrad":           # JAX has no stride-2 wgrad route: not a refusal
+        return None
+    key = (mode, stride, tuple(x.shape))
+    DW_REFUSED[key] = DW_REFUSED.get(key, 0) + 1
+    return None
+
+
+def conv_nchw(conv: nn.Conv2d, x: torch.Tensor, stride: int, padding: int, groups: int,
+              dw_kernel: str = "library") -> torch.Tensor:
+    """The bias-free conv `conv` on the NHWC map x, in x's dtype, as an NCHW
+    view (channels_last strides): the library conv, or a depthwise 3x3
+    site's kernel route `dw_kernel` (`dw_route`)."""
+    route = dw_route(dw_kernel, conv, stride, padding, groups, x)
+    if route is None:
+        return F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, stride,
+                        padding, 1, groups)
+    # the taps in the compute dtype, as the JAX package's _DWConv3x3 hands
+    # them over: the weight grad rounds to it too
+    w9 = conv.weight.to(x.dtype).reshape(-1, 9).t()
+    return route(x.contiguous(), w9).permute(0, 3, 1, 2)
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor, training: bool,
+               momentum: float = 0.9) -> torch.Tensor:
+    """BatchNorm of y over every dim but dim 1: train mode as
+    `batch_norm_train`; eval mode on the running statistics. Where those
+    statistics require grad (a `torch.func.functional_call` that
+    differentiates through them, as the JAX package's meta step does), eval
+    BN is written out as flax computes it, since `F.batch_norm` takes no
+    grad there."""
+    if training:
+        return batch_norm_train(bn, y, momentum)
+    if bn.running_mean.requires_grad or bn.running_var.requires_grad:
+        shape = (1, -1) + (1,) * (y.ndim - 2)
+        scale = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        return ((y - bn.running_mean.view(shape)) * scale.view(shape)
+                + bn.bias.view(shape)).to(y.dtype)
+    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                        bn.eps)
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm on an NHWC map. `groups=features` gives
     a depthwise conv.
@@ -105,52 +170,27 @@ class ConvBN(nn.Module):
         nn.init.constant_(self.bn.weight, bn_weight_init)
 
     def is_dw3x3(self) -> bool:
-        """A depthwise 3x3 pad-1 conv of stride 1 or 2: the kernels' sites."""
-        c = self.c
-        return (c.kernel_size == (3, 3) and self.padding == 1 and self.stride in (1, 2)
-                and self.groups == c.out_channels == c.in_channels)
+        return is_dw3x3(self.c, self.stride, self.padding, self.groups)
 
     def _dw_route(self, x: torch.Tensor):
         """The kernel route's function for this input, or None for the
         library conv."""
-        if self.dw_kernel == "library" or not self.is_dw3x3() \
-                or x.shape[-1] != self.c.out_channels:
-            return None
-        if self.stride == 1:
-            if not dwconv.supports_fused(x.shape):
-                return None
-            return dwconv.dw_conv3x3_fused if self.dw_kernel == "fused" else dwconv.dw_conv3x3_wg
-        if self.dw_kernel == "fused" and dwconv.supports_fused_s2(x.shape):
-            return dwconv.dw_conv3x3s2_fused
-        return None
+        return dw_route(self.dw_kernel, self.c, self.stride, self.padding, self.groups, x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        route = self._dw_route(x)
-        if route is None:
-            y = F.conv2d(x.permute(0, 3, 1, 2), self.c.weight.to(self.dtype), None,
-                         self.stride, self.padding, 1, self.groups)
-        else:
-            # the taps in the compute dtype, as the JAX package's _DWConv3x3
-            # hands them over: the weight grad rounds to it too
-            w9 = self.c.weight.to(self.dtype).reshape(-1, 9).t()
-            y = route(x.contiguous(), w9).permute(0, 3, 1, 2)
-        bn = self.bn
-        if not self.training:
-            y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, False, 0.0, bn.eps)
-        else:
-            y = batch_norm_train(bn, y, self.MOMENTUM)
-        return y.permute(0, 2, 3, 1)
+        y = conv_nchw(self.c, x.to(self.dtype), self.stride, self.padding, self.groups,
+                      self.dw_kernel)
+        return batch_norm(self.bn, y, self.training, self.MOMENTUM).permute(0, 2, 3, 1)
 
 
 def set_dw_kernel(model: nn.Module, mode: str) -> None:
-    """Route every ConvBN of `model` through `mode` (see `ConvBN`): the
-    counterpart of setting the JAX package's `DEFAULT_DW_VJP`. Only the
-    depthwise 3x3 sites change behaviour."""
+    """Route every module of `model` that has a `dw_kernel` (a ConvBN,
+    Cream's blocks) through `mode` (see `ConvBN`): the counterpart of setting
+    the JAX package's `DEFAULT_DW_VJP`. Only the depthwise 3x3 sites change
+    behaviour."""
     _check_dw_kernel(mode)
     for m in model.modules():
-        if isinstance(m, ConvBN):
+        if hasattr(m, "dw_kernel"):
             m.dw_kernel = mode
 
 

@@ -52,6 +52,17 @@ def loss_and_grads(model: torch.nn.Module, batch, loss_fn: Callable,
     return loss.detach(), logits.detach(), dict(zip(params, grads))
 
 
+def supernet_grads(model: torch.nn.Module, loss: torch.Tensor) -> dict:
+    """Grads of `loss` by param name for a supernet's step: the params off
+    the sampled path get zero grads, as the JAX package's masked supernets
+    give them (weight decay and momentum then move them as JAX's do). A
+    fixed model's step takes `loss_and_grads`, where a param the loss does
+    not reach raises."""
+    params = dict(model.named_parameters())
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                materialize_grads=True)))
+
+
 def make_train_step(loss_fn: Callable = cross_entropy_loss):
     """Returns train_step(state, batch, seed=0) -> (state, metrics).
 

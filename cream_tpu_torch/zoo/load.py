@@ -25,6 +25,7 @@ auto-weight-inheritance builds its own ragged model (`load_pruned_clip`).
 from __future__ import annotations
 
 import math
+import re
 from typing import Mapping
 
 import numpy as np
@@ -582,6 +583,85 @@ def mini_deit_state_dict_from_jax(variables: Mapping, with_head: bool = True
     w.ln("norm", "norm")
     if with_head and "head" in w.params:
         w.dense("head", "head")
+    return w.state_dict()
+
+
+def autoformer_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's AutoFormerSuper variables (nested `blocks_{i}/attn/
+    qkv`, the qkv columns interleaved) or AutoFormerSubnet variables (flat
+    `blocks_{i}_attn_qkv`, [q; k; v]) -> the port's state_dict, the
+    reference's names (`patch_embed_super.proj`, `blocks.{i}.attn.qkv`,
+    `.attn.rel_pos_embed_{k,v}.embeddings_table_{v,h}`, ...). Inverse of
+    `convert_autoformer_supernet` on a supernet."""
+    w = _Writer(variables)
+    for key in ("cls_token", "pos_embed"):
+        if key in w.params:
+            w.raw(key, key)
+    w.conv_biased("patch_embed", "patch_embed_super.proj")
+    nested = "blocks_0" in w.params
+    n = sum(re.fullmatch(r"blocks_\d+" if nested else r"blocks_\d+_fc1", k) is not None
+            for k in w.params)
+    for i in range(n):
+        for part, dst in (("attn_layer_norm", "attn_layer_norm"), ("attn/qkv", "attn.qkv"),
+                          ("attn/proj", "attn.proj"), ("ffn_layer_norm", "ffn_layer_norm"),
+                          ("fc1", "fc1"), ("fc2", "fc2"),
+                          ("attn/rel_pos_embed_k", "attn.rel_pos_embed_k"),
+                          ("attn/rel_pos_embed_v", "attn.rel_pos_embed_v")):
+            fp = (f"blocks_{i}/{part}" if nested else
+                  f"blocks_{i}_" + part.replace("attn/rel_", "rel_").replace("/", "_"))
+            tp = f"blocks.{i}.{dst}"
+            if part.endswith("layer_norm"):
+                w.ln(fp, tp)
+            elif "rel_pos" not in part:
+                w.dense(fp, tp)
+            else:
+                try:
+                    tables = w._get(w.params, fp)
+                except KeyError:        # a model without relative positions
+                    continue
+                for tab, t in tables.items():
+                    w.sd[f"{tp}.{tab}"] = np.asarray(t)
+    w.ln("norm", "norm")
+    w.dense("head", "head")
+    return w.state_dict()
+
+
+def cream_state_dict_from_jax(variables: Mapping, with_head: bool = True
+                              ) -> dict[str, torch.Tensor]:
+    """The JAX package's CreamSupernet (`stage_{s}_layer_{i}/choice_{c}`) or
+    CreamChildNet (`stage_{s}_layer_{i}`) variables -> the port's
+    state_dict (timm names; a supernet's choices as
+    `blocks.{s+1}.{i}.{c}.…`). Inverse of `convert_cream_childnet` on a
+    childnet."""
+    w = _Writer(variables)
+
+    def conv_bn(fp: str, conv: str, bn: str):
+        w.sd[f"{conv}.weight"] = _conv(w._get(w.params, f"{fp}/conv/kernel"))
+        w.bn(f"{fp}/bn", bn)
+
+    def block(fp: str, tp: str, names):
+        for part, bn in names:
+            conv_bn(f"{fp}/{part}", f"{tp}.{part}", f"{tp}.{bn}")
+        for se in ("conv_reduce", "conv_expand"):
+            w.conv_biased(f"{fp}/se/{se}", f"{tp}.se.{se}")
+
+    ir = (("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3"))
+    conv_bn("conv_stem", "conv_stem", "bn1")
+    block("blocks_0", "blocks.0.0", (("conv_dw", "bn1"), ("conv_pw", "bn2")))
+    layers = sorted((tuple(int(v) for v in k.split("_")[1::2]), k)
+                    for k in w.params if k.startswith("stage_"))
+    n_stages = 1 + max(s for (s, _), _ in layers)
+    for (s, i), key in layers:
+        node = w.params[key]
+        if any(k.startswith("choice_") for k in node):
+            for c in sorted(int(k.split("_")[1]) for k in node if k.startswith("choice_")):
+                block(f"{key}/choice_{c}", f"blocks.{s + 1}.{i}.{c}", ir)
+        else:
+            block(key, f"blocks.{s + 1}.{i}", ir)
+    conv_bn("blocks_tail", f"blocks.{n_stages + 1}.0.conv", f"blocks.{n_stages + 1}.0.bn1")
+    w.conv_biased("conv_head", "conv_head")
+    if with_head:
+        w.dense("classifier", "classifier")
     return w.state_dict()
 
 

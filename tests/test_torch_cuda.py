@@ -53,6 +53,7 @@ from cream_tpu_torch.models.efficientvit import (_CONFIGS, CascadedGroupAttentio
                                                 EfficientViT)
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.nn.attention import WindowBiasAttention
+from cream_tpu_torch.models.cream import dw3x3_path_sites, dw3x3_sites
 from cream_tpu_torch.nn.layers import ConvBN
 from cream_tpu_torch.ops import cga, cga_core, dwconv
 from cream_tpu_torch.ops import window_attention as wa
@@ -613,6 +614,21 @@ def _dw_close(got, want, dtype, rel):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,W,C,stride", DW_CASES)
 def test_dw_kernels_match_plain(card, dtype, B, H, W, C, stride):
+    _check_dw_kernels(card, dtype, B, H, W, C, stride)
+
+
+# Cream's depthwise 3x3 sites at 224 (B = 2): the depthwise-separable block
+# and every k3 choice, 16·e to 192·e channels (models.cream.dw3x3_sites)
+CREAM_DW_CASES = [(*shape, stride) for stride, shape in dw3x3_sites(batch=2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,stride", CREAM_DW_CASES)
+def test_dw_kernels_match_plain_at_cream_sites(card, dtype, B, H, W, C, stride):
+    _check_dw_kernels(card, dtype, B, H, W, C, stride)
+
+
+def _check_dw_kernels(card, dtype, B, H, W, C, stride):
     x, w9, dy = _dw_inputs(card, B, H, W, C, stride, dtype)
     n = dict(dwconv.LAUNCHES)
     fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
@@ -1381,3 +1397,87 @@ def test_mini_swin_capture_on_the_card(card):
     assert torch.equal(logits, plain)
     assert len(captures["qkv_states"]) == len(captures["hidden"]) == 8
     assert captures["hidden"][0].shape == (2, 256, 32)
+
+
+def _cream_supernet(card_or_cpu, dtype=torch.float32, route="library"):
+    from cream_tpu_torch.models.cream import CreamSupernet
+    from cream_tpu_torch.nn.layers import set_dw_kernel
+    m = CreamSupernet(num_classes=10, stages=CREAM_STAGES, img_size=64, dtype=dtype,
+                      device=card_or_cpu)
+    m.load_state_dict(seeded_state_dict(m, 3))
+    set_dw_kernel(m, route)
+    return m
+
+
+CREAM_PATH = [1, 0, 0, -1, 1, 1, 0, 5]   # a skip; k3 at most sites
+CREAM_STAGES = ((16, 2, 2), (24, 2, 2), (32, 1, 2), (32, 1, 1), (48, 2, 2))
+
+
+def test_cream_fused_step_matches_library(card):
+    """One Cream supernet train step (KD against a teacher path; SGD at lr
+    1, so the first update is the grad) on "fused" against "library" from
+    the same weights: fp32 (TF32 off) loss 1e-5, grads 1e-4 of each
+    tensor's largest plus 1e-6 of the largest of all (BN-cancelled grads
+    sit at float noise); bf16 loss within 2 ulps; K7 and K9 launch at the
+    paths' sites (the student's forward and backward, the teacher's
+    forward), the library route none."""
+    from cream_tpu_torch.nas import cream as nas
+    from cream_tpu_torch.train.optim import make_sgd
+    from cream_tpu_torch.train.state import TrainState
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 64, 3)).astype(np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(0, 10, 8)).to(card)
+    teacher = [0, 1, 1, 0, 0, 1, 0, 1]
+    (s1, s2), (t1, t2) = (dw3x3_path_sites(p, CREAM_STAGES) for p in (CREAM_PATH, teacher))
+    want = {"k7_fwd": s1 + t1, "k7_bwd": s1, "k8": 0, "k9_fwd": s2 + t2, "k9_bwd": s2}
+    assert want["k9_bwd"] == 4 and want["k7_bwd"] == 3
+    for dtype in (torch.float32, torch.bfloat16):
+        out = {}
+        for route in ("library", "fused"):
+            m = _cream_supernet(card, dtype, route)
+            before = {n: p.detach().clone() for n, p in m.named_parameters()}
+            state = TrainState(m, make_sgd(1.0, momentum=0.9))
+            dwconv.reset_launches()
+            loss = nas.make_cream_train_step()(
+                state, {"image": x.to(dtype), "label": y}, CREAM_PATH, teacher, 0.5, True)[1]
+            torch.cuda.synchronize()
+            assert dwconv.LAUNCHES == (want if route == "fused" else
+                                       {k: 0 for k in dwconv.LAUNCHES}), route
+            out[route] = (float(loss["loss"]), {n: before[n] - p.detach()
+                                                for n, p in m.named_parameters()})
+        (l_ref, g_ref), (l_got, g_got) = out["library"], out["fused"]
+        if dtype == torch.bfloat16:
+            assert abs(l_got - l_ref) <= 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+            continue
+        assert abs(l_got - l_ref) <= 1e-5 * l_ref
+        top = max(g.abs().max().item() for g in g_ref.values())
+        for k, g in g_ref.items():
+            assert (g_got[k] - g).abs().max().item() <= 1e-4 * g.abs().max().item() \
+                + 1e-6 * top, k
+
+
+def test_narrow_nas_models_on_the_card_match_the_cpu(card):
+    """fp32 logits of a narrow AutoFormer supernet (two configs) and the
+    narrow Cream supernet on "fused" (K7/K9 at its sites) within 1e-5 of
+    the CPU's."""
+    from cream_tpu_torch.models.autoformer import AutoFormerSuper, SearchSpace, fixed_config
+    sp = SearchSpace(mlp_ratio=(1.5, 2.0), num_heads=(1, 2), depth=(1, 2, 3),
+                     embed_dim=(64, 96, 120))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    outs = []
+    for device in ("cpu", card):
+        m = AutoFormerSuper(sp, num_classes=10, img_size=32, patch_size=8, device=device)
+        m.load_state_dict(seeded_state_dict(m, 5))
+        with torch.no_grad():
+            outs.append([m.eval()(x.to(device), config=fixed_config(sp, s)).cpu()
+                         for s in ("smallest", "seed:3")])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=1e-5)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32))
+    got = []
+    for device, route in (("cpu", "library"), (card, "fused")):
+        with torch.no_grad():
+            got.append(_cream_supernet(device, route=route).eval()(
+                x.to(device), config=CREAM_PATH).cpu())
+    torch.testing.assert_close(got[1], got[0], atol=1e-5, rtol=1e-5)

@@ -321,6 +321,7 @@ _GLOO_WORKER = textwrap.dedent("""
     loss.backward()
     np.savez(out, c=c.item(), s=s.item(), img=img.grad.numpy(), txt=txt.grad.numpy(),
              scale=scale.grad.numpy())
+    dist.barrier()  # neither rank tears gloo down while the other still talks to it
     dist.destroy_process_group()
 """)
 
