@@ -223,6 +223,22 @@ non-zero):
      step bf16 bs128 on "library" and "fused" over one seeded path sequence
      (K7/K9 launches per step, loss and grad norm between routes, img/s,
      peak memory, the meta step's ms); no depthwise site refused
+ 9v. CDARTS retrain: cdarts_retrain_imagenet (init 48, 224 px) on an example
+     genotype holding every primitive but 'none': the fp32 B=2 golden, bf16
+     bs256 on "fused" against "library" (K7/K9 launches a forward at the
+     SepConv sites, 8 ulps), bf16 vs fp32 top-1 on decided images, eval
+     img/s on both routes, bf16 bs128 train img/s and peak memory
+ 9w. DARTS search: darts_search_cifar's fp32 B=2 logits and alpha grads
+     golden; CyclicSearcher's weight and alpha steps in bf16 at bs64 on
+     "library" and "fused" (K7/K9 launches a step from the sites' rule, the
+     first loss and grad norm between routes, ms a step in interleaved
+     rounds, device time and idle share from `profile`)
+ 9x. CDARTS staged search: cli.search_cdarts.main on the card at
+     StageSearchConfig's width (steps and iterations cut), the JSON, a
+     retrain network built from its genotypes, seconds a step and a
+     discretization; one full-width fp32 joint step against the JAX record
+ 9y. NAS-Bench-201: the search network's ms a CyclicSearcher step at bs64,
+     the infer network's fp32 golden and bf16 bs256 img/s
  24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
@@ -258,6 +274,8 @@ from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
 from cream_tpu_torch.models import create_model  # noqa: E402
 from cream_tpu_torch.models.clip import prune_clip, prune_clip_state_dict  # noqa: E402
 from cream_tpu_torch.models.cream import dw3x3_path_sites, dw3x3_sites  # noqa: E402
+from cream_tpu_torch.models import darts  # noqa: E402
+from cream_tpu_torch.models.darts import EXAMPLE_GENOTYPE  # noqa: E402
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention  # noqa: E402
 from cream_tpu_torch.nn.attention import BiasAttention, WindowBiasAttention  # noqa: E402
 from cream_tpu_torch.nn.swin import SwinWindowAttention  # noqa: E402
@@ -1652,13 +1670,15 @@ def dw_library(x, w9, dy, stride):
 
 def phase_dw(gen) -> tuple[dict, dict]:
     """K7/K8/K9 against their plain versions at the M5 and TinyViT-21M
-    depthwise shapes, at odd stride-2 maps and at Cream's 19 site shapes
-    (bs128), bf16 and fp32; dw bits on two launches; bf16 times at the M5
+    depthwise shapes, at odd stride-2 maps, at Cream's 19 site shapes
+    (bs128) and at the DARTS search (bs64) and CDARTS retrain (bs256) sites,
+    bf16 and fp32; dw bits on two launches; bf16 times at the M5
     and TinyViT sites. Returns the worst bf16 errors by kernel and the times
     by shape."""
     worst = dict.fromkeys(dwconv.LAUNCHES, 0.0)
     times = {}
-    for name, B, H, W, C, stride, per in DW_M5 + DW_TINYVIT + DW_S2_ODD + DW_CREAM:
+    for name, B, H, W, C, stride, per in (DW_M5 + DW_TINYVIT + DW_S2_ODD + DW_CREAM
+                                           + darts_dw_sites()):
         fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
         for dtype in (torch.bfloat16, torch.float32):
             x, w9, dy = dw_inputs(gen, B, H, W, C, stride, dtype)
@@ -3458,6 +3478,306 @@ def phase_cream_search() -> dict:
             "launches": {k: sum(s[k] for s in per_step) for k in per_step[0]}}
 
 
+# ---- CDARTS, DARTS and NAS-Bench-201 (no TPU kernel lies on JAX's path;
+# SepConv's depthwise 3x3 sites reach K7/K9 on "fused") ----
+RETRAIN = "cdarts_retrain_imagenet"
+RETRAIN_GENOTYPES = [EXAMPLE_GENOTYPE] * 3
+RETRAIN_TRAIN_BATCH, DARTS_BATCH = 128, 64
+
+
+def darts_dw_sites() -> list:
+    """The DARTS search network's depthwise 3x3 site shapes at its step's
+    bs64 and the retrain network's at bs256 (`models.darts.dw3x3_sites`,
+    traced on the meta device), held to the plain versions in `phase_dw`."""
+    search = create_model("darts_search_cifar", device="meta")
+    a = darts.init_alphas(torch.Generator().manual_seed(0))
+    retrain = create_model(RETRAIN, genotypes=RETRAIN_GENOTYPES, device="meta")
+    return ([(f"darts_search_{i}", *shape, stride, 0) for i, (stride, shape) in
+             enumerate(darts.dw3x3_sites(search, DARTS_BATCH, a["normal"], a["reduce"]))]
+            + [(f"cdarts_retrain_{i}", *shape, stride, 0)
+               for i, (stride, shape) in enumerate(darts.dw3x3_sites(retrain, BATCH))])
+
+
+class RecordingOpt:
+    """An optimizer that keeps the grads it is handed."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+
+    def step(self, params, grads):
+        self.grads = dict(grads)
+        self.inner.step(params, grads)
+
+
+def phase_cdarts_retrain() -> dict:
+    """9v. cdarts_retrain_imagenet (init 48, 224 px, 5/5/4 cells) on the
+    example genotype (every primitive but 'none'): the fp32 B=2 logits (TF32
+    off) on seeded weights against the JAX package's (1e-3); bf16 bs256 on
+    "fused" against "library" (K7/K9 launches a forward at the SepConv
+    sites, logits within 8 bf16 ulps of the largest |logit|); bf16 vs fp32
+    top-1 on 512 low-frequency images, counted on those whose fp32 top-2
+    margin is above 4 bf16 ulps (need >= 0.99 on >= 100); bf16 bs256 eval
+    img/s on both routes (`throughput`) and bf16 bs128 train img/s
+    (`train_throughput`) with peak memory."""
+    no_tf32()
+    g = np.load(DATA / f"{RETRAIN}_seed0.npz")
+    ref = create_model(RETRAIN, genotypes=RETRAIN_GENOTYPES, device="cuda")
+    sd = seeded_state_dict(ref, int(g["weight_seed"]))
+    ref.load_state_dict(sd)
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    logits = predict(ref, torch.from_numpy(x)).cpu().numpy()
+    err = float(np.abs(logits - g["logits"]).max())
+    print(f"golden {RETRAIN} fp32 B=2 at 224 vs JAX logits: max_abs_err={err:.3e} bound=1e-3 "
+          f"(max |logit| {np.abs(g['logits']).max():.3f}) [{card_info()}]")
+    check(bool(np.isfinite(logits).all()) and err <= 1e-3, f"{RETRAIN} golden {err}")
+    dtype, gen = torch.bfloat16, torch.Generator("cuda").manual_seed(12)
+    images = [smooth_images(gen, BATCH) for _ in range(512 // BATCH)]
+    models, first, launches = {}, {}, {}
+    DW_REFUSED.clear()
+    for route in ("library", "fused"):
+        models[route] = create_model(RETRAIN, genotypes=RETRAIN_GENOTYPES, device="cuda",
+                                     dtype=dtype)
+        models[route].load_state_dict(sd)
+        set_dw_kernel(models[route], route)
+        dwconv.reset_launches()
+        first[route] = predict(models[route], images[0])
+        torch.cuda.synchronize()
+        launches[route] = dict(dwconv.LAUNCHES)
+    s1, s2 = darts.dw3x3_path_sites(models["fused"])
+    want_l = {"k7_fwd": s1, "k7_bwd": 0, "k8": 0, "k9_fwd": s2, "k9_bwd": 0}
+    diff = float((first["fused"] - first["library"]).abs().max())
+    lim = 8 * float(bf16_ulp(first["library"].abs().max()))
+    bf = torch.cat([first["library"]] + [predict(models["library"], x) for x in images[1:]])
+    fp = torch.cat([predict(ref, x) for x in images])
+    del ref
+    agree, decided, agree_decided = top1_agreement(bf, fp)
+    n_decided = round(decided * len(fp))
+    ips = {r: throughput(models[r], BATCH, 224, dtype, 20, 3) for r in ("library", "fused")}
+    del models["fused"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_ips = train_throughput(models["library"], RETRAIN_TRAIN_BATCH, 224, dtype, 10, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"main {RETRAIN} bf16 B={BATCH} (cdarts_retrain_imagenet_infer_throughput): "
+          f"library {ips['library']:.1f} img/s, fused {ips['fused']:.1f} img/s (CUDA events, 20 "
+          f"forwards after 3); fused: K7/K9 launches a forward {launches['fused']} (want "
+          f"{want_l}; library {launches['library']}), logits vs library max |diff| {diff:.3e} "
+          f"(bound 8 ulps {lim:.3e}); bf16 vs fp32 top-1 {agree:.4f} over {len(fp)} images, "
+          f"{agree_decided:.4f} on the {n_decided} decided (need >= 0.99 on >= 100); train bf16 "
+          f"B={RETRAIN_TRAIN_BATCH} (cdarts_retrain_imagenet_train_throughput) {train_ips:.1f} "
+          f"img/s (AdamW, 10 steps after 3), peak memory {peak:.2f} GiB; depthwise sites the "
+          f"kernels refused: {dict(DW_REFUSED)} [{card_info()}]")
+    check(launches["fused"] == want_l and sum(launches["library"].values()) == 0,
+          f"{RETRAIN} launches {launches}, want {want_l} on fused")
+    check(diff <= lim, f"{RETRAIN} fused vs library logits {diff} > {lim}")
+    check(n_decided >= 100 and agree_decided >= 0.99,
+          f"{RETRAIN}: bf16 vs fp32 top-1 {agree_decided} on {n_decided} decided images")
+    check(not DW_REFUSED, f"{RETRAIN}: the kernels refused depthwise sites {dict(DW_REFUSED)}")
+    check(np.isfinite(train_ips), f"{RETRAIN} train")
+    return {"img_per_s": ips, "train_img_per_s": train_ips, "peak_gib": peak,
+            "launches": launches["fused"]}
+
+
+def phase_darts_search(rounds: int = 2, per: int = 3) -> dict:
+    """9w. darts_search_cifar (C 16, 8 layers, 4 nodes): the fp32 B=2 logits
+    and CE alpha grads (eval mode, TF32 off) on seeded weights and the
+    stored alphas against the JAX package's, run in float64 (1e-3; grads
+    1e-3 of their largest); then CyclicSearcher's weight step (SGD 0.05 / 0.9) and alpha
+    step (Adam 3e-4 b1 0.5, against eval-net logits, L1 on the
+    parameter-free ops) in bf16 at bs64 on 32x32 low-frequency images from
+    the same weights and alphas on "library" and "fused": K7/K9 launches of
+    each step equal to `dw3x3_step_launches` on fused, none on library; the
+    first weight step's loss within 2 bf16 ulps and grad norm within 2%
+    between routes; ms a weight step and an alpha step (CUDA events) in
+    `rounds` interleaved rounds of `per` steps; device time and idle share
+    of one weight + alpha step on "fused" (`profile`; ~56,000 launches,
+    which the profiler takes tens of seconds to read; its wall includes the
+    profiler's host cost); no depthwise site refused."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.nas.cdarts import make_alpha_adam, make_alpha_step, make_weight_step
+    from cream_tpu_torch.train.optim import make_sgd
+    no_tf32()
+    g = np.load(DATA / "darts_search_cifar_seed0.npz")
+    m = create_model("darts_search_cifar", device="cuda")
+    sd = seeded_state_dict(m, int(g["weight_seed"]))
+    m.load_state_dict(sd)
+    a = {k: torch.tensor(g[f"alphas_{k}"], device="cuda", requires_grad=True)
+         for k in ("normal", "reduce")}
+    logits = m.eval()(torch.from_numpy(g["image"]).cuda(), a["normal"], a["reduce"])
+    F.cross_entropy(logits, torch.from_numpy(g["label"]).cuda()).backward()
+    err = float(np.abs(logits.detach().cpu().numpy() - g["logits"]).max())
+    gerr = max(float(np.abs(a[k].grad.cpu().numpy() - g[f"grad_{k}"]).max()
+                     / np.abs(g[f"grad_{k}"]).max()) for k in a)
+    print(f"golden darts_search_cifar fp32 B=2 vs JAX (float64): logits max_abs_err={err:.3e} bound=1e-3, "
+          f"alpha grads max err / max |grad| {gerr:.3e} bound=1e-3 [{card_info()}]")
+    check(err <= 1e-3 and gerr <= 1e-3, f"darts_search golden {err} {gerr}")
+    dtype, gen = torch.bfloat16, torch.Generator("cuda").manual_seed(13)
+    tb = {"image": smooth_images(gen, DARTS_BATCH, 32).to(dtype),
+          "label": torch.randint(0, 10, (DARTS_BATCH,), generator=gen, device="cuda")}
+    vb = {"image": smooth_images(gen, DARTS_BATCH, 32).to(dtype),
+          "label": torch.randint(0, 10, (DARTS_BATCH,), generator=gen, device="cuda")}
+    eval_logits = torch.randn(DARTS_BATCH, 10, generator=gen, device="cuda")
+    routes, runs, first, per_step = ("library", "fused"), {}, {}, {}
+    DW_REFUSED.clear()
+    for route in routes:
+        mm = create_model("darts_search_cifar", device="cuda", dtype=dtype)
+        mm.load_state_dict(sd)
+        set_dw_kernel(mm, route)
+        alphas = darts.init_alphas(torch.Generator("cuda").manual_seed(0), device="cuda")
+        w = make_weight_step(mm, make_sgd(0.05, momentum=0.9))
+        al = make_alpha_step(mm, make_alpha_adam())
+        runs[route] = (lambda w=w, alphas=alphas: w(alphas, tb),
+                       lambda al=al, alphas=alphas: al(alphas, vb, eval_logits))
+        dwconv.reset_launches()
+        first[route] = runs[route][0]()
+        torch.cuda.synchronize()
+        launches_w = dict(dwconv.LAUNCHES)
+        dwconv.reset_launches()
+        runs[route][1]()
+        torch.cuda.synchronize()
+        per_step[route] = (launches_w, dict(dwconv.LAUNCHES))
+        want = ((darts.dw3x3_step_launches(mm), darts.dw3x3_step_launches(mm, True))
+                if route == "fused" else (dict.fromkeys(dwconv.LAUNCHES, 0),) * 2)
+        check(per_step[route] == want, f"darts search {route}: launches {per_step[route]}, "
+                                       f"want {want}")
+    ms = {r: {"weight": [], "alpha": []} for r in routes}
+    for i in range(rounds):
+        for route in (routes if i % 2 == 0 else routes[::-1]):
+            for kind, fn in zip(("weight", "alpha"), runs[route]):
+                ms[route][kind].append(statistics.median(timed_steps(fn, per)))
+    prof = {"fused": profile(lambda: (runs["fused"][0](), runs["fused"][1]()), steps=1, warmup=0,
+                             top=6)}
+    l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
+    g_ref, g_k = float(first["library"]["grad_norm"]), float(first["fused"]["grad_norm"])
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+    med = {r: {k: statistics.median(v) for k, v in ms[r].items()} for r in routes}
+    print(f"train darts_search_cifar bf16 B={DARTS_BATCH} 32x32 (darts_search_step_ms): K7/K9 "
+          f"launches a weight step / an alpha step on fused {per_step['fused'][0]} / "
+          f"{per_step['fused'][1]} (the sites' rule), library none; first weight step fused vs "
+          f"library: loss {l_k:.5f} vs {l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound "
+          f"{loss_lim:.2e}), grad_norm {g_k:.4f} vs {g_ref:.4f} (rel "
+          f"{abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2); ms a step (CUDA events, medians of "
+          f"{per} in {rounds} interleaved rounds): " + "; ".join(
+              f"{r} weight {' / '.join(f'{v:.2f}' for v in ms[r]['weight'])}, alpha "
+              f"{' / '.join(f'{v:.2f}' for v in ms[r]['alpha'])}" for r in routes)
+          + "; profile of a weight + alpha step: " + "; ".join(
+              f"{r} wall {prof[r]['wall_ms']:.2f} ms, device {prof[r]['device_ms']:.2f} ms, idle "
+              f"share {prof[r]['idle_share']:.3f}, {prof[r]['launches']:.0f} launches, by kind "
+              + ", ".join(f"{k} {v:.2f}" for k, v in list(prof[r]["by_kind_ms"].items())[:6])
+              for r in prof)
+          + f"; depthwise sites the kernels refused: {dict(DW_REFUSED)} [{card_info()}]")
+    check(np.isfinite(l_k) and abs(l_k - l_ref) <= loss_lim, f"darts loss {l_k} vs {l_ref}")
+    check(abs(g_k - g_ref) <= 2e-2 * g_ref, f"darts grad_norm {g_k} vs {g_ref}")
+    check(not DW_REFUSED, f"darts search: the kernels refused depthwise sites {dict(DW_REFUSED)}")
+    fused = per_step["fused"]
+    return {"ms": med, "rounds": ms, "profile": {r: {k: prof[r][k] for k in (
+        "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms")} for r in prof},
+            "launches_per_step": fused,
+            "launches": {k: fused[0][k] + fused[1][k] for k in fused[0]}}
+
+
+def phase_cdarts_stage() -> dict:
+    """9x. `cli.search_cdarts.main` on the card at StageSearchConfig's width
+    (3 layers of 2 cells, 4 nodes, C 16, aux pool 6; fp32, bs64 32x32
+    synthetic), steps and iterations cut to 2 steps and 1 iteration a layer:
+    the JSON parses with 3 final genotypes and 3 history entries;
+    cdarts_retrain_imagenet builds from its final genotypes and runs a bf16
+    forward; seconds a pretrain, joint and super-weight step and a
+    discretization (medians). Then one fp32 joint step of the full-width
+    controller (B=2, layer_idx 1, TF32 off) on seeded weights against the
+    JAX package's record (its step in float64): loss 1e-4, grad norm 1e-3
+    relative, alpha grads 1e-2 of their largest (the port's fp32 on the CPU
+    sits up to 1.7e-3 off: the batch of 2 puts BN-cancelled terms in
+    them)."""
+    import tempfile
+
+    from cream_tpu_torch.cli import search_cdarts
+    from cream_tpu_torch.nas import cdarts_stage as S
+    from cream_tpu_torch.nas.cdarts import make_alpha_adam
+    from cream_tpu_torch.train.optim import make_sgd
+    no_tf32()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        res = search_cdarts.main(["--synthetic", "--batch-size", str(DARTS_BATCH), "--steps", "2",
+                                  "--iters", "1", "--out", f"{tmp}/genotypes.json"])
+        cli_s = time.perf_counter() - t0
+        data = json.loads(Path(f"{tmp}/genotypes.json").read_text())
+    check(len(data["final_genotypes"]) == 3 and len(data["history"]) == 3,
+          f"search_cdarts JSON {len(data['final_genotypes'])} / {len(data['history'])}")
+    m = create_model(RETRAIN, genotypes=data["final_genotypes"], device="cuda",
+                     dtype=torch.bfloat16)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    out = predict(m, smooth_images(torch.Generator("cuda").manual_seed(14), 2))
+    check(out.shape == (2, 1000) and bool(torch.isfinite(out).all()), "retrain from the search")
+    t = {k: statistics.median(v) for k, v in res["timings"].items()}
+    g = np.load(DATA / "cdarts_joint_step_seed0.npz")
+    ctrl = S.CDARTSController(RETRAIN_GENOTYPES, device="cuda")
+    ctrl.load_state_dict(seeded_state_dict(ctrl, int(g["weight_seed"])))
+    alphas = {k: torch.from_numpy(g[f"alphas/{k}"]).cuda() for k in
+              ("normal", "reduce", "beta_normal", "beta_reduce")}
+    nas_opt, alpha_opt = RecordingOpt(make_sgd(0.05)), RecordingOpt(make_alpha_adam())
+    step = S.make_joint_search_step(ctrl, nas_opt, alpha_opt, 1.0, 2.0, "kl", 1e-3)
+    loss, _ = step(alphas, {"image": torch.from_numpy(g["image"]).cuda(),
+                            "label": torch.from_numpy(g["label"]).cuda()}, 1)
+    l_err = abs(float(loss) - float(g["loss"]))
+    gn = float(global_norm(nas_opt.grads.values()))
+    gn_err = abs(gn - float(g["grad_norm"])) / float(g["grad_norm"])
+    a_err = max(float(np.abs(alpha_opt.grads[k].cpu().numpy() - g[f"alpha_grad/{k}"]).max()
+                      / np.abs(g[f"alpha_grad/{k}"]).max()) for k in alphas)
+    print(f"cli.search_cdarts on the card (3 layers x 2 cells, 4 nodes, C 16, fp32 bs"
+          f"{DARTS_BATCH}, 2 steps and 1 iteration a layer): {cli_s:.1f} s, final genotypes "
+          f"{[gg['normal'][0] for gg in data['final_genotypes']]}, seconds a pretrain step "
+          f"{t['pretrain']:.3f}, joint step {t['joint']:.3f}, super-weight step "
+          f"{t['super_weight']:.3f}, discretization {t['discretize']:.3f} (medians); "
+          f"{RETRAIN} from its genotypes bf16 B=2 finite; full-width joint step fp32 B=2 vs the "
+          f"JAX record (float64): loss |diff| {l_err:.2e} (bound 1e-4), grad norm rel "
+          f"{gn_err:.2e} (bound 1e-3), alpha grads max err / max |grad| {a_err:.2e} (bound 1e-2) "
+          f"[{card_info()}]")
+    check(l_err <= 1e-4 and gn_err <= 1e-3 and a_err <= 1e-2,
+          f"joint step vs JAX {l_err} {gn_err} {a_err}")
+    return {"cli_s": cli_s, "step_s": t}
+
+
+def phase_nb201(steps: int = 10) -> dict:
+    """9y. NAS-Bench-201: nasbench201_search (C 16, N 5) under
+    CyclicSearcher in bf16 at bs64 32x32 (seeded alphas, SGD 0.05 / 0.9,
+    Adam 3e-4): ms a weight + alpha step (CUDA events, `steps` after 2);
+    nasbench201_infer on the example arch (every op): the fp32 B=2 logits
+    against the JAX package's (1e-3), bf16 bs256 img/s (`throughput`)."""
+    from cream_tpu_torch.models import nasbench201 as nb
+    from cream_tpu_torch.nas.cdarts import CyclicSearcher
+    no_tf32()
+    dtype, gen = torch.bfloat16, torch.Generator("cuda").manual_seed(15)
+    m = create_model("nasbench201_search", device="cuda", dtype=dtype)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    s = CyclicSearcher(m, nb.init_alphas_201(torch.Generator("cuda").manual_seed(0),
+                                             device="cuda"))
+    b = {"image": smooth_images(gen, DARTS_BATCH, 32).to(dtype),
+         "label": torch.randint(0, 10, (DARTS_BATCH,), generator=gen, device="cuda")}
+    losses = [(s.weight_step(b), s.alpha_step(b)) for _ in range(2)]
+    ms = timed_steps(lambda: (s.weight_step(b), s.alpha_step(b)), steps)
+    g = np.load(DATA / "nasbench201_infer_seed0.npz")
+    ref = create_model("nasbench201_infer", genotype=nb.EXAMPLE_ARCH, device="cuda")
+    sd = seeded_state_dict(ref, int(g["weight_seed"]))
+    ref.load_state_dict(sd)
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)
+    err = float(np.abs(predict(ref, torch.from_numpy(x)).cpu().numpy() - g["logits"]).max())
+    bf = create_model("nasbench201_infer", genotype=nb.EXAMPLE_ARCH, device="cuda", dtype=dtype)
+    bf.load_state_dict(sd)
+    ips = throughput(bf, BATCH, 32, dtype, 20, 3)
+    print(f"nasbench201_search bf16 B={DARTS_BATCH} under CyclicSearcher "
+          f"(nasbench201_search_step_ms): {statistics.median(ms):.2f} ms a weight + alpha step "
+          f"(median of {steps}, CUDA events; host-synchronized by the searcher's float losses), "
+          f"first losses {losses[0]}, genotype {nb.structure_tostr(s.genotype())}; "
+          f"nasbench201_infer {nb.EXAMPLE_ARCH}: fp32 B=2 vs JAX logits max_abs_err={err:.3e} "
+          f"bound=1e-3, bf16 B={BATCH} {ips:.1f} img/s (nasbench201_infer_throughput) "
+          f"[{card_info()}]")
+    check(err <= 1e-3 and all(np.isfinite(losses).ravel()), f"nasbench201 {err} {losses}")
+    return {"search_ms": statistics.median(ms), "infer_img_per_s": ips}
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -3534,6 +3854,12 @@ def main() -> None:
     cream_eval = phase_cream_childnets()
     cream = phase_cream_search()
     nas_s = time.time() - t_nas
+    t_darts = time.time()
+    retrain = phase_cdarts_retrain()
+    darts_search = phase_darts_search()
+    stage = phase_cdarts_stage()
+    nb201 = phase_nb201()
+    darts_s = time.time() - t_darts
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -3590,14 +3916,17 @@ def main() -> None:
         rows.append({
             "name": f"dwconv_{key}", "route": "cuda", "source": "cream_tpu_torch/csrc/dwconv.cu",
             "replaces": f"cream_tpu/ops/dwconv.py:{src_line}",
-            "launches": evit_train[route][key] + tv_train[key] + cream["launches"][key],
+            "launches": (evit_train[route][key] + tv_train[key] + cream["launches"][key]
+                         + darts_search["launches"][key] + retrain["launches"][key]),
             "max_abs_err": worst_dw[key],
             **{k: sum(tdw[n][kind][k] * per for n, per in sites)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": max((tdw[n][kind] for n, _ in sites),
                             key=lambda r: r["bound_ms"])["bound_by"],
             "tinyvit21m_step": per_step(tdw, DW_TINYVIT, kind, stride),
-            "cream_supernet_step_launches": [n[key] for n in cream["launches_per_step"]]})
+            "cream_supernet_step_launches": [n[key] for n in cream["launches_per_step"]],
+            "darts_search_step_launches": [n[key] for n in darts_search["launches_per_step"]],
+            "cdarts_retrain_forward_launches": retrain["launches"][key]})
         if stride == 2:                                   # K9: each site's own times
             rows[-1]["sites"] = {n: {k: tdw[n][kind][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms")} | {"per_step": per}
@@ -3661,7 +3990,8 @@ def main() -> None:
           f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
           f"sites; under tinyvit21m_step the sum over a TinyViT-21M-224 bf16 bs256 train "
           f"step's), launches on the M5 train path's fused (K7, K9) and wgrad (K8) routes "
-          f"and the TinyViT train path's fused route; "
+          f"and the TinyViT train path's fused route, with the Cream supernet steps', the DARTS "
+          f"search steps' and the CDARTS retrain forward's on fused; "
           f"per BiasAttention call at 4,096 windows (K3); per TinyViT-21M-224 bf16 bs256 "
           f"forward (K6: its 2 MBConvs; K11: its 3 stage "
           f"inputs, under retime the 3 interleaved rounds against x.clone(), as "
@@ -3707,6 +4037,19 @@ def main() -> None:
                        for r in ("library", "fused"))
           + f" img/s (medians), meta step {cream['meta_ms']:.2f} ms; K7/K9 launches on the "
           f"Cream fused steps {cream['launches']} [{card}]")
+    print(f"CDARTS / DARTS / NAS-Bench-201 (phases 9v-9y, {darts_s:.1f} s): "
+          f"cdarts_retrain_imagenet bf16 bs{BATCH} library / fused "
+          f"{retrain['img_per_s']['library']:.1f} / {retrain['img_per_s']['fused']:.1f} img/s, "
+          f"train bs{RETRAIN_TRAIN_BATCH} {retrain['train_img_per_s']:.1f} img/s (peak "
+          f"{retrain['peak_gib']:.2f} GiB); darts_search_cifar bf16 bs{DARTS_BATCH} ms a weight / "
+          f"alpha step: " + "; ".join(
+              f"{r} {darts_search['ms'][r]['weight']:.2f} / {darts_search['ms'][r]['alpha']:.2f}"
+              for r in ("library", "fused"))
+          + f" (fused idle share {darts_search['profile']['fused']['idle_share']:.3f})"
+          + f"; staged search CLI {stage['cli_s']:.1f} s (s a joint step "
+          f"{stage['step_s']['joint']:.3f}); nasbench201_search {nb201['search_ms']:.2f} ms a "
+          f"step, nasbench201_infer {nb201['infer_img_per_s']:.1f} img/s; K7/K9 launches on the "
+          f"DARTS fused steps {darts_search['launches']} [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -17,6 +17,9 @@
     python -m cream_tpu_torch.cli.profile_step [--train] --models \
         autoformer_supernet_tiny cream_supernet --batch 128 config=largest  # a supernet at
                                                          # a fixed config (smallest, seed:N)
+    python -m cream_tpu_torch.cli.profile_step [--train] --models darts_search_cifar \
+        --batch 64 [dw_kernel=fused]                     # a search net at seeded alphas
+                                                         # (--train: its weight step)
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -32,7 +35,10 @@ CGA route "plain"); `key=value` words are model keyword arguments, as in
 `speed_test`; `--img-size` defaults to each model's own. A two-tower CLIP
 model runs `speed_test.pair_step` on `speed_test.pair_inputs` (both towers,
 their similarity matrix); with `--train`, TinyCLIP's L0 distillation step
-(`speed_test.tinyclip_train_step_fn`). A run without a CUDA device fails.
+(`speed_test.tinyclip_train_step_fn`). A DARTS or NAS-Bench-201 search
+network runs at `speed_test.search_alphas` (`--train`: the searcher's
+weight step); a network built from a genotype takes
+`speed_test.genotype_kwargs`'s example. A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -152,9 +158,9 @@ def use_plain_attention(model: torch.nn.Module) -> None:
 
 
 def main(argv=None):
-    from cream_tpu_torch.cli.speed_test import (is_two_tower, model_kwargs, pair_inputs,
-                                                pair_step, tinyclip_train_step_fn,
-                                                train_step_fn)
+    from cream_tpu_torch.cli.speed_test import (forward_fn, genotype_kwargs, is_two_tower,
+                                                model_kwargs, pair_inputs, pair_step,
+                                                tinyclip_train_step_fn, train_step_fn)
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -179,7 +185,8 @@ def main(argv=None):
     out = {}
     for name in args.models:
         size = {} if args.img_size is None else {"img_size": args.img_size}
-        model = create_model(name, device="cuda", dtype=dtype, **size, **kw)
+        model = create_model(name, device="cuda", dtype=dtype, **size, **kw,
+                             **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
             use_plain_attention(model)
@@ -196,10 +203,11 @@ def main(argv=None):
         else:
             x = torch.randn(args.batch, model.img_size, model.img_size, 3,
                             device="cuda").to(dtype)
+            forward = forward_fn(model)
 
             def fn():
                 with torch.inference_mode():
-                    model(x)
+                    forward(x)
         res = profile(fn, args.steps, args.warmup)
         out[name] = res
         print(json.dumps({"model": name, "train": args.train, "batch": args.batch,

@@ -21,6 +21,10 @@
         autoformer_supernet_tiny cream_supernet --batch 128 config=largest  # smallest, seed:N
     python -m cream_tpu_torch.cli.speed_test --models cream_604 cream_481 \
         --batch 256 [dw_kernel=fused]                    # Cream's released childnets
+    python -m cream_tpu_torch.cli.speed_test [--train] --models darts_search_cifar \
+        nasbench201_search --batch 64 [dw_kernel=fused]  # DARTS / NAS-Bench-201 search nets
+    python -m cream_tpu_torch.cli.speed_test [--train] --models \
+        cdarts_retrain_imagenet nasbench201_infer        # discrete nets of an example genotype
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -40,6 +44,14 @@ fixed config its `config=` option names (`smallest`, `largest`, `seed:N`);
 with `--train` through its own step (`nas.supernet_engine.
 make_supernet_train_step`, `nas.cream.make_cream_train_step` without KD),
 which gives the params off that path zero grads.
+
+A DARTS or NAS-Bench-201 search network (`darts_search_cifar`,
+`nasbench201_search`) runs at seeded alphas (`search_alphas`); with
+`--train` through its own step, the searcher's weight step
+(`nas.cdarts.make_weight_step`). A discrete network built from a genotype
+(`cdarts_retrain_*`, `darts_augment_cifar`, `nasbench201_infer`) takes
+`models.darts.EXAMPLE_GENOTYPE` (one a group) or
+`models.nasbench201.EXAMPLE_ARCH` unless a genotype is given.
 
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
@@ -79,15 +91,52 @@ def throughput(model: torch.nn.Module, batch: int, img_size: int,
                     device=device).to(dtype)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    forward = forward_fn(model)
     with torch.inference_mode():
         for _ in range(warmup):
-            model(x)
+            forward(x)
         start.record()
         for _ in range(n_iters):
-            model(x)
+            forward(x)
         end.record()
         end.synchronize()
     return batch * n_iters / (start.elapsed_time(end) / 1e3)
+
+
+def search_alphas(model: torch.nn.Module) -> dict | None:
+    """Seeded alphas on the model's device for a DARTS or NAS-Bench-201
+    search network (`init_alphas` / `init_alphas_201` from seed 0), else
+    None."""
+    from cream_tpu_torch.models import darts, nasbench201
+    device = next(model.parameters()).device
+    gen = torch.Generator(device).manual_seed(0)
+    if isinstance(model, darts.SearchCNN):
+        return darts.init_alphas(gen, model.n_nodes, device)
+    if isinstance(model, nasbench201.TinyNetwork201):
+        return nasbench201.init_alphas_201(gen, device=device)
+    return None
+
+
+def forward_fn(model: torch.nn.Module):
+    """`model` as a function of the images: a search network at its
+    `search_alphas`."""
+    alphas = search_alphas(model)
+    if alphas is None:
+        return model
+    return lambda x: model(x, alphas["normal"], alphas["reduce"])
+
+
+def genotype_kwargs(name: str, kw: dict) -> dict:
+    """The example genotype for a registered network built from one, where
+    `kw` gives none."""
+    from cream_tpu_torch.models import darts, nasbench201
+    from cream_tpu_torch.models.registry import accepts
+    if accepts(name, "genotypes") and "genotypes" not in kw:
+        return {"genotypes": [darts.EXAMPLE_GENOTYPE] * 3}
+    if accepts(name, "genotype") and "genotype" not in kw:
+        return {"genotype": nasbench201.EXAMPLE_ARCH if name.startswith("nasbench201")
+                else darts.EXAMPLE_GENOTYPE}
+    return {}
 
 
 def is_two_tower(model: torch.nn.Module) -> bool:
@@ -144,11 +193,12 @@ def pair_throughput(model: torch.nn.Module, batch: int, dtype: torch.dtype = tor
 
 
 def train_step_fn(model: torch.nn.Module, batch: int, img_size: int,
-                  dtype: torch.dtype = torch.bfloat16, num_classes: int = 1000):
+                  dtype: torch.dtype = torch.bfloat16, num_classes: int | None = None):
     """A zero-argument function that runs one train step of `model` (the
     JAX package's `bench_train_step`: `make_train_step` with int labels,
     adamw(1e-3, weight_decay=0.05) on every param, no clipping) on one
-    random batch on the model's CUDA device."""
+    random batch on the model's CUDA device; labels below `num_classes`
+    (default: the model's `num_classes`, else 1000)."""
     from cream_tpu_torch.train import TrainState, make_train_step
     from cream_tpu_torch.train.optim import make_adamw
 
@@ -159,6 +209,7 @@ def train_step_fn(model: torch.nn.Module, batch: int, img_size: int,
     gen = torch.Generator(device).manual_seed(1)
     x = torch.randn(batch, img_size, img_size, 3, generator=gen,
                     device=device).to(dtype)
+    num_classes = num_classes or getattr(model, "num_classes", 1000)
     labels = torch.randint(0, num_classes, (batch,), generator=gen, device=device)
     state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=None))
     data = {"image": x, "label": labels}
@@ -171,10 +222,16 @@ def train_step_fn(model: torch.nn.Module, batch: int, img_size: int,
 def supernet_step(model: torch.nn.Module):
     """A supernet's own train step at the config fixed at its build, as
     `make_train_step`'s step(state, batch, seed) (the params off that path
-    get zero grads: `train.steps.supernet_grads`), or None for a fixed
-    model."""
+    get zero grads: `train.steps.supernet_grads`); a search network's weight
+    step at its `search_alphas` with the state's optimizer; or None for a
+    fixed model."""
     from cream_tpu_torch.models.autoformer import AutoFormerSuper
     from cream_tpu_torch.models.cream import CreamSupernet
+    alphas = search_alphas(model)
+    if alphas is not None:
+        from cream_tpu_torch.nas.cdarts import make_weight_step
+        return lambda state, batch, seed: (state, make_weight_step(model, state.tx)(alphas,
+                                                                                    batch))
     if isinstance(model, AutoFormerSuper):
         from cream_tpu_torch.nas.supernet_engine import make_supernet_train_step
         af_step = make_supernet_train_step()
@@ -292,7 +349,8 @@ def main(argv=None):
             print(f"skip unknown model {name}")
             continue
         size = {} if args.img_size is None else {"img_size": args.img_size}
-        model = create_model(name, device=args.device, dtype=dtype, **size, **kw)
+        model = create_model(name, device=args.device, dtype=dtype, **size, **kw,
+                             **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         pairs = is_two_tower(model)
         if pairs and args.train:

@@ -476,7 +476,7 @@ def prune_clip_state_dict(state_dict, vision_masks: dict | None, text_masks: dic
 
 def prune_clip(state_dict, cfg: CLIPConfig, vision_masks: dict | None,
                text_masks: dict | None, quick_gelu: bool = False, *,
-               dtype: torch.dtype = torch.float32, device="cpu", head_dim: int = 64):
+               dtype: torch.dtype = torch.float32, device, head_dim: int = 64):
     """An L0-pruned CLIP materialized (host-side, as the JAX package's
     `prune_clip`): (the ragged model on `device` with the pruned weights
     loaded, its state_dict). `cfg` gives the family's depths and input

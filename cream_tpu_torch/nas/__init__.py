@@ -1,2 +1,3 @@
-"""One-shot NAS: AutoFormer's supernet training and evolution search, and
-Cream's prioritized-path search (counterpart of `cream_tpu/nas`)."""
+"""Neural architecture search: AutoFormer's supernet training and evolution
+search, Cream's prioritized-path search, and CDARTS' cyclic and staged
+searches (counterpart of `cream_tpu/nas`)."""

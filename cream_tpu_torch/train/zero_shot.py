@@ -47,7 +47,7 @@ def device_clock(device: torch.device) -> float:
 
 def build_zero_shot_classifier(encode_text_fn, tokenizer, classnames,
                                templates=DEFAULT_TEMPLATES, batch_size: int = 64,
-                               device="cpu", stats: dict | None = None) -> torch.Tensor:
+                               *, device, stats: dict | None = None) -> torch.Tensor:
     """-> (embed_dim, num_classes) classifier on `device`: each class's
     prompt features (`encode_text_fn` gives them L2-normalized) averaged
     over the templates and L2-normalized again, in the features' dtype.

@@ -665,6 +665,211 @@ def cream_state_dict_from_jax(variables: Mapping, with_head: bool = True
     return w.state_dict()
 
 
+# ---- DARTS / CDARTS / NAS-Bench-201 ----
+
+def _bn_stats(w: _Writer, fp: str, tp: str) -> None:
+    """A BatchNorm without scale or bias: its running statistics."""
+    st = w._get(w.stats, fp)
+    w.sd[f"{tp}.running_mean"] = np.asarray(st["mean"])
+    w.sd[f"{tp}.running_var"] = np.asarray(st["var"])
+    w.sd[f"{tp}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _conv_bn_seq(w: _Writer, fp: str, tp: str, ci: int, bi: int) -> None:
+    """A JAX ConvBN (`conv`, `bn`) -> a reference Sequential's conv `ci`
+    and BN `bi`."""
+    w.sd[f"{tp}.{ci}.weight"] = _conv(w._get(w.params, f"{fp}/conv/kernel"))
+    w.bn(f"{fp}/bn", f"{tp}.{bi}")
+
+
+def _darts_op(w: _Writer, fp: str, tp: str) -> None:
+    """One DARTS op's params, its kind read off its JAX names: SepConv
+    (`dw0`/`pw0`/`bn0`, `dw1`/…), DilConv (`dw`/`pw`/`bn`) or a
+    FactorizedReduce (`conv1`/`conv2`/`bn`); the pools, the identity and
+    'none' have none."""
+    node = w._get(w.params, fp)
+    if "conv1" in node:
+        w.sd[f"{tp}.conv1.weight"] = _conv(node["conv1"]["kernel"])
+        w.sd[f"{tp}.conv2.weight"] = _conv(node["conv2"]["kernel"])
+        w.bn(f"{fp}/bn", f"{tp}.bn")
+        return
+    for j, sub in ((0, "0"), (1, "1")) if "dw0" in node else ((None, ""),):
+        tq = tp if j is None else f"{tp}.net.{j}"
+        w.sd[f"{tq}.net.1.weight"] = _conv(node[f"dw{sub}"]["kernel"])
+        w.sd[f"{tq}.net.2.weight"] = _conv(node[f"pw{sub}"]["kernel"])
+        w.bn(f"{fp}/bn{sub}", f"{tq}.net.3")
+
+
+def _darts_cell(w: _Writer, fp: str, tp: str, search: bool) -> None:
+    """A JAX SearchCell (`dag_{i}_{j}/op_{k}`) or AugmentCell (`dag_{i}_{e}`)
+    -> the port's (`dag.{i}.{j}._ops.{k}`, `dag.{i}.{e}.0`), with its
+    preprocessing (a StdConv `preproc*/conv_bn` or a FactorizedReduce)."""
+    node = w._get(w.params, fp)
+    for pre in ("preproc0", "preproc1"):
+        if "conv_bn" in node[pre]:
+            _conv_bn_seq(w, f"{fp}/{pre}/conv_bn", f"{tp}.{pre}.net", 1, 2)
+        else:
+            _darts_op(w, f"{fp}/{pre}", f"{tp}.{pre}")
+    for key in node:
+        if not key.startswith("dag_"):
+            continue
+        _, i, j = key.split("_")
+        if search:
+            for op in node[key]:
+                _darts_op(w, f"{fp}/{key}/{op}", f"{tp}.dag.{i}.{j}._ops.{op.split('_')[1]}")
+        else:
+            _darts_op(w, f"{fp}/{key}", f"{tp}.dag.{i}.{j}.0")
+
+
+def _numbered(params: Mapping, prefix: str) -> list[int]:
+    return sorted(int(k[len(prefix):]) for k in params if k.startswith(prefix))
+
+
+def darts_search_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's SearchCNN variables (`stem`, `cell_{i}`, `head`)
+    -> the port's `models.darts.SearchCNN` state_dict."""
+    w = _Writer(variables)
+    _conv_bn_seq(w, "stem", "stem", 0, 1)
+    for li in _numbered(w.params, "cell_"):
+        _darts_cell(w, f"cell_{li}", f"cells.{li}", search=True)
+    w.dense("head", "linear")
+    return w.state_dict()
+
+
+def darts_augment_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's AugmentCNN variables -> the port's
+    `models.darts.AugmentCNN` state_dict."""
+    w = _Writer(variables)
+    _conv_bn_seq(w, "stem", "stem", 0, 1)
+    for li in _numbered(w.params, "cell_"):
+        _darts_cell(w, f"cell_{li}", f"cells.{li}", search=False)
+    w.dense("head", "linear")
+    return w.state_dict()
+
+
+def cdarts_retrain_state_dict_from_jax(variables: Mapping, genotypes, model_type: str = "imagenet",
+                                       res_stem: bool = False) -> dict[str, torch.Tensor]:
+    """The JAX package's CDARTSRetrain variables -> the port's
+    `models.darts.CDARTSRetrain` state_dict, in the released ModelTest
+    names: the exact inverse of `convert_cdarts_retrain`."""
+    from cream_tpu_torch.models.darts import as_genotypes, cdarts_retrain_plan
+    w = _Writer(variables)
+    if model_type == "cifar" or res_stem:
+        _conv_bn_seq(w, "stem", "feature_extractor.0", 0, 1)
+    else:
+        _conv_bn_seq(w, "stem0_a", "feature_extractor.0", 0, 1)
+        _conv_bn_seq(w, "stem0_b", "feature_extractor.0", 3, 4)
+        _conv_bn_seq(w, "stem1", "feature_extractor.1", 1, 2)
+    _, cell_nums, _ = cdarts_retrain_plan(model_type, res_stem)
+    for li in range(len(as_genotypes(genotypes))):
+        for i in range(cell_nums[li]):
+            _darts_cell(w, f"cell_{li}_{i}", f"nas_layers.{li}.{i}", search=False)
+    w.dense("fc", "fc")
+    return w.state_dict()
+
+
+def nasbench201_state_dict_from_jax(variables: Mapping, genotype=None, N: int | None = None
+                                    ) -> dict[str, torch.Tensor]:
+    """The JAX package's TinyNetwork201 (`genotype` None) or
+    TinyNetwork201Infer (`genotype` its genotype or arch string) variables
+    -> the port's `models.nasbench201` state_dict: `cell_{idx}` and
+    `reduction_{s}` interleaved into `cells.{k}`, a search cell's
+    `edge{i}_{j}_op{o}` as `edges.{i<-j}.{o}`, an infer cell's
+    `edge{i}_{j}_{op}` as `layers.{k}` in the genotype's order. `N`, the
+    cells a stage, is read off the cell names where None (an infer cell
+    without a conv has no variables: give N for such a genotype)."""
+    from cream_tpu_torch.models.nasbench201 import structure_fromstr
+    w = _Writer(variables)
+    w.sd["stem.0.weight"] = _conv(w.params["stem_conv"]["kernel"])
+    w.bn("stem_bn", "stem.1")
+    n = N or len(_numbered(w.params, "cell_")) // 3
+    cells = range(3 * n)
+
+    def relu_conv_bn(fp: str, tp: str) -> None:
+        w.sd[f"{tp}.op.1.weight"] = _conv(w._get(w.params, f"{fp}/conv/kernel"))
+        if "bn" in w._get(w.params, fp):
+            w.bn(f"{fp}/bn", f"{tp}.op.2")
+        else:
+            _bn_stats(w, f"{fp}/bn", f"{tp}.op.2")
+
+    if isinstance(genotype, str):
+        genotype = structure_fromstr(genotype)
+    for idx in cells:
+        stage = idx // n
+        k = idx + stage
+        if stage and idx % n == 0:
+            r, t = f"reduction_{stage}", f"cells.{k - 1}"
+            relu_conv_bn(f"{r}/conv_a", f"{t}.conv_a")
+            relu_conv_bn(f"{r}/conv_b", f"{t}.conv_b")
+            w.sd[f"{t}.downsample.1.weight"] = _conv(w.params[r]["downsample"]["kernel"])
+        node = w.params.get(f"cell_{idx}", {})
+        if genotype is None:
+            for key in node:
+                i, j, o = key[len("edge"):].replace("_op", "_").split("_")
+                relu_conv_bn(f"cell_{idx}/{key}", f"cells.{k}.edges.{i}<-{j}.{o}")
+        else:
+            layer = 0
+            for ni, inputs in enumerate(genotype, start=1):
+                for op, j in inputs:
+                    if f"edge{ni}_{j}_{op}" in node:
+                        relu_conv_bn(f"cell_{idx}/edge{ni}_{j}_{op}", f"cells.{k}.layers.{layer}")
+                    layer += 1
+    w.bn("lastact_bn", "lastact.0")
+    w.dense("head", "classifier")
+    return w.state_dict()
+
+
+def cdarts_controller_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's CDARTSController variables -> the port's
+    `nas.cdarts_stage.CDARTSController` state_dict: `stem`, `super_{l}_{c}`
+    as `super_layers.{l}.{c}`, `nas_{l}_{c}` as `nas_layers.{l}.{c}`, the
+    aux heads' `conv1`/`bn1`/`conv2`/`bn2`/`classifier` as
+    `features.{2,3,5,6}`/`classifier`, `fc_super`, `fc_nas`,
+    `ensemble_param`."""
+    w = _Writer(variables)
+    _conv_bn_seq(w, "stem", "stem", 0, 1)
+    for key in w.params:
+        if key.startswith(("super_", "nas_")):
+            kind, li, ci = key.split("_")
+            _darts_cell(w, key, f"{kind}_layers.{li}.{ci}", search=kind == "super")
+        elif key.startswith("distill_aux_head"):
+            w.sd[f"{key}.features.2.weight"] = _conv(w.params[key]["conv1"]["kernel"])
+            _bn_stats(w, f"{key}/bn1", f"{key}.features.3")
+            w.sd[f"{key}.features.5.weight"] = _conv(w.params[key]["conv2"]["kernel"])
+            _bn_stats(w, f"{key}/bn2", f"{key}.features.6")
+            w.dense(f"{key}/classifier", f"{key}.classifier")
+    w.dense("fc_super", "fc_super")
+    w.dense("fc_nas", "fc_nas")
+    w.raw("ensemble_param", "ensemble_param")
+    return w.state_dict()
+
+
+def load_cdarts_retrain(ckpt, cells_json, *, device, dtype: torch.dtype = torch.float32,
+                        model_type: str = "imagenet", res_stem: bool = False,
+                        init_channels: int = 48, num_classes: int = 1000):
+    """A released CDARTS retrain checkpoint and its cells/*.json genotype
+    file -> the port's CDARTSRetrain with those weights, in eval mode (the
+    CDARTS/CDARTS/test.py:72-86 path; the JAX package's
+    `zoo.load.load_cdarts_retrain`). `ckpt` is a .pth path (read by
+    `load_pth`) or a state_dict in the released ModelTest names, loaded
+    without conversion; keys the model does not have are left out, as the
+    JAX converter leaves them; a key the model has and the file lacks
+    raises. `cells_json` is a path to the genotype JSON or its parsed
+    dict."""
+    import json
+
+    from cream_tpu_torch.models import create_model
+    cells = cells_json if isinstance(cells_json, dict) else json.loads(open(cells_json).read())
+    name = "cdarts_retrain_imagenet" if model_type == "imagenet" else "cdarts_retrain_cifar"
+    extra = {"res_stem": res_stem} if model_type == "imagenet" else {}
+    model = create_model(name, genotypes=cells, num_classes=num_classes,
+                         init_channels=init_channels, device=device, dtype=dtype, **extra)
+    sd = dict(ckpt) if isinstance(ckpt, Mapping) else load_pth(ckpt)
+    want = model.state_dict()
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items() if k in want})
+    return model.eval()
+
+
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0
                       ) -> dict[str, torch.Tensor]:
     """Random but non-degenerate weights for `model`, drawn with numpy's

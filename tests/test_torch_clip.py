@@ -616,7 +616,7 @@ def test_zero_shot_classifier_and_eval_match_jax(merges_file):
             return model.encode_text(t)
 
     got = zero_shot.build_zero_shot_classifier(
-        port_text, lambda texts: port_tok(texts, 16), CLASSES, batch_size=2)
+        port_text, lambda texts: port_tok(texts, 16), CLASSES, batch_size=2, device="cpu")
     want = jax_zero_shot.build_zero_shot_classifier(
         jax.jit(lambda t: jm.apply(variables, t, method="encode_text")),
         lambda texts: ref_tok(texts, 16), CLASSES, batch_size=2)
@@ -689,7 +689,7 @@ def test_zero_shot_cli_end_to_end(merges_file, tmp_path):
     with torch.no_grad():
         want = zero_shot.build_zero_shot_classifier(
             ragged.encode_text, lambda t: port_tok(t, 77),
-            ["goldfish", "tabby cat", "fire truck"])
+            ["goldfish", "tabby cat", "fire truck"], device="cpu")
     np.testing.assert_allclose(res["classifier"].numpy(), want.numpy(), atol=1e-6)
 
 

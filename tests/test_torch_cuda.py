@@ -43,7 +43,11 @@ against the CPU (the same uniforms), its prune on the card, and the train
 timing with and without remat; DeiT with iRPE and Mini-DeiT, which run none
 either: `IRPE` at DeiT-S's shape and narrow models in fp32 on the card
 against the CPU (the gather's scatter-add sums with atomics on the card),
-and Mini-Swin's distillation capture.
+and Mini-Swin's distillation capture; the DARTS / CDARTS / NAS-Bench-201
+networks, which reach K7/K9 at their SepConv sites on "fused": the kernels
+at those sites, a SepConv on "fused" against "library", a search network's
+weight and alpha steps launching at the sites' rule, and narrow networks on
+the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -1276,7 +1280,7 @@ def test_l0_distill_steps_on_the_card_match_the_cpu(card):
                                             else z.cpu()) for m, z in g.items()}
              for k, g in gpu.masks().items()}
     sd = {k: v.cpu() for k, v in gpu.student.state_dict().items()}
-    pc, _ = prune_clip(sd, gpu.student.cfg, masks["v"], masks["t"])
+    pc, _ = prune_clip(sd, gpu.student.cfg, masks["v"], masks["t"], device="cpu")
     pg, sdg = prune_clip(gpu.student.state_dict(), gpu.student.cfg, gpu.masks()["v"],
                          gpu.masks()["t"], device=card)
     assert {k: tuple(v.shape) for k, v in sdg.items()} == \
@@ -1481,3 +1485,141 @@ def test_narrow_nas_models_on_the_card_match_the_cpu(card):
             got.append(_cream_supernet(device, route=route).eval()(
                 x.to(device), config=CREAM_PATH).cpu())
     torch.testing.assert_close(got[1], got[0], atol=1e-5, rtol=1e-5)
+
+
+# DARTS' depthwise 3x3 sites: the search network's at its step's 32x32 maps
+# and the CDARTS retrain network's at 224 (smaller batches than the smoke's)
+DARTS_SITES = [(32, 32, 16, 1), (32, 32, 32, 2), (16, 16, 32, 1), (16, 16, 64, 2), (8, 8, 64, 1),
+               (28, 28, 48, 1), (28, 28, 96, 2), (14, 14, 96, 1), (14, 14, 192, 2), (7, 7, 192, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,stride", DARTS_SITES)
+def test_dw_kernels_at_darts_sites(card, dtype, H, W, C, stride):
+    _check_dw_kernels(card, dtype, 8, H, W, C, stride)
+
+
+@pytest.mark.parametrize("H,W,C,stride", DARTS_SITES)
+def test_darts_sep_conv_fused_matches_library(card, H, W, C, stride):
+    """A 3x3 SepConv (train mode, fp32, TF32 off) on "fused" against
+    "library" from the same weights, under a fixed random projection of its
+    output (a loss like sum(y²) is flat in the input through a train-mode
+    BN, leaving grads of rounding noise): the output within 1e-5 and the
+    grads of the input and every param within 1e-4 of their largest
+    |value|; two K7 (or K9 then K7) launches forward and two backward."""
+    from cream_tpu_torch.models.darts import SepConv
+    from cream_tpu_torch.nn.layers import set_dw_kernel
+    rng = np.random.default_rng(H * C + stride)
+    x = torch.from_numpy(rng.standard_normal((8, H, W, C)).astype(np.float32)).to(card)
+    r = torch.from_numpy(rng.standard_normal((8, (H - 1) // stride + 1, (W - 1) // stride + 1,
+                                              C)).astype(np.float32)).to(card)
+    outs = {}
+    for route in ("library", "fused"):
+        m = SepConv(C, 3, stride, device=card).train()
+        m.load_state_dict(seeded_state_dict(m, 1))
+        set_dw_kernel(m, route)
+        xi = x.clone().requires_grad_()
+        dwconv.reset_launches()
+        y = m(xi)
+        grads = torch.autograd.grad((y * r).sum(), [xi] + list(m.parameters()))
+        torch.cuda.synchronize()
+        outs[route] = (y.detach(), grads, dict(dwconv.LAUNCHES))
+    (y0, g0, n0), (y1, g1, n1) = outs["library"], outs["fused"]
+    want = ({"k7_fwd": 2, "k7_bwd": 2, "k8": 0, "k9_fwd": 0, "k9_bwd": 0} if stride == 1 else
+            {"k7_fwd": 1, "k7_bwd": 1, "k8": 0, "k9_fwd": 1, "k9_bwd": 1})
+    assert n1 == want and sum(n0.values()) == 0
+    assert (y1 - y0).abs().max().item() <= 1e-5 * max(1.0, y0.abs().max().item())
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_darts_search_steps_launch_at_their_sites_on_the_card(card):
+    """A narrow DARTS search network (C 8, 3 layers, 3 nodes; bs8 32x32):
+    the weight step and the alpha step on "fused" launch K7/K9 as
+    `dw3x3_step_launches` says; the fp32 logits and alpha grads on "fused"
+    on the card within 1e-3 of their largest |value| of the CPU's library
+    route (the CPU's fp32 alpha grads of the full-width network sit 1.4e-4
+    off a float64 run)."""
+    from cream_tpu_torch.models.darts import SearchCNN, dw3x3_step_launches
+    from cream_tpu_torch.nas.cdarts import make_alpha_adam, make_alpha_step, make_weight_step
+    from cream_tpu_torch.nn.layers import set_dw_kernel
+    from cream_tpu_torch.train.optim import make_sgd
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((8, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 8))
+    a = {k: torch.from_numpy((rng.standard_normal((9, 8))).astype(np.float32))
+         for k in ("normal", "reduce")}
+    got = {}
+    for device, route in (("cpu", "library"), (card, "fused")):
+        m = SearchCNN(C=8, n_layers=3, n_nodes=3, device=device)
+        m.load_state_dict(seeded_state_dict(m, 2))
+        set_dw_kernel(m, route)
+        ad = {k: v.detach().to(device).requires_grad_() for k, v in a.items()}
+        logits = m.eval()(x.to(device), ad["normal"], ad["reduce"])
+        torch.nn.functional.cross_entropy(logits, y.to(device)).backward()
+        got[route] = [logits.detach().cpu()] + [ad[k].grad.cpu() for k in ("normal", "reduce")]
+        if route == "fused":
+            alphas = {k: v.detach().clone().to(device) for k, v in a.items()}
+            batch = {"image": x.to(device), "label": y.to(device)}
+            for step, alpha in ((make_weight_step(m, make_sgd(0.05)), False),
+                                (make_alpha_step(m, make_alpha_adam()), True)):
+                dwconv.reset_launches()
+                step(alphas, batch)
+                torch.cuda.synchronize()
+                assert dwconv.LAUNCHES == dw3x3_step_launches(m, alpha), alpha
+    for p, q in zip(got["fused"], got["library"]):
+        assert (p - q).abs().max().item() <= 1e-3 * q.abs().max().item()
+
+
+def test_narrow_darts_networks_on_the_card_match_the_cpu(card):
+    """fp32 logits of a narrow CDARTS retrain network on "fused", a narrow
+    NAS-Bench-201 infer network and a narrow CDARTS controller's nas and
+    super paths on the card within 1e-5 (relative) of the CPU's."""
+    from cream_tpu_torch.models.darts import EXAMPLE_GENOTYPE, CDARTSRetrain
+    from cream_tpu_torch.models.nasbench201 import EXAMPLE_ARCH, TinyNetwork201Infer
+    from cream_tpu_torch.nas.cdarts_stage import CDARTSController, init_stage_alphas
+    from cream_tpu_torch.nn.layers import set_dw_kernel
+    rng = np.random.default_rng(6)
+    x64 = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32))
+    x32 = x64[:, :32, :32].contiguous()
+    alphas = init_stage_alphas(torch.Generator().manual_seed(3), 4)
+    outs = []
+    for device, route in (("cpu", "library"), (card, "fused")):
+        r = CDARTSRetrain([EXAMPLE_GENOTYPE] * 3, init_channels=8, num_classes=10, device=device)
+        n = TinyNetwork201Infer(EXAMPLE_ARCH, C=8, N=2, device=device)
+        c = CDARTSController([EXAMPLE_GENOTYPE] * 2, layer_num=2, cells_per_layer=1, n_nodes=4,
+                             C=4, aux_pool_size=4, device=device)
+        a = {k: v.to(device) for k, v in alphas.items()}
+        out = []
+        for m, x, kw in ((r, x64, None), (n, x32, None), (c, x32, dict(super_flag=False)),
+                         (c, x32, dict(layer_idx=1))):
+            m.load_state_dict(seeded_state_dict(m, 4))
+            set_dw_kernel(m, route)
+            with torch.no_grad():
+                o = m.eval()(x.to(device)) if kw is None else m.eval()(x.to(device), a, **kw)
+            out += [t.cpu() for t in (o if isinstance(o, tuple) else (o,))]
+        outs.append(out)
+    for p, q in zip(outs[1], outs[0]):
+        assert (p - q).abs().max().item() <= 1e-5 * max(1.0, q.abs().max().item())
+
+
+@pytest.mark.parametrize("kernel,stride,pad,include", [(3, 1, 1, False), (3, 2, 1, False),
+                                                       (3, 1, 1, True), (2, 2, 0, True),
+                                                       (6, 2, 0, False)])
+def test_darts_avg_pool_grads_on_the_card_match_the_cpu(card, kernel, stride, pad, include):
+    """`models.darts.avg_pool` (DARTS' and NAS-Bench-201's 3x3 pools, the
+    201 ResNet block's 2x2 and the aux head's 6x6) on an NHWC map: float64
+    output and input grad on the card equal the CPU's to 1e-12 of their
+    largest (torch's own `avg_pool2d` backward on a channels_last input is
+    wrong on the card, which is why the helper pools a contiguous copy)."""
+    from cream_tpu_torch.models.darts import avg_pool
+    x = torch.randn(4, 16, 16, 24, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    out = []
+    for device in ("cpu", card):
+        xi = x.to(device).requires_grad_()
+        y = avg_pool(xi, kernel, stride, pad, include)
+        gy = torch.linspace(-1, 1, y.numel(), dtype=y.dtype, device=device).reshape(y.shape)
+        gx, = torch.autograd.grad((y * gy).sum(), [xi])
+        out.append((y.detach().cpu(), gx.cpu()))
+    for a, b in zip(out[1], out[0]):
+        assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().item()

@@ -396,7 +396,7 @@ def test_prune_clip_matches_jax_on_soft_gates():
     rng = np.random.default_rng(9)
     vm, tm = (gate_set(rng, 128, 2, 2, 512) for _ in range(2))
     _, want = _jax_prune(jit.convert_clip(_np_sd(port.state_dict()), 2, 2), vm, tm)
-    model, got = prune_clip(port.state_dict(), port.cfg, vm, tm)
+    model, got = prune_clip(port.state_dict(), port.cfg, vm, tm, device="cpu")
     _assert_sd_equal(got, want)
     _assert_sd_equal(model.state_dict(), want)
     assert model.visual.transformer.resblocks[0].attn.heads == 1
@@ -405,7 +405,7 @@ def test_prune_clip_matches_jax_on_soft_gates():
     assert model.vision_heads == (1, 0) and model.cfg.vision_width == 96
 
     tm["hidden_z"] = (tm["hidden_z"] != 0).astype(np.float32)
-    model, _ = prune_clip(port.state_dict(), port.cfg, vm, tm)
+    model, _ = prune_clip(port.state_dict(), port.cfg, vm, tm, device="cpu")
     images, text = pair_inputs()
     for g, w in zip(port_features(model, images, text),
                     port_features(port, images, text, vm, tm)):
@@ -430,7 +430,7 @@ def test_text_hidden_gate_is_folded_by_prune_but_not_applied_by_the_forward():
         jax.jit(pm.apply)(pv, jnp.asarray(images), jnp.asarray(text)),
         jax.jit(JaxCLIP(cfg=JaxCLIPConfig(**NARROW)).apply)(
             variables, jnp.asarray(images), jnp.asarray(text), _jax_gates(vm), _jax_gates(tm)))]
-    model, _ = prune_clip(port.state_dict(), port.cfg, vm, tm)
+    model, _ = prune_clip(port.state_dict(), port.cfg, vm, tm, device="cpu")
     gap = [np.abs(a - b).max() for a, b in zip(port_features(model, images, text),
                                                 port_features(port, images, text, vm, tm))]
     assert gap[0] < 1e-5 and jgap[0] < 1e-5
@@ -448,7 +448,7 @@ def test_reprune_of_a_ragged_model_matches_jax():
     vm, tm = (gate_set(rng, 128, 2, 2, 512, hard=True) for _ in range(2))
     variables = jit.convert_clip(_np_sd(port.state_dict()), 2, 2)
     pm, pv = jax_prune_clip(variables, JaxCLIPConfig(**NARROW), vm, tm)
-    ragged, sd = prune_clip(port.state_dict(), port.cfg, vm, tm)
+    ragged, sd = prune_clip(port.state_dict(), port.cfg, vm, tm, device="cpu")
     cfgs = tinyclip_pipeline.clip_l0_cfgs(ragged)
     masks = {}
     for k, c in cfgs.items():
@@ -457,7 +457,7 @@ def test_reprune_of_a_ragged_model_matches_jax():
     jm = {k: jax.tree_util.tree_map(lambda t: jnp.asarray(_np(t)), m, is_leaf=is_tensor)
           for k, m in masks.items()}
     _, want = _jax_prune(pv, jm["v"], jm["t"], pm.cfg)
-    again, got = prune_clip(sd, ragged.cfg, masks["v"], masks["t"])
+    again, got = prune_clip(sd, ragged.cfg, masks["v"], masks["t"], device="cpu")
     _assert_sd_equal(got, want)
     assert tinyclip_pipeline.n_params(got) < tinyclip_pipeline.n_params(sd)
     images, text = pair_inputs()
