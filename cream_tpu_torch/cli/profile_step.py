@@ -20,6 +20,8 @@
     python -m cream_tpu_torch.cli.profile_step [--train] --models darts_search_cifar \
         --batch 64 [dw_kernel=fused]                     # a search net at seeded alphas
                                                          # (--train: its weight step)
+    python -m cream_tpu_torch.cli.profile_step [--train | --decode] --models \
+        retinanet_efficientvit_m4 mask_rcnn_efficientvit_m4 --batch 16 [dw_kernel=fused]
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -38,7 +40,10 @@ their similarity matrix); with `--train`, TinyCLIP's L0 distillation step
 (`speed_test.tinyclip_train_step_fn`). A DARTS or NAS-Bench-201 search
 network runs at `speed_test.search_alphas` (`--train`: the searcher's
 weight step); a network built from a genotype takes
-`speed_test.genotype_kwargs`'s example. A run without a CUDA device fails.
+`speed_test.genotype_kwargs`'s example. A detector runs
+`speed_test.detector_forward_fn` (`--decode`: with its decode and host
+NMS) or, with `--train`, `speed_test.detector_train_step_fn`;
+`--img-size` is its canvas. A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -158,9 +163,12 @@ def use_plain_attention(model: torch.nn.Module) -> None:
 
 
 def main(argv=None):
-    from cream_tpu_torch.cli.speed_test import (forward_fn, genotype_kwargs, is_two_tower,
-                                                model_kwargs, pair_inputs, pair_step,
-                                                tinyclip_train_step_fn, train_step_fn)
+    from cream_tpu_torch.cli.speed_test import (DETECTOR_PREFIXES, detector_batch,
+                                                detector_forward_fn, detector_train_step_fn,
+                                                forward_fn, genotype_kwargs, is_detector,
+                                                is_two_tower, model_kwargs, pair_inputs,
+                                                pair_step, tinyclip_train_step_fn,
+                                                train_step_fn)
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
 
@@ -175,6 +183,8 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--plain-attention", action="store_true",
                     help="use the plain attention instead of the kernels")
+    ap.add_argument("--decode", action="store_true",
+                    help="a detector's forward plus its decode (the host's NMS included)")
     ap.add_argument("opts", nargs="*",
                     help="model keyword arguments as key=value (e.g. attn_kernel=core)")
     args = ap.parse_args(argv)
@@ -184,13 +194,19 @@ def main(argv=None):
     kw = model_kwargs(args.opts)
     out = {}
     for name in args.models:
-        size = {} if args.img_size is None else {"img_size": args.img_size}
+        size = {} if args.img_size is None else {
+            "canvas" if name.startswith(DETECTOR_PREFIXES) else "img_size": args.img_size}
         model = create_model(name, device="cuda", dtype=dtype, **size, **kw,
                              **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
             use_plain_attention(model)
-        if args.train and is_two_tower(model):
+        if is_detector(model) and args.train:
+            _, fn = detector_train_step_fn(model, args.batch, dtype)
+        elif is_detector(model):
+            fn = detector_forward_fn(model, detector_batch(model, args.batch, dtype)["image"],
+                                     args.decode)
+        elif args.train and is_two_tower(model):
             _, fn = tinyclip_train_step_fn(model, args.batch)
         elif args.train:
             fn = train_step_fn(model, args.batch, model.img_size, dtype)
@@ -210,7 +226,8 @@ def main(argv=None):
                     forward(x)
         res = profile(fn, args.steps, args.warmup)
         out[name] = res
-        print(json.dumps({"model": name, "train": args.train, "batch": args.batch,
+        print(json.dumps({"model": name, "train": args.train, "decode": args.decode,
+                          "batch": args.batch,
                           "dtype": args.dtype, "plain_attention": args.plain_attention,
                           **kw, **res, "card": card_info()}))
     return out

@@ -25,6 +25,8 @@
         nasbench201_search --batch 64 [dw_kernel=fused]  # DARTS / NAS-Bench-201 search nets
     python -m cream_tpu_torch.cli.speed_test [--train] --models \
         cdarts_retrain_imagenet nasbench201_infer        # discrete nets of an example genotype
+    python -m cream_tpu_torch.cli.speed_test [--train | --decode] --models \
+        retinanet_efficientvit_m4 mask_rcnn_efficientvit_m4 --batch 16 --img-size 512
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -53,6 +55,12 @@ A DARTS or NAS-Bench-201 search network (`darts_search_cifar`,
 `models.darts.EXAMPLE_GENOTYPE` (one a group) or
 `models.nasbench201.EXAMPLE_ARCH` unless a genotype is given.
 
+A detector (`retinanet_*`, `mask_rcnn_*`; `--img-size` is its canvas, 512
+by default) is timed on `detector_batch` (images and the CLIs' synthetic
+targets): its eval forward (`detector_forward_fn`; Mask R-CNN's includes
+its proposals, whose NMS syncs with the host), with `--decode` the decode
+too, with `--train` the CLIs' step (`detector_train_step_fn`).
+
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
 printed as one JSON line beside the card's name and power limit. There is no
@@ -66,6 +74,10 @@ import subprocess
 
 import numpy as np
 import torch
+
+
+# registered detectors: `--img-size` is their canvas
+DETECTOR_PREFIXES = ("retinanet_", "mask_rcnn_")
 
 
 def card_info() -> str:
@@ -249,17 +261,8 @@ def train_throughput(model: torch.nn.Module, batch: int, img_size: int,
                      warmup: int = 3) -> float:
     """Train images/s of `model` on its CUDA device: `warmup` untimed
     steps of `train_step_fn`, then `n_iters` between two CUDA events."""
-    run = train_step_fn(model, batch, img_size, dtype)
-    for _ in range(warmup):
-        run()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n_iters):
-        run()
-    end.record()
-    end.synchronize()
-    return batch * n_iters / (start.elapsed_time(end) / 1e3)
+    return timed_images_per_s(train_step_fn(model, batch, img_size, dtype), batch, n_iters,
+                              warmup)
 
 
 def tinyclip_train_step_fn(model: torch.nn.Module, batch: int, seed: int = 0):
@@ -311,6 +314,133 @@ def tinyclip_train_throughput(model: torch.nn.Module, batch: int = 256, n_iters:
             "first_loss": losses[0], "losses": losses}
 
 
+def is_detector(model: torch.nn.Module) -> bool:
+    from cream_tpu_torch.models.mask_rcnn import MaskRCNN
+    from cream_tpu_torch.models.retinanet import RetinaNet
+    return isinstance(model, (RetinaNet, MaskRCNN))
+
+
+def detector_batch(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
+                   seed: int = 0, max_boxes: int = 32) -> dict:
+    """A detection batch on the model's CUDA device: N(0, 1) images at its
+    canvas in `dtype`, and the CLIs' synthetic targets (boxes, labels,
+    valid; instance masks for Mask R-CNN) from default_rng(seed)."""
+    from cream_tpu_torch.cli.train_mask_rcnn import synthetic_targets
+    from cream_tpu_torch.models.mask_rcnn import MaskRCNN
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"throughput is measured on a CUDA device, "
+                           f"the model is on {device}")
+    rng = np.random.default_rng(seed)
+    c = model.canvas
+    tgt = synthetic_targets(rng, batch, c, max_boxes, model.num_classes)
+    if not isinstance(model, MaskRCNN):
+        del tgt["masks"]
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {k: torch.as_tensor(v, device=device) for k, v in tgt.items()}
+    out["image"] = torch.randn(batch, c, c, 3, generator=gen, device=device).to(dtype)
+    return out
+
+
+def detector_forward_fn(model: torch.nn.Module, images: torch.Tensor, decode: bool = False):
+    """A zero-argument eval forward of a detector under inference_mode.
+    RetinaNet: the head's outputs, then (`decode`) `retinanet_decode` with
+    its host NMS. Mask R-CNN: features, RPN, proposals (their NMS syncs
+    with the host), the box head; then (`decode`) the second-stage decode
+    and the mask head on its detections (`cli.train_mask_rcnn.infer`)."""
+    from cream_tpu_torch.cli.train_mask_rcnn import infer
+    from cream_tpu_torch.models.mask_rcnn import (MaskRCNN, mask_rcnn_anchor_levels,
+                                                  mask_rcnn_anchors, rois_flat, rpn_proposals)
+    from cream_tpu_torch.models.retinanet import (anchors_per_level, retina_anchors,
+                                                  retinanet_decode)
+    device, c = images.device, model.canvas
+    if isinstance(model, MaskRCNN):
+        anchors = torch.from_numpy(mask_rcnn_anchors(c)).to(device)
+        levels = mask_rcnn_anchor_levels(c)
+
+        def run():
+            with torch.inference_mode():
+                if decode:
+                    return infer(model, images, anchors, levels, 256, 100)
+                feats = model.features(images)
+                props, _ = rpn_proposals(*model.rpn(feats), anchors, levels, c)
+                return model.roi_bbox(feats, rois_flat(props))
+        return run
+    anchors = torch.from_numpy(retina_anchors(c)).to(device)
+    levels = anchors_per_level(c)
+
+    def run():
+        with torch.inference_mode():
+            out = model(images)
+            return retinanet_decode(*out, anchors, levels) if decode else out
+    return run
+
+
+def detector_train_step_fn(model: torch.nn.Module, batch: int,
+                           dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """(the step's state, a zero-argument function that runs one train step
+    of a detector on one `detector_batch` and returns (loss, losses)): the
+    CLIs' step, AdamW(1e-4, wd 0.05, no decay on the bias tables); Mask
+    R-CNN at the CLI's sampler sizes (256 RPN samples, 128 rois, 256
+    proposals), its priorities drawn from a generator seeded `seed + 1`."""
+    from cream_tpu_torch.cli.train_retinanet import detection_adamw, retinanet_step_loss
+    from cream_tpu_torch.models.mask_rcnn import (MaskRCNN, mask_rcnn_anchor_levels,
+                                                  mask_rcnn_anchors, mask_rcnn_losses,
+                                                  sampler_uniforms)
+    from cream_tpu_torch.models.retinanet import retina_anchors
+    from cream_tpu_torch.train.state import TrainState
+    from cream_tpu_torch.train.steps import make_loss_step
+    b = detector_batch(model, batch, dtype, seed)
+    device, c = b["image"].device, model.canvas
+    state = TrainState(model, detection_adamw(model, 1e-4))
+    if not isinstance(model, MaskRCNN):
+        step = make_loss_step(retinanet_step_loss(
+            torch.from_numpy(retina_anchors(c)).to(device), model.num_classes))
+        return state, lambda: step(state, b)[1:]
+    anchors = torch.from_numpy(mask_rcnn_anchors(c)).to(device)
+    levels = mask_rcnn_anchor_levels(c)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    step = make_loss_step(lambda m, u_rpn, u_rcnn: mask_rcnn_losses(
+        m, b["image"], b["boxes"], b["labels"], b["valid"], b["masks"], anchors, levels,
+        u_rpn, u_rcnn))
+
+    def run():
+        u = sampler_uniforms(gen, batch, anchors.shape[0], b["boxes"].shape[1] + 256, device)
+        return step(state, *u)[1:]
+    return state, run
+
+
+def timed_images_per_s(run, batch: int, n_iters: int, warmup: int) -> float:
+    """`batch` * `n_iters` / the seconds between two CUDA events around
+    `n_iters` calls of `run`, after `warmup` untimed ones."""
+    for _ in range(warmup):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_iters):
+        run()
+    end.record()
+    end.synchronize()
+    return batch * n_iters / (start.elapsed_time(end) / 1e3)
+
+
+def detector_throughput(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
+                        decode: bool = False, n_iters: int = 10, warmup: int = 3) -> float:
+    """Eval images/s of a detector (`detector_forward_fn`), the host's NMS
+    included where the path has one."""
+    run = detector_forward_fn(model, detector_batch(model, batch, dtype)["image"], decode)
+    return timed_images_per_s(run, batch, n_iters, warmup)
+
+
+def detector_train_throughput(model: torch.nn.Module, batch: int,
+                              dtype: torch.dtype = torch.bfloat16, n_iters: int = 10,
+                              warmup: int = 3) -> float:
+    """Train images/s of a detector (`detector_train_step_fn`)."""
+    _, run = detector_train_step_fn(model, batch, dtype)
+    return timed_images_per_s(run, batch, n_iters, warmup)
+
+
 def model_kwargs(opts: list[str]) -> dict:
     """`key=value` words -> keyword arguments for `create_model`, values
     parsed as config overrides are (numbers, booleans, null, else str)."""
@@ -338,6 +468,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--train", action="store_true",
                     help="time train steps instead of forwards")
+    ap.add_argument("--decode", action="store_true",
+                    help="a detector's forward plus its decode (the host's NMS included)")
     ap.add_argument("opts", nargs="*",
                     help="model keyword arguments as key=value (e.g. attn_kernel=plain)")
     args = ap.parse_args(argv)
@@ -348,12 +480,16 @@ def main(argv=None):
         if name not in list_models():
             print(f"skip unknown model {name}")
             continue
-        size = {} if args.img_size is None else {"img_size": args.img_size}
+        size = {} if args.img_size is None else {
+            "canvas" if name.startswith(DETECTOR_PREFIXES) else "img_size": args.img_size}
         model = create_model(name, device=args.device, dtype=dtype, **size, **kw,
                              **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         pairs = is_two_tower(model)
-        if pairs and args.train:
+        if is_detector(model):
+            ips = (detector_train_throughput(model, args.batch, dtype, args.iters) if args.train
+                   else detector_throughput(model, args.batch, dtype, args.decode, args.iters))
+        elif pairs and args.train:
             ips = tinyclip_train_throughput(model, args.batch, args.iters)["pairs_per_s"]
         elif args.train:
             ips = train_throughput(model, args.batch, model.img_size, dtype,
@@ -366,7 +502,8 @@ def main(argv=None):
         print(json.dumps({"model": name, "pairs_per_s" if pairs else "img_per_s": ips,
                           "batch": args.batch,
                           "img_size": model.img_size,
-                          "dtype": args.dtype, "train": args.train, **kw,
+                          "dtype": args.dtype, "train": args.train, "decode": args.decode,
+                          **kw,
                           "card": card_info()}))
     return results
 

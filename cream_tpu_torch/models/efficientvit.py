@@ -18,8 +18,15 @@ EfficientViT (`patch_embed.{0,2,4,6}`, `blocks{1,2,3}.{i}.dw0.m.c.weight`,
 state_dicts load as they are (`zoo.load.load_pth`) and the JAX package's
 `convert_efficientvit` maps a port state_dict to its variables.
 
-The window of each stage is min(window_size, stage resolution, map size),
-which follows from `img_size`; a model takes only inputs of that size.
+The window of each stage is min(window_size, stage resolution, map size):
+the stage resolution follows from `img_size`, the map size from the input,
+`canvas` (default `img_size`), the only input size a model takes. A
+detection backbone keeps the classifier's `img_size` of 224 and takes the
+detector's canvas, so its windows and bias tables are those the JAX package
+picks at call time for a map of that size (at canvas 512, stage 2's 8x8 map
+takes 4x4 windows); where a map is not a multiple of its window it is
+zero-padded, and in train mode the padded tokens enter the batch
+statistics of the attention's BNs, as in JAX.
 
 Train mode (`model.train()`) is the JAX package's `train=True`: every
 BatchNorm takes the batch's statistics (in the attention, over the
@@ -260,8 +267,9 @@ def subsample(dim: int, out_dim: int, *, dtype, device) -> list[nn.Module]:
 
 
 class EfficientViT(nn.Module):
-    """Input (B, img_size, img_size, 3) NHWC -> (B, num_classes) logits in
-    `dtype` (the pooled features if num_classes is 0)."""
+    """Input (B, canvas, canvas, 3) NHWC (canvas defaults to img_size) ->
+    (B, num_classes) logits in `dtype` (the pooled features if num_classes
+    is 0)."""
 
     # ~45 residual branches add to an unnormalised stream: seeded weights
     # shrink the scales of the branches' last BNs (those initialised at 0)
@@ -276,10 +284,12 @@ class EfficientViT(nn.Module):
                  key_dim: Sequence[int] = (16, 16, 16), depth: Sequence[int] = (1, 2, 3),
                  num_heads: Sequence[int] = (4, 4, 4), window_size: Sequence[int] = (7, 7, 7),
                  kernels: Sequence[int] = (5, 5, 5, 5), distillation: bool = False,
-                 attn_kernel: str = "cascade", dw_kernel: str = DW_KERNEL, *,
+                 attn_kernel: str = "cascade", dw_kernel: str = DW_KERNEL,
+                 canvas: int | None = None, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.img_size, self.num_classes, self.dtype = img_size, num_classes, dtype
+        self.input_size = img_size if canvas is None else canvas
         self.distillation = distillation
         kw = dict(dtype=dtype, device=device)
         ed = embed_dim
@@ -289,7 +299,7 @@ class EfficientViT(nn.Module):
             ConvBN(ed[0] // 4, ed[0] // 2, 3, 2, 1, **kw), nn.ReLU(),
             ConvBN(ed[0] // 2, ed[0], 3, 2, 1, **kw))
         resolution = img_size // patch_size
-        hw = img_size
+        hw = self.input_size
         for _ in range(4):
             hw = _conv_s2_out(hw)
         stages: list[list[nn.Module]] = [[], [], []]
@@ -319,9 +329,9 @@ class EfficientViT(nn.Module):
                 m.attn_kernel = attn_kernel
 
     def _stages(self, x: torch.Tensor):
-        if tuple(x.shape[1:]) != (self.img_size, self.img_size, 3):
-            raise ValueError(f"expected (B, {self.img_size}, {self.img_size}, 3)"
-                             f" NHWC input, got {tuple(x.shape)}")
+        n = self.input_size
+        if tuple(x.shape[1:]) != (n, n, 3):
+            raise ValueError(f"expected (B, {n}, {n}, 3) NHWC input, got {tuple(x.shape)}")
         x = self.patch_embed(x.to(self.dtype))
         for blocks in (self.blocks1, self.blocks2, self.blocks3):
             x = blocks(x)

@@ -106,3 +106,24 @@ def make_eval_step():
                 "n": valid.sum(), "loss_sum": torch.where(valid, ce, 0.0).sum()}
 
     return step
+
+
+def make_loss_step(loss_fn: Callable):
+    """Returns step(state, *args) -> (state, loss, metrics) for a model whose
+    loss is not a function of logits and labels (the detectors'):
+    loss_fn(model, *args) -> (loss, metrics) runs with the model in train
+    mode; the grads of the loss by param name go to the state's optimizer.
+    metrics gain 'grad_norm', the global norm of the raw grads; all stay on
+    the device."""
+
+    def step(state: TrainState, *args):
+        model = state.model
+        model.train()
+        loss, metrics = loss_fn(model, *args)
+        params = dict(model.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        state.apply_gradients(grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state, loss.detach(), {**metrics, "grad_norm": global_norm(grads.values())}
+
+    return step

@@ -15,7 +15,9 @@ variables. `state_dict_from_jax`, `efficientvit_state_dict_from_jax`,
 `deit_rpe_state_dict_from_jax`, `mini_deit_state_dict_from_jax`,
 `clip_state_dict_from_jax`,
 `clip_classifier_state_dict_from_jax` and `clip_resnet_state_dict_from_jax`
-are their exact inverses; `bias_attention_state_dict_from_jax` carries a
+are their exact inverses; `retinanet_state_dict_from_jax` and
+`mask_rcnn_state_dict_from_jax` carry the JAX detectors' variables to the
+port's mmdet-named detectors; `bias_attention_state_dict_from_jax` carries a
 JAX `BiasAttention`'s variables to the port's module.
 
 CLIP checkpoints come in TinyCLIP's historical layouts too
@@ -868,6 +870,89 @@ def load_cdarts_retrain(ckpt, cells_json, *, device, dtype: torch.dtype = torch.
     want = model.state_dict()
     model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items() if k in want})
     return model.eval()
+
+
+# ---- detectors: RetinaNet, Mask R-CNN ----
+
+def _conv_transpose(k: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose (transpose_kernel=False) HWIO -> torch
+    ConvTranspose2d (in, out, kh, kw): the kernel flipped in both spatial
+    axes."""
+    return np.ascontiguousarray(np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def _numbered_keys(node: Mapping, prefix: str) -> list[int]:
+    return sorted(int(k[len(prefix):]) for k in node if re.fullmatch(rf"{prefix}\d+", k))
+
+
+def _sub_variables(variables: Mapping, key: str) -> dict:
+    return {"params": variables["params"][key],
+            "batch_stats": variables.get("batch_stats", {}).get(key, {})}
+
+
+def _detector_backbone(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The EfficientViT backbone's state_dict under `backbone.`."""
+    sd = efficientvit_state_dict_from_jax(_sub_variables(variables, "backbone"), with_head=False)
+    return {f"backbone.{k}": v for k, v in sd.items()}
+
+
+def _fpn_from_jax(w: _Writer, fp: str, tp: str) -> None:
+    node = w._get(w.params, fp)
+    for prefix, dst in (("lateral_", "lateral_convs"), ("fpn_", "fpn_convs"),
+                        ("extra_fpn_", "extra_fpn_convs")):
+        for i in _numbered_keys(node, prefix):
+            w.conv_biased(f"{fp}/{prefix}{i}", f"{tp}.{dst}.{i}.conv")
+    for i in _numbered_keys(node, "extra_trans_"):
+        t = node[f"extra_trans_{i}"]
+        w.sd[f"{tp}.extra_trans_convs.{i}.weight"] = _conv_transpose(t["kernel"])
+        w.sd[f"{tp}.extra_trans_convs.{i}.bias"] = np.asarray(t["bias"])
+
+
+def retinanet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's RetinaNet variables over EfficientViT (`backbone`,
+    `neck`, `bbox_head`) -> the port's `models.retinanet.RetinaNet`
+    state_dict, in mmdet's names: the backbone through
+    `efficientvit_state_dict_from_jax` under `backbone.`, the transposed
+    convs' kernels flipped."""
+    w = _Writer(variables)
+    _fpn_from_jax(w, "neck", "neck")
+    head = w.params["bbox_head"]
+    for kind in ("cls", "reg"):
+        for i in _numbered_keys(head, f"{kind}_conv_"):
+            w.conv_biased(f"bbox_head/{kind}_conv_{i}", f"bbox_head.{kind}_convs.{i}.conv")
+    w.conv_biased("bbox_head/retina_cls", "bbox_head.retina_cls")
+    w.conv_biased("bbox_head/retina_reg", "bbox_head.retina_reg")
+    return {**_detector_backbone(variables), **w.state_dict()}
+
+
+def mask_rcnn_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's MaskRCNN variables over EfficientViT (`backbone`,
+    `neck`, `rpn_head`, `bbox_head`, `mask_head`) -> the port's
+    `models.mask_rcnn.MaskRCNN` state_dict, in mmdet's names (`rpn_head.*`,
+    `roi_head.bbox_head.*`, `roi_head.mask_head.*`). The first shared fc's
+    rows go from JAX's NHWC flattening of the 7x7 RoI features to mmdet's
+    NCHW one; the transposed convs' kernels are flipped."""
+    w = _Writer(variables)
+    _fpn_from_jax(w, "neck", "neck")
+    for c in ("rpn_conv", "rpn_cls", "rpn_reg"):
+        w.conv_biased(f"rpn_head/{c}", f"rpn_head.{c}")
+    bb = "roi_head.bbox_head"
+    fc0 = np.asarray(w.params["bbox_head"]["shared_fc0"]["kernel"])  # (7*7*C, out), rows (h, w, c)
+    side = 7
+    w.sd[f"{bb}.shared_fcs.0.weight"] = np.ascontiguousarray(
+        fc0.reshape(side, side, -1, fc0.shape[1]).transpose(3, 2, 0, 1).reshape(fc0.shape[1], -1))
+    w.sd[f"{bb}.shared_fcs.0.bias"] = np.asarray(w.params["bbox_head"]["shared_fc0"]["bias"])
+    w.dense("bbox_head/shared_fc1", f"{bb}.shared_fcs.1")
+    w.dense("bbox_head/fc_cls", f"{bb}.fc_cls")
+    w.dense("bbox_head/fc_reg", f"{bb}.fc_reg")
+    mh = "roi_head.mask_head"
+    for i in _numbered_keys(w.params["mask_head"], "conv_"):
+        w.conv_biased(f"mask_head/conv_{i}", f"{mh}.convs.{i}.conv")
+    up = w.params["mask_head"]["upsample"]
+    w.sd[f"{mh}.upsample.weight"] = _conv_transpose(up["kernel"])
+    w.sd[f"{mh}.upsample.bias"] = np.asarray(up["bias"])
+    w.conv_biased("mask_head/conv_logits", f"{mh}.conv_logits")
+    return {**_detector_backbone(variables), **w.state_dict()}
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0

@@ -47,7 +47,12 @@ and Mini-Swin's distillation capture; the DARTS / CDARTS / NAS-Bench-201
 networks, which reach K7/K9 at their SepConv sites on "fused": the kernels
 at those sites, a SepConv on "fused" against "library", a search network's
 weight and alpha steps launching at the sites' rule, and narrow networks on
-the card against the CPU.
+the card against the CPU; the detectors over EfficientViT-M4: K4 at their
+attention windows (padded 7x7 windows over a 32x32 stage-0 map, 4x4 over
+8x8 at canvas 512; 4x4 and 2x2 at 128), RetinaNet's and Mask R-CNN's bf16
+outputs on "cascade" within 8 ulps of "plain" with 6 K4 launches a
+forward, and a train step on "fused" launching K7/K9 at every site the
+port's enumeration counts, none refused.
 """
 import numpy as np
 import pytest
@@ -1623,3 +1628,94 @@ def test_darts_avg_pool_grads_on_the_card_match_the_cpu(card, kernel, stride, pa
         out.append((y.detach().cpu(), gx.cpu()))
     for a, b in zip(out[1], out[0]):
         assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().item()
+
+
+# the detectors' attention windows: EfficientViT-M4 at canvas 512 (7x7 over
+# a 32x32 map, 25 windows an image; 7x7 over 16x16, 9; 4x4 over 8x8, 4)
+# and at 128 (4x4 over 4x4; 2x2 over 2x2)
+M4_KERNELS = _CONFIGS["efficientvit_m4"]["kernels"]
+DET_CGA = [("m4_512_s0", 7, 128, 4, 25), ("m4_512_s1", 7, 256, 4, 9),
+           ("m4_512_s2", 4, 384, 4, 4), ("m4_128_s1", 4, 256, 4, 1), ("m4_128_s2", 2, 384, 4, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,ws,C,heads,per_image", DET_CGA)
+def test_k4_matches_plain_at_detector_windows(card, dtype, name, ws, C, heads, per_image):
+    """K4 against its plain version at a detector's stage shape, 2 images'
+    windows, zero-padded windows included (stage 0's 32x32 map in 7x7
+    windows): 8 bf16 ulps at the largest |out|, fp32 1e-5."""
+    from cream_tpu_torch.ops.window import window_partition
+    m = _seeded_cga(C, heads, ws, M4_KERNELS, card, dtype)
+    g = torch.Generator(card).manual_seed(C + ws)
+    side = {25: 32, 9: 16, 4: 8, 1: ws}[per_image]
+    fmap = torch.randn(2, side, side, C, generator=g, device=card).to(dtype)
+    x, _ = window_partition(fmap, ws)
+    x = x.reshape(-1, ws, ws, C).contiguous()
+    assert x.shape[0] == 2 * per_image
+    kw = dict(ws=ws, heads=heads, c_in=C // heads, kd=16, d=C // heads, ks_max=m.ks_max)
+    ops = cga.fold_cga_variables(m, dtype)
+    before = cga.LAUNCHES
+    with torch.inference_mode():
+        got = cga.fused_cga(x, m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+        torch.cuda.synchronize()
+        want = cga.fused_cga_ref(x, m.attention_biases, m.attention_bias_idxs, *ops, **kw)
+    assert cga.LAUNCHES == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _cga_bound(dtype, want.float(), 8), err
+
+
+def _bf16_ulps(got, want, ulps):
+    top = max(1.0, want.float().abs().max().item())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    return (got.float() - want.float()).abs().max().item() <= ulps * ulp
+
+
+@pytest.mark.parametrize("name", ["retinanet_efficientvit_m4", "mask_rcnn_efficientvit_m4"])
+def test_detector_cascade_matches_plain_bf16(card, name):
+    """bf16 at canvas 512, B=2: the detector's outputs (RetinaNet's cls and
+    deltas; Mask R-CNN's five FPN levels and its RPN outputs) on the
+    "cascade" route within 8 bf16 ulps of the "plain" route's at the
+    largest |out|; 6 K4 launches a forward."""
+    from cream_tpu_torch.models import create_model
+    m = create_model(name, device=card, dtype=torch.bfloat16)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    x = torch.randn(2, 512, 512, 3, generator=torch.Generator(card).manual_seed(1),
+                    device=card).to(torch.bfloat16)
+    outs = {}
+    for route in ("cascade", "plain"):
+        m.backbone.set_attn_kernel(route)
+        before = cga.LAUNCHES
+        with torch.inference_mode():
+            out = m(x)
+        assert cga.LAUNCHES - before == (6 if route == "cascade" else 0), route
+        outs[route] = [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+    for got, want in zip(outs["cascade"], outs["plain"]):
+        assert bool(torch.isfinite(got).all())
+        assert _bf16_ulps(got, want, 8)
+
+
+def test_detector_fused_train_step_launches_every_site(card):
+    """A RetinaNet-M4 bf16 train step at canvas 256 on "fused": K7 and K9
+    forward and backward at every site `models.retinanet.dw3x3_sites`
+    counts, none refused; its loss within 2 bf16 ulps of "library"'s."""
+    from cream_tpu_torch.cli.speed_test import detector_train_step_fn
+    from cream_tpu_torch.models import create_model
+    from cream_tpu_torch.models.retinanet import dw3x3_step_launches
+    from cream_tpu_torch.nn.layers import DW_REFUSED, set_dw_kernel
+    losses = {}
+    for route in ("library", "fused"):
+        m = create_model("retinanet_efficientvit_m4", canvas=256, num_classes=10, device=card,
+                         dtype=torch.bfloat16)
+        m.load_state_dict(seeded_state_dict(m, 0))
+        set_dw_kernel(m, route)
+        _, run = detector_train_step_fn(m, 2)
+        DW_REFUSED.clear()
+        dwconv.reset_launches()
+        loss, _ = run()
+        torch.cuda.synchronize()
+        want = dw3x3_step_launches(m, 2) if route == "fused" else dict.fromkeys(dwconv.LAUNCHES, 0)
+        assert dwconv.LAUNCHES == want, route
+        assert not DW_REFUSED
+        losses[route] = float(loss)
+    assert abs(losses["fused"] - losses["library"]) <= 2 * 2.0 ** (np.floor(np.log2(
+        abs(losses["library"]))) - 7)
