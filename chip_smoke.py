@@ -262,6 +262,31 @@ non-zero):
      batch: the loss falls, all losses finite; idle share of a step
 9z5. both detection CLIs --synthetic on the card (M4, canvas 512, B=2): the
      loss finite, the native COCO AP computed
+9z6. the CLIP RN tower's pool repair: an RN50 stride-2 block's fp32 input
+     grad on the card within 1e-5 of the CPU's (its largest)
+9z7. DETR goldens: detr_resnet50 (iRPE-K) and detr_resnet18 fp32 (TF32 off)
+     on a padded 2 x 160 x 224 batch against the JAX record (1e-3 of the
+     largest); one DETR-R50 iRPE-K step against JAX's float64 step: the
+     six Hungarian assignments equal, loss 1e-4, grad norms 1e-3
+9z8. main path (DETR eval): DETR-R50 iRPE-K bf16 bs16 at canvas 512 with
+     seeded pixel masks: forward and forward + post_process img/s, peak
+     memory, idle share, FLOPs against the bf16 peak; bf16 top class per
+     query against fp32 where the fp32 top-2 margin is above 4 bf16 ulps
+9z9. main path (DETR train): the CLI's step at bf16 bs16 (one forward, six
+     host matchings, AdamW after clipping): 20 steps on one batch, the loss
+     falls, every loss finite; img/s, peak memory, idle share
+9z10. CyDAS golden: cydas_seg fp32 at 97 x 129 (eval and the three heads)
+     against the JAX record (1e-3), one train step on "library" and "fused"
+     against JAX's float64 step (losses 1e-4, grad norms 1e-3)
+9z11. main path (CyDAS eval): bf16 bs12 at 1024 x 2048: img/s, peak memory,
+     idle share; the per-pixel argmax against fp32 (B=2) where the fp32
+     top-2 margin is above 4 bf16 ulps
+9z12. main path (CyDAS train): the CLI's step at bf16 bs12, crop 769, on
+     "library" and "fused" (12 K7 launches a step at the six stride-1
+     depthwise sites, none refused, the first loss within 2 bf16 ulps and
+     the grad norm within 2% of library's), img/s in 3 interleaved rounds,
+     peak memory; 20 steps on one batch: the loss falls, all finite
+9z13. the DETR and segmentation CLIs --synthetic on the card
  24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
@@ -1697,15 +1722,16 @@ def dw_library(x, w9, dy, stride):
 def phase_dw(gen) -> tuple[dict, dict]:
     """K7/K8/K9 against their plain versions at the M5 and TinyViT-21M
     depthwise shapes, at odd stride-2 maps, at Cream's 19 site shapes
-    (bs128), at the DARTS search (bs64) and CDARTS retrain (bs256) sites and
-    at the detectors' EfficientViT-M4 sites (canvas 512, bs16), bf16 and
-    fp32; dw bits on two launches; bf16 times at the M5
-    and TinyViT sites. Returns the worst bf16 errors by kernel and the times
+    (bs128), at the DARTS search (bs64) and CDARTS retrain (bs256) sites,
+    at the detectors' EfficientViT-M4 sites (canvas 512, bs16) and at
+    CyDAS's six sites (bs12, crop 769), bf16 and fp32; dw bits on two
+    launches; bf16 times at the M5, TinyViT and CyDAS sites. Returns the worst bf16 errors by kernel and the times
     by shape."""
     worst = dict.fromkeys(dwconv.LAUNCHES, 0.0)
     times = {}
     for name, B, H, W, C, stride, per in (DW_M5 + DW_TINYVIT + DW_S2_ODD + DW_CREAM
-                                           + darts_dw_sites() + det_dw_sites()):
+                                           + darts_dw_sites() + det_dw_sites()
+                                           + cydas_dw_sites()):
         fwd, bwd = ("k7_fwd", "k7_bwd") if stride == 1 else ("k9_fwd", "k9_bwd")
         for dtype in (torch.bfloat16, torch.float32):
             x, w9, dy = dw_inputs(gen, B, H, W, C, stride, dtype)
@@ -4246,6 +4272,387 @@ def phase_det_clis() -> dict:
     return res
 
 
+DETR_NAME, DETR_RPE, DETR_BATCH = "detr_resnet50", "rpe-2.0-product-ctx-1-k", 16
+DETR_GOLDEN = DATA / "detr_resnet50_irpe_k_seed0.npz"
+DETR_GOLDEN_HW, DETR_QUERY_STD = (160, 224), 30.0
+SEG_NAME, SEG_BATCH = "cydas_seg", 12
+SEG_GOLDEN = DATA / "cydas_seg_seed0.npz"
+
+
+def phase_rn_pool_grad() -> float:
+    """9z6. A CLIP RN50 tower block that avg-pools (layer2's first, stride
+    2), fp32: its input grad on the card against the CPU's (TF32 off)."""
+    from cream_tpu_torch.models.resnet import CLIPBottleneck
+    no_tf32()
+    blk = CLIPBottleneck(256, 128, 2, dtype=torch.float32)
+    blk.load_state_dict(seeded_state_dict(blk, 0))
+    x = torch.randn(4, 56, 56, 256, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for device in ("cpu", "cuda"):
+        blk.to(device)
+        xi = x.to(device).requires_grad_()
+        y = blk(xi)
+        gy = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+        grads.append(torch.autograd.grad((y * gy).sum(), [xi])[0].cpu())
+    err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    print(f"rn pool repair: CLIP RN50 layer2.0 (stride 2) fp32 B=4 56x56 input grad on the "
+          f"card vs the CPU: max err / max |grad| {err:.2e} (bound 1e-5) [{card_info()}]")
+    check(err <= 1e-5, f"RN tower input grad on the card: err {err}")
+    return err
+
+
+def detr_golden_weights(model, seed: int) -> dict:
+    """The DETR golden's weights: `seeded_state_dict` with the query
+    embedding N(0, 30²) from default_rng(seed + 1), so every output's
+    Hungarian matching is tie-free (tests/test_torch_detr.py)."""
+    sd = seeded_state_dict(model, seed)
+    shape = tuple(sd["query_embed.weight"].shape)
+    sd["query_embed.weight"] = torch.from_numpy((DETR_QUERY_STD * np.random.default_rng(
+        seed + 1).standard_normal(shape)).astype(np.float32))
+    return sd
+
+
+def detr_golden_batch(g) -> dict:
+    """The golden's padded batch (image 0 padded below row 0.8 H, image 1
+    right of column 0.75 W) and its targets, on the card."""
+    from cream_tpu_torch.cli.train_detr import synthetic_targets
+    h, w = DETR_GOLDEN_HW
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal(
+        (2, h, w, 3)).astype(np.float32)
+    mask = np.zeros((2, h, w), bool)
+    mask[0, int(0.8 * h) + 1:] = True
+    mask[1, :, int(0.75 * w) + 3:] = True
+    x[mask] = 0.0
+    boxes, labels, valid = synthetic_targets(np.random.default_rng(int(g["target_seed"])), 2,
+                                             8, 91)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return {"image": t(x), "pad_mask": t(mask), "boxes": t(boxes),
+            "labels": t(labels.astype(np.int32)), "valid": t(valid)}
+
+
+def phase_detr_golden() -> None:
+    """9z7. DETR-R50 iRPE-K and DETR-R18 fp32 (TF32 off) against the JAX
+    record; one DETR-R50 iRPE-K fp32 step against JAX's float64 step."""
+    from cream_tpu_torch.train.detection import criterion, hungarian_assign, matching_cost
+    no_tf32()
+    g = np.load(DETR_GOLDEN)
+    b = detr_golden_batch(g)
+    rows = torch.from_numpy(g["rows"]).cuda()
+    errs = []
+    for name, spec in ((DETR_NAME, DETR_RPE), ("detr_resnet18", "")):
+        m = create_model(name, enc_rpe2d=spec, aux_loss=True, device="cuda")
+        m.load_state_dict(detr_golden_weights(m, int(g["weight_seed"])))
+        with torch.inference_mode():
+            out = m(b["image"], b["pad_mask"])
+        tag = name.split("_")[1]
+        aux = out["aux_outputs"]
+        errs += [held(f"{name} logits", out["pred_logits"], g[f"{tag}_logits"]),
+                 held(f"{name} boxes", out["pred_boxes"], g[f"{tag}_boxes"]),
+                 held(f"{name} aux logits", torch.stack([a["pred_logits"][:, rows] for a in aux]),
+                      g[f"{tag}_aux_logits_rows"]),
+                 held(f"{name} aux boxes", torch.stack([a["pred_boxes"][:, rows] for a in aux]),
+                      g[f"{tag}_aux_boxes_rows"])]
+    print(f"golden detr_resnet50 (iRPE-K) and detr_resnet18 fp32 B=2 160x224 (padded) vs JAX: "
+          f"final and auxiliary logits and boxes max err / max |want| {max(errs):.2e} (bound "
+          f"1e-3) [{card_info()}]")
+    m = create_model(DETR_NAME, enc_rpe2d=DETR_RPE, aux_loss=True, device="cuda")
+    m.load_state_dict(detr_golden_weights(m, int(g["weight_seed"])))
+    m.train()
+    out = m(b["image"], b["pad_mask"])
+    valid = b["valid"].cpu().numpy()
+    for i, o in enumerate([out] + out["aux_outputs"]):
+        with torch.no_grad():
+            c = matching_cost(o["pred_logits"], o["pred_boxes"], b["boxes"], b["labels"],
+                              b["valid"])
+        check(np.array_equal(hungarian_assign(c.cpu().numpy(), valid), g["assigns"][i]),
+              f"DETR train golden: output {i}'s assignment differs from JAX's")
+    losses = criterion(out, b["boxes"], b["labels"], b["valid"], 91)
+    params = dict(m.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad(losses["total"], list(params.values()))))
+    m.eval()
+    for k in ("loss_ce", "loss_bbox", "loss_giou"):
+        e = abs(float(losses[k].detach()) - float(g[k])) / abs(float(g[k]))
+        check(e <= 1e-4, f"DETR train golden {k} rel err {e}")
+    check_step_golden("train golden detr_resnet50 iRPE-K (six assignments equal JAX's)", g,
+                      losses["total"].detach(), grads)
+
+
+def flops_of(fn) -> float:
+    """FLOPs of one call of `fn` (convolutions and matmuls, as
+    torch.utils.flop_counter counts them)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        fn()
+    return float(fc.get_total_flops())
+
+
+def phase_detr_eval(batch: int = DETR_BATCH) -> dict:
+    """9z8. DETR-R50 iRPE-K's eval main path at bf16 bs16, canvas 512, each
+    image with a seeded pixel mask (`speed_test.detr_batch`)."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import (detector_forward_fn, detector_throughput,
+                                                detr_batch)
+    no_tf32()
+    dtype, card = torch.bfloat16, card_info()
+    m = create_model(DETR_NAME, enc_rpe2d=DETR_RPE, aux_loss=True, device="cuda", dtype=dtype)
+    sd = seeded_state_dict(m, 0)
+    m.load_state_dict(sd)
+    b = detr_batch(m, batch, dtype)
+    ips = detector_throughput(m, batch, dtype, False, 10, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ips_dec = detector_throughput(m, batch, dtype, True, 10, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile(detector_forward_fn(m, b["image"], True, b["pad_mask"]), steps=3, warmup=2,
+                   top=8)
+    flops = flops_of(lambda: m(b["image"][:1], b["pad_mask"][:1])) * batch
+    bound = flops / PEAK_FLOPS[dtype] * 1e3
+    with torch.inference_mode():
+        lo16 = m(b["image"], b["pad_mask"])["pred_logits"]
+    ref = create_model(DETR_NAME, enc_rpe2d=DETR_RPE, aux_loss=True, device="cuda")
+    ref.load_state_dict(sd)
+    with torch.inference_mode():
+        lo32 = ref(b["image"].float(), b["pad_mask"])["pred_logits"]
+    del ref
+    agree, decided, agree_decided = top1_agreement(lo16.float().flatten(0, 1),
+                                                   lo32.flatten(0, 1))
+    n_decided = round(decided * lo32.shape[0] * lo32.shape[1])
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
+    print(f"main {DETR_NAME} iRPE-K bf16 B={batch} canvas 512, padded "
+          f"(detr_r50_irpe_512_infer_throughput): forward {ips:.1f} img/s, forward + "
+          f"post_process {ips_dec:.1f} img/s (CUDA events, 10 after 3), peak memory {peak:.2f} "
+          f"GiB; forward {flops / batch / 1e9:.1f} GFLOP an image, bf16-peak bound "
+          f"{bound:.3f} ms a batch against {batch / ips * 1e3:.3f} ms measured; profile of "
+          f"forward + post_process: wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['launches']:.0f} launches; device ms by kind: {kinds}; bf16 vs fp32 top class "
+          f"per query {agree:.4f} over {lo32.shape[0] * lo32.shape[1]}, {agree_decided:.4f} on "
+          f"the {n_decided} whose fp32 top-2 margin is above 4 bf16 ulps (need >= 0.99) [{card}]")
+    check(bool(torch.isfinite(lo16).all()), "DETR bf16 logits not finite")
+    check(n_decided >= 100 and agree_decided >= 0.99,
+          f"DETR bf16 vs fp32 top class {agree_decided} on {n_decided} decided queries")
+    return {"img_per_s": ips, "decode_img_per_s": ips_dec, "peak_gib": peak,
+            "gflop_per_image": flops / batch / 1e9, "bound_ms": bound,
+            "agree_decided": agree_decided, **{k: prof[k] for k in (
+                "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms")}}
+
+
+def phase_detr_train(batch: int = DETR_BATCH, steps: int = 20) -> dict:
+    """9z9. DETR-R50 iRPE-K's train main path: the CLI's step
+    (`speed_test.detector_train_step_fn`) at bf16 bs16, canvas 512."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import detector_train_step_fn, timed_images_per_s
+    dtype, card = torch.bfloat16, card_info()
+    m = create_model(DETR_NAME, enc_rpe2d=DETR_RPE, aux_loss=True, device="cuda", dtype=dtype)
+    m.load_state_dict(seeded_state_dict(m, 0))
+    _, run = detector_train_step_fn(m, batch, dtype)
+    hist = [run() for _ in range(steps)]
+    losses = [float(h[0]) for h in hist]
+    parts = {k: [float(h[1][k]) for h in hist] for k in ("loss_ce", "loss_bbox", "loss_giou")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ips = [timed_images_per_s(run, batch, 4, 1) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile(run, steps=3, warmup=1, top=8)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
+    print(f"train {DETR_NAME} iRPE-K bf16 B={batch} canvas 512 "
+          f"(detr_r50_irpe_512_train_throughput): " + " / ".join(f"{v:.1f}" for v in ips)
+          + f" img/s (3 rounds, CUDA events, 4 steps after 1), peak memory {peak:.2f} GiB; loss "
+          f"over {steps} steps on one batch {losses[0]:.4f} -> {losses[-1]:.4f}; profile: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a step, idle share "
+          f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by kind: "
+          f"{kinds} [{card}]")
+    check(all(np.isfinite(losses)) and all(np.isfinite(v).all() for v in parts.values()),
+          f"DETR train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"DETR train loss did not fall: {losses}")
+    return {"img_per_s": ips, "peak_gib": peak, "losses": losses, **{k: prof[k] for k in (
+        "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms")}}
+
+
+def seg_golden_inputs(g) -> tuple[torch.Tensor, torch.Tensor]:
+    from cream_tpu_torch.data.segmentation import synthetic_seg_batches
+    hw = tuple(int(v) for v in g["hw"])
+    x = np.random.default_rng(int(g["input_seed"])).standard_normal((2, *hw, 3)).astype(
+        np.float32)
+    lab = next(synthetic_seg_batches(2, hw, 19, 1, int(g["label_seed"])))["label"]
+    return torch.from_numpy(x).cuda(), torch.from_numpy(lab).cuda()
+
+
+def phase_cydas_golden() -> None:
+    """9z10. cydas_seg fp32 (TF32 off) against the JAX record: the eval
+    output and the three heads' per-class sums and seeded pixels (1e-3);
+    one train step on "library" and "fused" against JAX's float64 step."""
+    from cream_tpu_torch.train.segmentation import cydas_seg_loss
+    no_tf32()
+    g = np.load(SEG_GOLDEN)
+    x, lab = seg_golden_inputs(g)
+    m = create_model(SEG_NAME, device="cuda")
+    sd = seeded_state_dict(m, int(g["weight_seed"]))
+    m.load_state_dict(sd)
+    with torch.inference_mode():
+        aux = torch.stack(m(x, aux=True), 1)
+    px = torch.from_numpy(g["pixels"]).cuda()
+    errs = [held("cydas head sums", aux.double().sum((2, 3)), g["head_sums"]),
+            held("cydas head pixels", aux[:, :, px[:, 0], px[:, 1]], g["head_pixels"])]
+    print(f"golden cydas_seg fp32 B=2 97x129 vs JAX: eval output and the three heads' "
+          f"per-class sums and seeded pixels max err / max |want| {max(errs):.2e} (bound 1e-3) "
+          f"[{card_info()}]")
+    for route in ("library", "fused"):
+        m.load_state_dict(sd)
+        set_dw_kernel(m, route)
+        m.train()
+        loss, parts = cydas_seg_loss(m(x), lab, int(g["min_kept"]))
+        params = dict(m.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        m.eval()
+        for k in ("loss8", "loss16", "loss32"):
+            e = abs(float(parts[k]) - float(g[k])) / float(g[k])
+            check(e <= 1e-4, f"cydas train golden ({route}) {k} rel err {e}")
+        check_step_golden(f"train golden cydas_seg ({route})", g, loss.detach(), grads)
+
+
+def phase_cydas_eval(batch: int = SEG_BATCH) -> dict:
+    """9z11. CyDAS's eval main path at bf16 bs12 on whole 1024 x 2048
+    frames (`speed_test.seg_throughput`)."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import (SEG_EVAL_HW, seg_batch, seg_forward_fn,
+                                                seg_throughput)
+    no_tf32()
+    dtype, card = torch.bfloat16, card_info()
+    m = create_model(SEG_NAME, device="cuda", dtype=dtype)
+    sd = seeded_state_dict(m, 0)
+    m.load_state_dict(sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ips = seg_throughput(m, batch, SEG_EVAL_HW, dtype, 5, 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = seg_batch(m, batch, SEG_EVAL_HW, dtype)["image"]
+    prof = profile(seg_forward_fn(m, x), steps=2, warmup=1, top=8)
+    flops = flops_of(lambda: m(x[:1])) * batch
+    bound = flops / PEAK_FLOPS[dtype] * 1e3
+    with torch.inference_mode():
+        lo16 = m(x[:2]).float()
+    ref = create_model(SEG_NAME, device="cuda")
+    ref.load_state_dict(sd)
+    with torch.inference_mode():
+        lo32 = ref(x[:2].float())
+    del ref
+    agree, decided, agree_decided = top1_agreement(lo16.reshape(-1, 19), lo32.reshape(-1, 19))
+    n_decided = round(decided * lo32[..., 0].numel())
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
+    print(f"main {SEG_NAME} bf16 B={batch} 1024x2048 (cydas_seg_1024x2048_infer_throughput): "
+          f"{ips:.2f} img/s (CUDA events, 5 after 2), peak memory {peak:.2f} GiB; forward "
+          f"{flops / batch / 1e9:.1f} GFLOP an image, bf16-peak bound {bound:.3f} ms a batch "
+          f"against {batch / ips * 1e3:.3f} ms measured; profile: wall {prof['wall_ms']:.2f} ms, "
+          f"device {prof['device_ms']:.2f} ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['launches']:.0f} launches; device ms by kind: {kinds}; bf16 vs fp32 per-pixel "
+          f"argmax (B=2) {agree:.4f}, {agree_decided:.4f} on the {n_decided} pixels whose fp32 "
+          f"top-2 margin is above 4 bf16 ulps (need >= 0.99) [{card}]")
+    check(bool(torch.isfinite(lo16).all()), "cydas bf16 logits not finite")
+    check(n_decided >= 1000 and agree_decided >= 0.99,
+          f"cydas bf16 vs fp32 argmax {agree_decided} on {n_decided} decided pixels")
+    return {"img_per_s": ips, "peak_gib": peak, "gflop_per_image": flops / batch / 1e9,
+            "bound_ms": bound, "agree_decided": agree_decided, **{k: prof[k] for k in (
+                "wall_ms", "device_ms", "idle_share", "launches", "by_kind_ms")}}
+
+
+def cydas_dw_sites() -> list:
+    """CyDAS's depthwise 3x3 site shapes in a train step at bs12, crop 769
+    (`models.cydas_seg.dw3x3_sites`), one each a step, held to the plain
+    versions and timed in `phase_dw`."""
+    from cream_tpu_torch.models.cydas_seg import dw3x3_sites as seg_sites
+    return [(f"cydas_{i}", *shape, stride, 1)
+            for i, (stride, shape) in enumerate(seg_sites(SEG_BATCH, 769, 769))]
+
+
+def phase_cydas_train(batch: int = SEG_BATCH, steps: int = 20) -> dict:
+    """9z12. CyDAS's train main path: the CLI's step
+    (`speed_test.seg_train_step_fn`: three OHEM losses, SGD) at bf16 bs12,
+    crop 769, on "library" and "fused"."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import SEG_CROP, seg_train_step_fn, timed_images_per_s
+    from cream_tpu_torch.models.cydas_seg import dw3x3_sites as seg_sites
+    dtype, card = torch.bfloat16, card_info()
+    hw = (SEG_CROP, SEG_CROP)
+    runs, first, launches = {}, {}, {}
+    DW_REFUSED.clear()
+    for route in ("library", "fused"):
+        m = create_model(SEG_NAME, device="cuda", dtype=dtype)
+        m.load_state_dict(seeded_state_dict(m, 0))
+        set_dw_kernel(m, route)
+        _, runs[route] = seg_train_step_fn(m, batch, hw, dtype)
+        dwconv.reset_launches()
+        first[route] = runs[route]()
+        torch.cuda.synchronize()
+        launches[route] = dict(dwconv.LAUNCHES)
+    n = sum(s == 1 for s, _ in seg_sites(batch, *hw))
+    want = {"k7_fwd": n, "k7_bwd": n, "k8": 0, "k9_fwd": 0, "k9_bwd": 0}
+    check(launches["fused"] == want and sum(launches["library"].values()) == 0,
+          f"cydas: K7/K9 launches a step {launches}, want {want} on fused")
+    check(not DW_REFUSED, f"cydas: the kernels refused depthwise sites {dict(DW_REFUSED)}")
+    l_lib, l_fus = float(first["library"][0]), float(first["fused"][0])
+    g_lib, g_fus = (float(first[r][1]["grad_norm"]) for r in ("library", "fused"))
+    ulps = abs(l_fus - l_lib) / float(bf16_ulp(torch.tensor(l_lib)))
+    print(f"cydas first step fused vs library: loss {l_fus:.6f} vs {l_lib:.6f} ({ulps:.2f} bf16 "
+          f"ulps, bound 2), grad norm {g_fus:.5f} vs {g_lib:.5f} (rel "
+          f"{abs(g_fus - g_lib) / g_lib:.2e}, bound 2e-2)")
+    check(ulps <= 2 and abs(g_fus - g_lib) <= 0.02 * g_lib, "cydas fused vs library first step")
+    n0 = dict(dwconv.LAUNCHES)
+    hist = [first["fused"]] + [runs["fused"]() for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    losses = [float(h[0]) for h in hist]
+    parts = {k: [float(h[1][k]) for h in hist] for k in ("loss8", "loss16", "loss32")}
+    per_step = {k: (dwconv.LAUNCHES[k] - n0[k]) // (steps - 1) for k in n0}
+    ips, peak = {r: [] for r in runs}, {}
+    for r in range(3):
+        for route in (("library", "fused") if r % 2 == 0 else ("fused", "library")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ips[route].append(timed_images_per_s(runs[route], batch, 3, 1))
+            peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile(runs["fused"], steps=2, warmup=1, top=8)
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:10])
+    print(f"train {SEG_NAME} bf16 B={batch} crop {SEG_CROP} (cydas_seg_769_train_throughput): "
+          + "; ".join(f"{r} " + " / ".join(f"{v:.2f}" for v in ips[r]) + f" img/s (peak "
+                      f"{peak[r]:.2f} GiB)" for r in ips)
+          + f" (3 interleaved rounds, CUDA events, 3 steps after 1); fused K7 launches a step "
+          f"{per_step} (want {want}); loss over {steps} steps on one batch {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
+          f"{prof['launches']:.0f} launches; device ms by kind: {kinds} [{card}]")
+    check(per_step == want, f"cydas: {per_step} K7 launches a step in the {steps} steps")
+    check(all(np.isfinite(losses)) and all(np.isfinite(v).all() for v in parts.values()),
+          f"cydas train: a loss is not finite {parts}")
+    check(losses[-1] < losses[0], f"cydas train loss did not fall: {losses}")
+    return {"img_per_s": ips, "peak_gib": peak, "losses": losses, "per_step": want,
+            "main_path_launches": dict(dwconv.LAUNCHES),
+            **{k: prof[k] for k in ("wall_ms", "device_ms", "idle_share", "launches",
+                                    "by_kind_ms")}}
+
+
+def phase_seg_clis() -> dict:
+    """9z13. The DETR and segmentation CLIs' main(argv) on the card,
+    --synthetic: the DETR CLI's narrow model (4 steps, 128 px, B=2) and
+    cydas_seg at a 257 crop in bf16 on "fused" (4 steps, B=2)."""
+    from cream_tpu_torch.cli import train_detr, train_seg
+    out_dir = ROOT / "build" / "seg_clis"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, cli, argv, key in (
+            ("train_detr", train_detr, ["--steps", "4", "--batch-size", "2", "--image-size",
+                                        "128", "--num-classes", "8"], "total"),
+            ("train_seg", train_seg, ["--steps", "4", "--crop", "257", "--batch-size", "2",
+                                      "--dtype", "bfloat16", "--dw-kernel", "fused"], "loss")):
+        t0 = time.time()
+        r = cli.main(["--synthetic", *argv, "--out", str(out_dir / f"{name}.json")])
+        vals = [h[key] for h in r["history"]]
+        res[name] = {"losses": vals, "s": time.time() - t0}
+        print(f"cli {name} --synthetic on cuda: losses {[round(v, 4) for v in vals]} in "
+              f"{res[name]['s']:.1f} s")
+        check(len(vals) == 4 and all(np.isfinite(vals)), f"{name} CLI: {vals}")
+    return res
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -4338,6 +4745,21 @@ def main() -> None:
         det_train[name] = phase_det_train(name)
     det_clis = phase_det_clis()
     det_s = time.time() - t_det
+    t_seg = time.time()
+    phase_rn_pool_grad()
+    counts = kernel_counts()
+    phase_detr_golden()
+    detr_eval = phase_detr_eval()
+    detr_train = phase_detr_train()
+    check(kernel_counts() == counts, "the DETR phases launched a kernel")
+    phase_cydas_golden()
+    counts = kernel_counts()
+    cyd_eval = phase_cydas_eval()
+    check(kernel_counts() == counts, "the CyDAS eval phase launched a kernel")
+    dwconv.reset_launches()
+    cyd_train = phase_cydas_train()
+    seg_clis = phase_seg_clis()
+    seg_s = time.time() - t_seg
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -4399,7 +4821,8 @@ def main() -> None:
             "replaces": f"cream_tpu/ops/dwconv.py:{src_line}",
             "launches": (evit_train[route][key] + tv_train[key] + cream["launches"][key]
                          + darts_search["launches"][key] + retrain["launches"][key]
-                         + sum(v["main_path_launches"][key] for v in det_train.values())),
+                         + sum(v["main_path_launches"][key] for v in det_train.values())
+                         + cyd_train["main_path_launches"][key]),
             "max_abs_err": worst_dw[key],
             **{k: sum(tdw[n][kind][k] * per for n, per in sites)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4409,7 +4832,10 @@ def main() -> None:
             "cream_supernet_step_launches": [n[key] for n in cream["launches_per_step"]],
             "darts_search_step_launches": [n[key] for n in darts_search["launches_per_step"]],
             "cdarts_retrain_forward_launches": retrain["launches"][key],
-            "detector_train_step_launches": {n: v["per_step"][key] for n, v in det_train.items()}})
+            "detector_train_step_launches": {n: v["per_step"][key] for n, v in det_train.items()},
+            "cydas_seg_step_launches": cyd_train["per_step"][key]})
+        if stride == 1 and kind != "wgrad":               # K7 at CyDAS's six sites, a step
+            rows[-1]["cydas_seg_step"] = per_step(tdw, cydas_dw_sites(), kind, 1)
         if stride == 2:                                   # K9: each site's own times
             rows[-1]["sites"] = {n: {k: tdw[n][kind][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms")} | {"per_step": per}
@@ -4547,6 +4973,20 @@ def main() -> None:
           + f"; K4 per M4 backbone forward {det_k4['ms']:.4f} ms (bound {det_k4['bound_ms']:.4f}); "
           f"CLIs' native AP " + ", ".join(f"{n} {r['metrics']}" for n, r in det_clis.items())
           + f" [{card}]")
+    print(f"DETR iRPE / CyDAS segmentation (phases 9z6-9z13, {seg_s:.1f} s): "
+          f"detr_r50_irpe_512_infer_throughput bf16 bs{DETR_BATCH} {detr_eval['img_per_s']:.1f} "
+          f"img/s (+ post_process {detr_eval['decode_img_per_s']:.1f}, peak "
+          f"{detr_eval['peak_gib']:.2f} GiB, idle {detr_eval['idle_share']:.3f}), "
+          f"detr_r50_irpe_512_train_throughput {statistics.median(detr_train['img_per_s']):.1f} "
+          f"img/s (median; peak {detr_train['peak_gib']:.2f} GiB, idle "
+          f"{detr_train['idle_share']:.3f}); cydas_seg_1024x2048_infer_throughput bf16 "
+          f"bs{SEG_BATCH} {cyd_eval['img_per_s']:.2f} img/s (peak {cyd_eval['peak_gib']:.2f} GiB, "
+          f"idle {cyd_eval['idle_share']:.3f}), cydas_seg_769_train_throughput library / fused "
+          + " / ".join(f"{statistics.median(cyd_train['img_per_s'][r]):.2f}"
+                       for r in ("library", "fused"))
+          + f" img/s (medians; fused peak {cyd_train['peak_gib']['fused']:.2f} GiB, idle "
+          f"{cyd_train['idle_share']:.3f}); CLIs {[(n, r['losses'][-1]) for n, r in seg_clis.items()]}"
+          f" [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

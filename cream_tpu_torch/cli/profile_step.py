@@ -22,6 +22,10 @@
                                                          # (--train: its weight step)
     python -m cream_tpu_torch.cli.profile_step [--train | --decode] --models \
         retinanet_efficientvit_m4 mask_rcnn_efficientvit_m4 --batch 16 [dw_kernel=fused]
+    python -m cream_tpu_torch.cli.profile_step [--train | --decode] --models detr_resnet50 \
+        --batch 16 enc_rpe2d=rpe-2.0-product-ctx-1-k aux_loss=true
+    python -m cream_tpu_torch.cli.profile_step [--train] --models cydas_seg --batch 12 \
+        [dw_kernel=fused]
 
 Runs `--warmup` untimed iterations, then `--steps` under `torch.profiler`
 (CPU and CUDA activity) and prints one JSON line: the wall time per
@@ -43,7 +47,10 @@ weight step); a network built from a genotype takes
 `speed_test.genotype_kwargs`'s example. A detector runs
 `speed_test.detector_forward_fn` (`--decode`: with its decode and host
 NMS) or, with `--train`, `speed_test.detector_train_step_fn`;
-`--img-size` is its canvas. A run without a CUDA device fails.
+`--img-size` is its canvas (a DETR's batch carries seeded pixel masks). A
+segmenter runs `speed_test.seg_forward_fn` at 1024x2048 or, with
+`--train`, `speed_test.seg_train_step_fn` at the 769 crop (`--img-size`
+makes both square). A run without a CUDA device fails.
 """
 from __future__ import annotations
 
@@ -83,6 +90,7 @@ KINDS = [
     # backward's scatter-add carries ReduceAdd (iRPE's bucket gather)
     ("scatter-add (gather backward)", r"scatter.*reduceadd|scatter_add"),
     ("gather", r"gather"),
+    ("sort (OHEM)", r"radix|sort"),
     ("reductions", r"reduce"),
     ("copies and casts", r"copy|cat|index|gather|scatter|transpose|permute"),
     ("elementwise", r"elementwise|vectorized|unrolled"),
@@ -163,11 +171,13 @@ def use_plain_attention(model: torch.nn.Module) -> None:
 
 
 def main(argv=None):
-    from cream_tpu_torch.cli.speed_test import (DETECTOR_PREFIXES, detector_batch,
-                                                detector_forward_fn, detector_train_step_fn,
-                                                forward_fn, genotype_kwargs, is_detector,
+    from cream_tpu_torch.cli.speed_test import (DETECTOR_PREFIXES, SEG_CROP, SEG_EVAL_HW,
+                                                detector_batch, detector_forward_fn,
+                                                detector_train_step_fn, forward_fn,
+                                                genotype_kwargs, is_detector, is_segmenter,
                                                 is_two_tower, model_kwargs, pair_inputs,
-                                                pair_step, tinyclip_train_step_fn,
+                                                pair_step, seg_batch, seg_forward_fn,
+                                                seg_train_step_fn, tinyclip_train_step_fn,
                                                 train_step_fn)
     from cream_tpu_torch.models import create_model
     from cream_tpu_torch.zoo.load import seeded_state_dict
@@ -194,18 +204,24 @@ def main(argv=None):
     kw = model_kwargs(args.opts)
     out = {}
     for name in args.models:
-        size = {} if args.img_size is None else {
+        size = {} if args.img_size is None or name.startswith("cydas") else {
             "canvas" if name.startswith(DETECTOR_PREFIXES) else "img_size": args.img_size}
         model = create_model(name, device="cuda", dtype=dtype, **size, **kw,
                              **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         if args.plain_attention:
             use_plain_attention(model)
-        if is_detector(model) and args.train:
+        square = None if args.img_size is None else (args.img_size,) * 2
+        if is_segmenter(model) and args.train:
+            _, fn = seg_train_step_fn(model, args.batch, square or (SEG_CROP,) * 2, dtype)
+        elif is_segmenter(model):
+            fn = seg_forward_fn(model, seg_batch(model, args.batch, square or SEG_EVAL_HW,
+                                                 dtype)["image"])
+        elif is_detector(model) and args.train:
             _, fn = detector_train_step_fn(model, args.batch, dtype)
         elif is_detector(model):
-            fn = detector_forward_fn(model, detector_batch(model, args.batch, dtype)["image"],
-                                     args.decode)
+            b = detector_batch(model, args.batch, dtype)
+            fn = detector_forward_fn(model, b["image"], args.decode, b.get("pad_mask"))
         elif args.train and is_two_tower(model):
             _, fn = tinyclip_train_step_fn(model, args.batch)
         elif args.train:

@@ -27,6 +27,10 @@
         cdarts_retrain_imagenet nasbench201_infer        # discrete nets of an example genotype
     python -m cream_tpu_torch.cli.speed_test [--train | --decode] --models \
         retinanet_efficientvit_m4 mask_rcnn_efficientvit_m4 --batch 16 --img-size 512
+    python -m cream_tpu_torch.cli.speed_test [--train | --decode] --models detr_resnet50 \
+        --batch 16 --img-size 512 enc_rpe2d=rpe-2.0-product-ctx-1-k aux_loss=true
+    python -m cream_tpu_torch.cli.speed_test [--train] --models cydas_seg --batch 12 \
+        [dw_kernel=fused]                                # eval 1024x2048, train crop 769
 
 `--train` times full train steps (forward, backward, AdamW update) as the
 JAX package's `bench_train_step` does: `adamw(1e-3, weight_decay=0.05)` on
@@ -61,6 +65,17 @@ targets): its eval forward (`detector_forward_fn`; Mask R-CNN's includes
 its proposals, whose NMS syncs with the host), with `--decode` the decode
 too, with `--train` the CLIs' step (`detector_train_step_fn`).
 
+A DETR (`detr_*`; `--img-size` its canvas, 512 by default) is a detector
+too: its batch carries a seeded pixel mask an image (`detr_batch`), the
+decode is `train.detection.post_process`, and its train step is the CLI's
+(one forward, the host's Hungarian matchings of the final and auxiliary
+outputs, AdamW 1e-4 after clipping at 0.1).
+
+A segmenter (`cydas_seg`) is timed on N(0, 1) images and blocky labels
+(`seg_batch`): its eval forward at the whole Cityscapes frame, 1024x2048,
+and with `--train` the CLI's step (three OHEM losses, SGD) at its 769 crop;
+`--img-size` makes both square.
+
 `--img-size` defaults to each model's own (384 for tiny_vit_21m_384).
 Weights are seeded random (speed does not depend on them). Each result is
 printed as one JSON line beside the card's name and power limit. There is no
@@ -77,7 +92,9 @@ import torch
 
 
 # registered detectors: `--img-size` is their canvas
-DETECTOR_PREFIXES = ("retinanet_", "mask_rcnn_")
+DETECTOR_PREFIXES = ("retinanet_", "mask_rcnn_", "detr_")
+# a segmenter's eval input (a whole Cityscapes frame) and train crop
+SEG_EVAL_HW, SEG_CROP = (1024, 2048), 769
 
 
 def card_info() -> str:
@@ -315,22 +332,63 @@ def tinyclip_train_throughput(model: torch.nn.Module, batch: int = 256, n_iters:
 
 
 def is_detector(model: torch.nn.Module) -> bool:
+    from cream_tpu_torch.models.detr import DETR
     from cream_tpu_torch.models.mask_rcnn import MaskRCNN
     from cream_tpu_torch.models.retinanet import RetinaNet
-    return isinstance(model, (RetinaNet, MaskRCNN))
+    return isinstance(model, (RetinaNet, MaskRCNN, DETR))
+
+
+def is_segmenter(model: torch.nn.Module) -> bool:
+    from cream_tpu_torch.models.cydas_seg import CyDASSeg
+    return isinstance(model, CyDASSeg)
+
+
+def _cuda_device(model: torch.nn.Module) -> torch.device:
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise RuntimeError(f"throughput is measured on a CUDA device, "
+                           f"the model is on {device}")
+    return device
+
+
+def detr_batch(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
+               seed: int = 0, max_boxes: int = 32) -> dict:
+    """A DETR batch on the model's CUDA device: N(0, 1)
+    images at the model's canvas in `dtype`, each with a pixel mask that
+    pads a seeded right and bottom margin (the unpadded part 50-100% of each
+    side, as a resized COCO image on a static canvas), and the DETR CLI's
+    synthetic targets (normalized cxcywh boxes, labels, valid), all from
+    default_rng(seed)."""
+    from cream_tpu_torch.cli.train_detr import synthetic_targets
+    device = _cuda_device(model)
+    rng = np.random.default_rng(seed)
+    c = model.canvas
+    images = rng.standard_normal((batch, c, c, 3)).astype(np.float32)
+    keep = rng.integers(c // 2, c + 1, (batch, 2))
+    mask = np.ones((batch, c, c), bool)
+    for i, (h, w) in enumerate(keep):
+        mask[i, :h, :w] = False
+    images[mask] = 0.0
+    boxes, labels, valid = synthetic_targets(rng, batch, max_boxes, model.num_classes)
+    out = {"image": torch.from_numpy(images).to(device, dtype),
+           "pad_mask": torch.from_numpy(mask).to(device)}
+    out.update({k: torch.from_numpy(v).to(device) for k, v in
+                (("boxes", boxes), ("labels", labels), ("valid", valid))})
+    return out
 
 
 def detector_batch(model: torch.nn.Module, batch: int, dtype: torch.dtype = torch.bfloat16,
                    seed: int = 0, max_boxes: int = 32) -> dict:
     """A detection batch on the model's CUDA device: N(0, 1) images at its
     canvas in `dtype`, and the CLIs' synthetic targets (boxes, labels,
-    valid; instance masks for Mask R-CNN) from default_rng(seed)."""
+    valid; instance masks for Mask R-CNN) from default_rng(seed); a DETR's
+    is `detr_batch`."""
     from cream_tpu_torch.cli.train_mask_rcnn import synthetic_targets
+    from cream_tpu_torch.models.detr import DETR
     from cream_tpu_torch.models.mask_rcnn import MaskRCNN
-    device = next(model.parameters()).device
-    if device.type != "cuda":
-        raise RuntimeError(f"throughput is measured on a CUDA device, "
-                           f"the model is on {device}")
+    if isinstance(model, DETR):
+        return detr_batch(model, batch, dtype, seed, max_boxes)
+    device = _cuda_device(model)
     rng = np.random.default_rng(seed)
     c = model.canvas
     tgt = synthetic_targets(rng, batch, c, max_boxes, model.num_classes)
@@ -342,18 +400,32 @@ def detector_batch(model: torch.nn.Module, batch: int, dtype: torch.dtype = torc
     return out
 
 
-def detector_forward_fn(model: torch.nn.Module, images: torch.Tensor, decode: bool = False):
+def detector_forward_fn(model: torch.nn.Module, images: torch.Tensor, decode: bool = False,
+                        pad_mask: torch.Tensor | None = None):
     """A zero-argument eval forward of a detector under inference_mode.
     RetinaNet: the head's outputs, then (`decode`) `retinanet_decode` with
     its host NMS. Mask R-CNN: features, RPN, proposals (their NMS syncs
     with the host), the box head; then (`decode`) the second-stage decode
-    and the mask head on its detections (`cli.train_mask_rcnn.infer`)."""
+    and the mask head on its detections (`cli.train_mask_rcnn.infer`).
+    DETR: the outputs on the images and `pad_mask`, then (`decode`)
+    `post_process` to canvas pixels."""
     from cream_tpu_torch.cli.train_mask_rcnn import infer
+    from cream_tpu_torch.models.detr import DETR
     from cream_tpu_torch.models.mask_rcnn import (MaskRCNN, mask_rcnn_anchor_levels,
                                                   mask_rcnn_anchors, rois_flat, rpn_proposals)
     from cream_tpu_torch.models.retinanet import (anchors_per_level, retina_anchors,
                                                   retinanet_decode)
+    from cream_tpu_torch.train.detection import post_process
     device, c = images.device, model.canvas
+    if isinstance(model, DETR):
+        sizes = torch.full((images.shape[0], 2), float(c), device=device)
+
+        def run():
+            with torch.inference_mode():
+                out = model(images, pad_mask)
+                return post_process({k: out[k].float() for k in ("pred_logits", "pred_boxes")},
+                                    sizes) if decode else out
+        return run
     if isinstance(model, MaskRCNN):
         anchors = torch.from_numpy(mask_rcnn_anchors(c)).to(device)
         levels = mask_rcnn_anchor_levels(c)
@@ -382,8 +454,12 @@ def detector_train_step_fn(model: torch.nn.Module, batch: int,
     of a detector on one `detector_batch` and returns (loss, losses)): the
     CLIs' step, AdamW(1e-4, wd 0.05, no decay on the bias tables); Mask
     R-CNN at the CLI's sampler sizes (256 RPN samples, 128 rois, 256
-    proposals), its priorities drawn from a generator seeded `seed + 1`."""
+    proposals), its priorities drawn from a generator seeded `seed + 1`.
+    DETR: its CLI's step (`cli.train_detr`), AdamW(1e-4, wd 1e-4) after
+    clipping at 0.1."""
+    from cream_tpu_torch.cli.train_detr import detr_adamw, detr_step_loss
     from cream_tpu_torch.cli.train_retinanet import detection_adamw, retinanet_step_loss
+    from cream_tpu_torch.models.detr import DETR
     from cream_tpu_torch.models.mask_rcnn import (MaskRCNN, mask_rcnn_anchor_levels,
                                                   mask_rcnn_anchors, mask_rcnn_losses,
                                                   sampler_uniforms)
@@ -392,6 +468,10 @@ def detector_train_step_fn(model: torch.nn.Module, batch: int,
     from cream_tpu_torch.train.steps import make_loss_step
     b = detector_batch(model, batch, dtype, seed)
     device, c = b["image"].device, model.canvas
+    if isinstance(model, DETR):
+        state = TrainState(model, detr_adamw())
+        step = make_loss_step(detr_step_loss(model.num_classes))
+        return state, lambda: step(state, b)[1:]
     state = TrainState(model, detection_adamw(model, 1e-4))
     if not isinstance(model, MaskRCNN):
         step = make_loss_step(retinanet_step_loss(
@@ -429,7 +509,61 @@ def detector_throughput(model: torch.nn.Module, batch: int, dtype: torch.dtype =
                         decode: bool = False, n_iters: int = 10, warmup: int = 3) -> float:
     """Eval images/s of a detector (`detector_forward_fn`), the host's NMS
     included where the path has one."""
-    run = detector_forward_fn(model, detector_batch(model, batch, dtype)["image"], decode)
+    b = detector_batch(model, batch, dtype)
+    run = detector_forward_fn(model, b["image"], decode, b.get("pad_mask"))
+    return timed_images_per_s(run, batch, n_iters, warmup)
+
+
+def seg_batch(model: torch.nn.Module, batch: int, hw: tuple[int, int],
+              dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> dict:
+    """A segmentation batch on the model's CUDA device:
+    `data.segmentation.synthetic_seg_batches`' first (N(0, 1) images in
+    `dtype`, blocky labels, the first two rows ignored)."""
+    from cream_tpu_torch.data.segmentation import synthetic_seg_batches
+    device = _cuda_device(model)
+    b = next(synthetic_seg_batches(batch, hw, model.num_classes, 1, seed))
+    return {"image": torch.from_numpy(b["image"]).to(device, dtype),
+            "label": torch.from_numpy(b["label"]).to(device)}
+
+
+def seg_forward_fn(model: torch.nn.Module, images: torch.Tensor):
+    """A zero-argument eval forward of a segmenter under inference_mode,
+    ending in the per-pixel argmax."""
+    def run():
+        with torch.inference_mode():
+            return model(images).argmax(-1)
+    return run
+
+
+def seg_train_step_fn(model: torch.nn.Module, batch: int, hw: tuple[int, int] = (SEG_CROP,) * 2,
+                      dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """(the step's state, a zero-argument function that runs one train step
+    of a segmenter on one `seg_batch` and returns (loss, metrics)): the
+    train_seg CLI's step, OHEM with min_kept = B·H·W // 16 on the three
+    heads, SGD(0.01, momentum 0.9) after decay 5e-4."""
+    from cream_tpu_torch.cli.train_seg import seg_sgd, seg_step_loss
+    from cream_tpu_torch.train.state import TrainState
+    from cream_tpu_torch.train.steps import make_loss_step
+    b = seg_batch(model, batch, hw, dtype, seed)
+    state = TrainState(model, seg_sgd(0.01))
+    step = make_loss_step(seg_step_loss(batch * hw[0] * hw[1] // 16, model.num_classes))
+    return state, lambda: step(state, b)[1:]
+
+
+def seg_throughput(model: torch.nn.Module, batch: int, hw: tuple[int, int] = SEG_EVAL_HW,
+                   dtype: torch.dtype = torch.bfloat16, n_iters: int = 10,
+                   warmup: int = 3) -> float:
+    """Eval images/s of a segmenter (`seg_forward_fn`)."""
+    run = seg_forward_fn(model, seg_batch(model, batch, hw, dtype)["image"])
+    return timed_images_per_s(run, batch, n_iters, warmup)
+
+
+def seg_train_throughput(model: torch.nn.Module, batch: int,
+                         hw: tuple[int, int] = (SEG_CROP,) * 2,
+                         dtype: torch.dtype = torch.bfloat16, n_iters: int = 10,
+                         warmup: int = 3) -> float:
+    """Train images/s of a segmenter (`seg_train_step_fn`)."""
+    _, run = seg_train_step_fn(model, batch, hw, dtype)
     return timed_images_per_s(run, batch, n_iters, warmup)
 
 
@@ -480,13 +614,18 @@ def main(argv=None):
         if name not in list_models():
             print(f"skip unknown model {name}")
             continue
-        size = {} if args.img_size is None else {
+        size = {} if args.img_size is None or name.startswith("cydas") else {
             "canvas" if name.startswith(DETECTOR_PREFIXES) else "img_size": args.img_size}
         model = create_model(name, device=args.device, dtype=dtype, **size, **kw,
                              **genotype_kwargs(name, kw))
         model.load_state_dict(seeded_state_dict(model, 0))
         pairs = is_two_tower(model)
-        if is_detector(model):
+        if is_segmenter(model):
+            hw = None if args.img_size is None else (args.img_size,) * 2
+            ips = (seg_train_throughput(model, args.batch, hw or (SEG_CROP,) * 2, dtype,
+                                        args.iters) if args.train
+                   else seg_throughput(model, args.batch, hw or SEG_EVAL_HW, dtype, args.iters))
+        elif is_detector(model):
             ips = (detector_train_throughput(model, args.batch, dtype, args.iters) if args.train
                    else detector_throughput(model, args.batch, dtype, args.decode, args.iters))
         elif pairs and args.train:
@@ -501,7 +640,7 @@ def main(argv=None):
         results[name] = ips
         print(json.dumps({"model": name, "pairs_per_s" if pairs else "img_per_s": ips,
                           "batch": args.batch,
-                          "img_size": model.img_size,
+                          "img_size": getattr(model, "img_size", args.img_size),
                           "dtype": args.dtype, "train": args.train, "decode": args.decode,
                           **kw,
                           "card": card_info()}))

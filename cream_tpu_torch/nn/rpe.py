@@ -2,8 +2,12 @@
 
 Counterpart of `cream_tpu/nn/rpe.py` (the iRPE module of
 iRPE/DeiT-with-iRPE/irpe.py:418-767 and its CUDA gather `rpe_index`). An
-`IRPE` is built for one token grid: its bucket table (and, on values, the
-one-hot of it) is a non-persistent buffer made once, on the module's device.
+`IRPE` built for a token grid keeps its bucket table (and, on values, the
+one-hot of it) as a non-persistent buffer made once, on the module's device;
+`forward(x, hw=(H, W))` takes another grid (DETR's encoder sees the
+stride-32 grid of whatever canvas comes in), whose tables are made on the
+first call and cached per (H, W, device). The parameter's shape depends on
+the method and beta only, so one parameter serves every grid.
 
   * bias mode: a scalar per bucket, `table[:, bucket[i, j]]`.
   * contextual on q or k (`transposed`): `tbl = x·W` (fp32 sums of products
@@ -27,19 +31,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cream_tpu_torch.ops.rpe import METHOD, SingleRPEConfig, bucket_ids_2d
+from cream_tpu_torch.ops.rpe import METHOD, SingleRPEConfig, bucket_ids_2d, num_buckets
 
 
 class IRPE(nn.Module):
     """One directional RPE (on q, k or v) for a `height` x `width` grid after
     `skip` prefix tokens (`cfg.skip` unless given: a distilled DeiT has 2).
     Input: (B, heads, L, head_dim) when `transposed`, the (B, heads, L, L)
-    attention matrix otherwise; L = skip + height·width."""
+    attention matrix otherwise; L = skip + height·width. Without a grid
+    (`height`, `width` None) every call names its own (`hw`)."""
 
     def __init__(self, head_dim: int, num_heads: int, cfg: SingleRPEConfig,
-                 height: int, width: int, skip: int | None = None,
-                 transposed: bool = True, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 height: int | None = None, width: int | None = None,
+                 skip: int | None = None, transposed: bool = True, *,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.cfg, self.transposed, self.dtype = cfg, transposed, dtype
         skip = cfg.skip if skip is None else skip
@@ -54,13 +59,17 @@ class IRPE(nn.Module):
             return
         if not transposed and cfg.mode != "contextual":
             raise ValueError("bias mode is transposed-only")
-        ids, n = bucket_ids_2d(cfg.method, height, width, skip, cfg.alpha, cfg.beta,
-                               cfg.gamma)
+        self.skip = skip
+        n = num_buckets(cfg.method, cfg.beta, skip)
         if skip > 0 and n != cfg.num_buckets:
             raise ValueError(f"{n} buckets at skip {skip}, the config has {cfg.num_buckets}")
+        self._grids: dict[tuple, tuple] = {}
         tables = 1 if cfg.shared_head else num_heads
-        ids = torch.as_tensor(ids, dtype=torch.long, device=device)
-        self.register_buffer("bucket_ids", ids, persistent=False)
+        if height is not None:
+            ids, onehot = self._tables(height, width, device)
+            self.register_buffer("bucket_ids", ids, persistent=False)
+            if onehot is not None:
+                self.register_buffer("onehot", onehot, persistent=False)
         if cfg.mode == "bias":
             self.lookup_table_bias = nn.Parameter(torch.zeros(tables, n, device=device))
         elif transposed:
@@ -69,21 +78,42 @@ class IRPE(nn.Module):
         else:
             self.lookup_table_weight = nn.Parameter(
                 torch.zeros(tables, n, head_dim, device=device))
-            self.register_buffer("onehot", F.one_hot(ids, n).float(), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _tables(self, height: int, width: int, device) -> tuple:
+        """(bucket ids (L, L) long, their one-hot (L, L, n) fp32 on values
+        else None) of a grid, made outside inference mode (autograd saves
+        them for the backward)."""
+        cfg = self.cfg
+        ids, n = bucket_ids_2d(cfg.method, height, width, self.skip, cfg.alpha, cfg.beta,
+                               cfg.gamma)
+        with torch.inference_mode(False):
+            ids = torch.as_tensor(ids, dtype=torch.long, device=device)
+            onehot = None if self.transposed else F.one_hot(ids, n).float()
+        return ids, onehot
+
+    def forward(self, x: torch.Tensor, hw: tuple[int, int] | None = None) -> torch.Tensor:
         if self.cfg.method == METHOD.CROSS:
-            return self.rp_rows(x) + self.rp_cols(x)
-        L = self.bucket_ids.shape[0]
+            return self.rp_rows(x, hw) + self.rp_cols(x, hw)
+        if hw is None:
+            ids, onehot = self.bucket_ids, getattr(self, "onehot", None)
+        else:
+            key = (int(hw[0]), int(hw[1]), x.device)
+            if key not in self._grids:
+                self._grids[key] = self._tables(key[0], key[1], x.device)
+            ids, onehot = self._grids[key]
+        return self._encode(x, ids, onehot)
+
+    def _encode(self, x: torch.Tensor, ids: torch.Tensor, onehot) -> torch.Tensor:
+        L = ids.shape[0]
         if x.shape[2] != L or (not self.transposed and x.shape[3] != L):
             raise ValueError(f"input {tuple(x.shape)}: the table was built for {L} tokens")
         dt = self.dtype
         if self.cfg.mode == "bias":
-            return self.lookup_table_bias[:, self.bucket_ids][None].to(dt)   # (1, h|1, L, L)
+            return self.lookup_table_bias[:, ids][None].to(dt)               # (1, h|1, L, L)
         w = self.lookup_table_weight.to(dt).float()
         if self.transposed:
             tbl = torch.matmul(x.float(), w)                                   # (B, h, L, n)
-            idx = self.bucket_ids.expand(*tbl.shape[:-1], L)
+            idx = ids.expand(*tbl.shape[:-1], L)
             return torch.gather(tbl, 3, idx).to(dt)
-        z = torch.einsum("bhij,ijn->bhin", x.float(), self.onehot).to(dt)
+        z = torch.einsum("bhij,ijn->bhin", x.float(), onehot).to(dt)
         return torch.matmul(z.float(), w).to(dt)

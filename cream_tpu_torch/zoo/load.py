@@ -955,6 +955,131 @@ def mask_rcnn_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]
     return {**_detector_backbone(variables), **w.state_dict()}
 
 
+# ---- DETR with iRPE / CyDAS segmentation ----
+
+def _frozen_bn(w: _Writer, constants: Mapping, fp: str, tp: str) -> None:
+    node = w._get(constants, fp)
+    for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                     ("var", "running_var")):
+        w.sd[f"{tp}.{dst}"] = np.asarray(node[src])
+
+
+def _mha(w: _Writer, fp: str, tp: str) -> None:
+    node = w._get(w.params, fp)
+    w.sd[f"{tp}.in_proj_weight"] = _dense(node["in_proj_kernel"])
+    w.sd[f"{tp}.in_proj_bias"] = np.asarray(node["in_proj_bias"])
+    w.dense(f"{fp}/out_proj", f"{tp}.out_proj")
+    for r in ("rpe_q", "rpe_k", "rpe_v"):
+        if r in node:
+            _irpe_from_jax(w, f"{fp}/{r}", f"{tp}.{r}")
+
+
+def detr_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's DETR variables (`params` and the frozen BNs'
+    `constants`) -> the port's `models.detr.DETR` state_dict, in the
+    reference's names: the ResNet under `backbone.0.body.` (torchvision's
+    `layer{l}.{b}.conv{i}` / `bn{i}` / `downsample.{0,1}`), the packed
+    attention projections as torch's (3E, E) `in_proj_weight`,
+    `transformer.{encoder,decoder}.layers.{i}`, `transformer.decoder.norm`.
+    The JAX package has no DETR importer; this is its inverse layout."""
+    w = _Writer(variables)
+    consts = variables.get("constants", {})
+    body, cbody = w.params["backbone"]["body"], consts["backbone"]["body"]
+    tb = "backbone.0.body"
+    w.sd[f"{tb}.conv1.weight"] = _conv(body["conv1"]["kernel"])
+    _frozen_bn(w, cbody, "bn1", f"{tb}.bn1")
+    for key in sorted(k for k in body if k.startswith("layer")):
+        li, bi = key[len("layer"):].split("_")
+        tp = f"{tb}.layer{li}.{bi}"
+        for name, node in body[key].items():
+            if name == "downsample_conv":
+                w.sd[f"{tp}.downsample.0.weight"] = _conv(node["kernel"])
+            else:
+                w.sd[f"{tp}.{name}.weight"] = _conv(node["kernel"])
+        for name in cbody[key]:
+            _frozen_bn(w, cbody[key], name,
+                       f"{tp}.downsample.1" if name == "downsample_bn" else f"{tp}.{name}")
+    w.conv_biased("input_proj", "input_proj")
+    w.raw("query_embed", "query_embed.weight")
+    tr = w.params["transformer"]
+    for kind in ("encoder", "decoder"):
+        for i in _numbered_keys(tr, f"{kind}_layers_"):
+            fp, tp = f"transformer/{kind}_layers_{i}", f"transformer.{kind}.layers.{i}"
+            for name, node in tr[f"{kind}_layers_{i}"].items():
+                if name.endswith("attn"):
+                    _mha(w, f"{fp}/{name}", f"{tp}.{name}")
+                elif name == "ffn":
+                    w.dense(f"{fp}/ffn/linear1", f"{tp}.linear1")
+                    w.dense(f"{fp}/ffn/linear2", f"{tp}.linear2")
+                else:
+                    w.ln(f"{fp}/{name}", f"{tp}.{name}")
+        if f"{kind}_norm" in tr:
+            w.ln(f"transformer/{kind}_norm", f"transformer.{kind}.norm")
+    w.dense("class_embed", "class_embed")
+    for i in _numbered_keys(w.params["bbox_embed"], "layers_"):
+        w.dense(f"bbox_embed/layers_{i}", f"bbox_embed.layers.{i}")
+    return w.state_dict()
+
+
+def cydas_seg_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's CyDASSeg variables -> the port's
+    `models.cydas_seg.CyDASSeg` state_dict in the reference CyDASseg's
+    names; the exact inverse of `cream_tpu.zoo.import_torch.
+    convert_cydas_seg` (the trunk through `cream_state_dict_from_jax`'s
+    blocks, a Self_Attn pipeline as `net.{0,1,3,5,7,8}`)."""
+    w = _Writer(variables)
+
+    def conv_bn(fp: str, conv: str, bn: str):
+        w.sd[f"{conv}.weight"] = _conv(w._get(w.params, f"{fp}/conv/kernel"))
+        w.bn(f"{fp}/bn", bn)
+
+    def se(fp: str, tp: str):
+        for c in ("conv_reduce", "conv_expand"):
+            w.conv_biased(f"{fp}/se/{c}", f"{tp}.se.{c}")
+
+    bb = w.params["backbone"]
+    conv_bn("backbone/conv_stem", "backbone.conv_stem", "backbone.bn1")
+    q = "backbone.blocks.0.0"
+    conv_bn("backbone/blocks_0/conv_dw", f"{q}.conv_dw", f"{q}.bn1")
+    se("backbone/blocks_0", q)
+    conv_bn("backbone/blocks_0/conv_pw", f"{q}.conv_pw", f"{q}.bn2")
+    layers = sorted(tuple(int(v) for v in k.split("_")[1::2]) for k in bb
+                    if k.startswith("stage_"))
+    for s, i in layers:
+        fp, tp = f"backbone/stage_{s}_layer_{i}", f"backbone.blocks.{s + 1}.{i}"
+        for part, bn in (("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3")):
+            conv_bn(f"{fp}/{part}", f"{tp}.{part}", f"{tp}.{bn}")
+        se(fp, tp)
+    tail = f"backbone.blocks.{1 + max(s for s, _ in layers) + 1}.0"
+    conv_bn("backbone/blocks_tail", f"{tail}.conv", f"{tail}.bn1")
+
+    def conv_norm(fp: str, tp: str):
+        conv_bn(f"{fp}/conv", f"{tp}.conv.0", f"{tp}.conv.1")
+
+    def self_attn(fp: str, tp: str):
+        if "shortcut" in w._get(w.params, fp):
+            conv_bn(f"{fp}/shortcut", f"{tp}.shortcut.0", f"{tp}.shortcut.1")
+        conv_bn(f"{fp}/net_proj", f"{tp}.net.0", f"{tp}.net.1")
+        for c in ("query_conv", "key_conv", "value_conv"):
+            w.conv_biased(f"{fp}/att/{c}", f"{tp}.net.3.{c}")
+        w.raw(f"{fp}/att/gamma", f"{tp}.net.3.gamma")
+        w.bn(f"{fp}/net_bn", f"{tp}.net.5")
+        conv_bn(f"{fp}/net_out", f"{tp}.net.7", f"{tp}.net.8")
+
+    for name in ("arms32_0", "arms32_1", "refines32_0", "refines32_1"):
+        conv_norm(name, name.replace("_", "."))
+    conv_bn("ffm/conv", "ffm.conv_1x1.conv", "ffm.conv_1x1.bn")
+    conv_norm("heads8/feature_projection", "heads8.feature_projection")
+    self_attn("heads8/att_sa", "heads8.att_sa")
+    conv_bn("heads8/conv_3x3", "heads8.conv_3x3.conv", "heads8.conv_3x3.bn")
+    w.conv_biased("heads8/conv_1x1", "heads8.conv_1x1")
+    for h in ("heads16", "heads32"):
+        if h in w.params:
+            self_attn(f"{h}/att_sa", f"{h}.att_sa")
+            w.conv_biased(f"{h}/conv_1x1", f"{h}.conv_1x1")
+    return w.state_dict()
+
+
 def seeded_state_dict(model: torch.nn.Module, seed: int = 0
                       ) -> dict[str, torch.Tensor]:
     """Random but non-degenerate weights for `model`, drawn with numpy's

@@ -175,3 +175,18 @@ def test_clis_on_a_coco_folder(coco_dir, tmp_path):
                                        "16", "--proposals", "24", "--max-dets", "10",
                                        "--out", str(tmp_path / "m.json")])
     assert "segm_AP" in m["metrics"]
+
+
+def test_detr_cli_on_a_coco_folder(coco_dir, tmp_path):
+    """The DETR CLI in COCO mode: a padded static-canvas batch (its pixel
+    mask reaches the model), one step, then native AP; and --eval-only."""
+    from cream_tpu_torch.cli import train_detr
+    root, ann = coco_dir
+    common = ["--cpu", "--coco-img-dir", str(root), "--coco-ann", str(ann), "--canvas", "64",
+              "--resize", "48", "--batch-size", "2", "--num-classes", "4", "--max-boxes", "4",
+              "--num-queries", "6", "--hidden-dim", "16", "--enc-layers", "1",
+              "--dec-layers", "1"]
+    r = train_detr.main(common + ["--steps", "1", "--out", str(tmp_path / "d.json")])
+    assert np.isfinite(r["history"][0]["total"]) and "AP" in r["metrics"]
+    e = train_detr.main(common + ["--eval-only", "--out", str(tmp_path / "e.json")])
+    assert "AP" in e

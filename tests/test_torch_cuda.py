@@ -1719,3 +1719,75 @@ def test_detector_fused_train_step_launches_every_site(card):
         losses[route] = float(loss)
     assert abs(losses["fused"] - losses["library"]) <= 2 * 2.0 ** (np.floor(np.log2(
         abs(losses["library"]))) - 7)
+
+
+def test_clip_rn_tower_block_input_grad_on_the_card_matches_the_cpu(card):
+    """A CLIP RN50 tower block that avg-pools (layer2's first, stride 2) and
+    the stem's pool: fp32 output and input grad on the card within 1e-5 of
+    the CPU's at their largest (the pool runs on a contiguous NCHW copy;
+    on a channels_last input torch's CUDA backward is wrong)."""
+    from cream_tpu_torch.models.resnet import CLIPBottleneck, _avg_pool
+    blk = CLIPBottleneck(256, 128, 2, dtype=torch.float32)
+    blk.load_state_dict(seeded_state_dict(blk, 0))
+    x = torch.randn(2, 28, 28, 256, generator=torch.Generator().manual_seed(1))
+    out = []
+    for device in ("cpu", card):
+        blk.to(device)
+        xi = x.to(device).requires_grad_()
+        y = blk(_avg_pool(xi, 1))
+        gy = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+        g, = torch.autograd.grad((y * gy).sum(), [xi])
+        out.append((y.detach().cpu(), g.cpu()))
+    for a, b in zip(out[1], out[0]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_narrow_detr_on_the_card_matches_the_cpu(card):
+    """A narrow DETR with iRPE on q, k and v on a padded batch: fp32
+    outputs on the card within 1e-5 of the CPU's, the per-grid tables made
+    on the card."""
+    from cream_tpu_torch.models.detr import DETR, parse_enc_rpe2d
+    from cream_tpu_torch.models.resnet import ResNetBackbone
+    m = DETR(ResNetBackbone((1, 1, 1, 1), "basic"), num_classes=5, num_queries=8,
+             hidden_dim=32, nhead=4, num_encoder_layers=2, num_decoder_layers=2,
+             dim_feedforward=64, aux_loss=True,
+             rpe_config=parse_enc_rpe2d("rpe-1.9-product-ctx-1-qkv")).eval()
+    m.load_state_dict(seeded_state_dict(m, 0))
+    x = torch.randn(2, 100, 130, 3, generator=torch.Generator().manual_seed(1))
+    mask = torch.zeros(2, 100, 130, dtype=torch.bool)
+    mask[0, 81:] = True
+    outs = []
+    for device in ("cpu", card):
+        m.to(device)
+        with torch.no_grad():
+            o = m(x.to(device), mask.to(device))
+        outs.append([o[k].cpu() for k in ("pred_logits", "pred_boxes")])
+    for a, b in zip(outs[1], outs[0]):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_cydas_fused_step_launches_every_site(card):
+    """A cydas_seg bf16 train step at an odd 97 x 129 crop on "fused": K7
+    forward and backward at the six stride-1 depthwise sites, no K9, none
+    refused; the loss within 2 bf16 ulps of "library"'s."""
+    from cream_tpu_torch.cli.speed_test import seg_train_step_fn
+    from cream_tpu_torch.models import create_model
+    from cream_tpu_torch.models.cydas_seg import dw3x3_sites
+    from cream_tpu_torch.nn.layers import DW_REFUSED, set_dw_kernel
+    losses = {}
+    for route in ("library", "fused"):
+        m = create_model("cydas_seg", device=card, dtype=torch.bfloat16)
+        m.load_state_dict(seeded_state_dict(m, 0))
+        set_dw_kernel(m, route)
+        _, run = seg_train_step_fn(m, 2, (97, 129))
+        DW_REFUSED.clear()
+        dwconv.reset_launches()
+        loss, _ = run()
+        torch.cuda.synchronize()
+        n = len(dw3x3_sites(2, 97, 129)) if route == "fused" else 0
+        assert dwconv.LAUNCHES == {"k7_fwd": n, "k7_bwd": n, "k8": 0, "k9_fwd": 0,
+                                   "k9_bwd": 0}, route
+        assert not DW_REFUSED
+        losses[route] = float(loss)
+    assert abs(losses["fused"] - losses["library"]) <= 2 * 2.0 ** (np.floor(np.log2(
+        abs(losses["library"]))) - 7)
