@@ -170,7 +170,7 @@ non-zero):
      "wgrad"): K7/K8/K9 launches per step from the site count, no K4/K5;
      the loss falls over 10 steps on one batch; kernel routes against
      "library" on the same weights and batch; train img/s of the three
-     routes interleaved, peak memory; M5 bs512 eval img/s with the
+     routes in 2 interleaved rounds, peak memory; M5 bs512 eval img/s with the
      depthwise convs on "library" and "fused"
  18. main path (TinyViT train, depthwise routes): TinyViT-21M-224 bf16
      bs256 through train.make_train_step with every depthwise ConvBN on
@@ -233,8 +233,8 @@ non-zero):
  9w. DARTS search: darts_search_cifar's fp32 B=2 logits and alpha grads
      golden; CyclicSearcher's weight and alpha steps in bf16 at bs64 on
      "library" and "fused" (K7/K9 launches a step from the sites' rule, the
-     first loss and grad norm between routes, ms a step in interleaved
-     rounds, device time and idle share from `profile`)
+     first loss and grad norm between routes, ms a step in one round of
+     3, device time and idle share from `profile`)
  9x. CDARTS staged search: cli.search_cdarts.main on the card at
      StageSearchConfig's width (steps and iterations cut), the JSON, a
      retrain network built from its genotypes, seconds a step and a
@@ -258,7 +258,7 @@ non-zero):
      share, the forward's FLOPs against the bf16 peak
 9z4. main path (detector train): both at bf16 bs16 through the CLIs' step
      on "library" and "fused" (K7/K9 at every enumerated site, none
-     refused), img/s in 3 interleaved rounds, peak memory; 20 steps on one
+     refused), img/s in 2 interleaved rounds, peak memory; 20 steps on one
      batch: the loss falls, all losses finite; idle share of a step
 9z5. both detection CLIs --synthetic on the card (M4, canvas 512, B=2): the
      loss finite, the native COCO AP computed
@@ -287,6 +287,24 @@ non-zero):
      the grad norm within 2% of library's), img/s in 3 interleaved rounds,
      peak memory; 20 steps on one batch: the loss falls, all finite
 9z13. the DETR and segmentation CLIs --synthetic on the card
+9z14. pixels on this host: the seeded train recipe (TrainAugConfig(),
+     rand-m3-n2-mstd0.5, the colour-jitter route) and the eval resize +
+     crop reproduce the stored JAX package's Pillow outputs
+     (tests/data/torch_port/train_transform_seed0.npz) bit for bit; a BMP
+     written here reads back bit for bit; the transform's ms an image
+9z15. a generated ImageNet-style folder (10 classes, 768 train and 256 val
+     BMPs at ImageNet's common sizes, in a temporary directory under build/):
+     the train loader's img/s with the full recipe at bs256 and 8 worker
+     processes (with their start, and steady over 10 batches after 5),
+     beside the CPU count; the eval loader's
+9z16. main path (training from the folder): cli.train.main, TinyViT-21M-224
+     bf16 bs256, the full default recipe, 3 steps and the eval: 10 K1 + 10
+     K2 launches a step, finite losses, the epoch's img/s; then the folder's
+     steady train img/s (6 steps after 5, fed by the loader over 5 passes
+     of the folder) beside the synthetic one, the idle share of 4 steady
+     folder-fed steps, peak memory with remat_stem off and on
+9z17. main path (eval from the folder): cli.eval.main, TinyViT-21M-224 bf16
+     bs256 with --torch-ckpt: 10 K1 launches a forward, n = 256, img/s
  24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
@@ -1074,7 +1092,9 @@ def distill_batch(store: Path, dtype) -> dict:
     from cream_tpu_torch.data.imagenet import train_loader
     from cream_tpu_torch.distill import LogitsReader
     cfg = Config.from_yaml(None, ["data.dataset=synthetic", f"data.batch_size={BATCH}"])
-    batch = next(iter(train_loader(train_cli.build_dataset(cfg), BATCH, 0, 0, 8)))
+    batch = next(iter(train_loader(train_cli.build_dataset(cfg, train=True), BATCH, 0, 0,
+                                   cfg.data.img_size, 8,
+                                   transform=train_cli.build_train_transform(cfg))))
     reader = LogitsReader(str(store), 0)
     out = train_cli.distill_batch(cfg, batch, reader, "cuda", dtype)
     reader.close()
@@ -1186,12 +1206,13 @@ def phase_distill() -> tuple[int, int]:
 def distill_host_times(store: Path, map_path: Path) -> None:
     """Where a batch's time goes outside the models' kernels, on one bs256
     batch, each the median of 5 (host clock around work that ends in a
-    synchronize, or CUDA events): the synthetic loader's batch (8 threads),
+    synchronize, or CUDA events): the synthetic loader's batch (8 workers,
+    the trainer's full seeded recipe),
     the seeded pair mixup (its host draws and the device mix), Swin-B-22k's
     forward, the remap + softmax + top-K, the store's read of a batch
     (native codec) and the student's mixup replay on bf16 images. Not the
     main path: its K1 launches are not counted."""
-    from cream_tpu_torch.cli.train import build_dataset
+    from cream_tpu_torch.cli.train import build_dataset, build_train_transform
     from cream_tpu_torch.core.config import Config
     from cream_tpu_torch.data.imagenet import train_loader
     from cream_tpu_torch.data.mixup import seeded_pair_mixup
@@ -1209,8 +1230,9 @@ def distill_host_times(store: Path, map_path: Path) -> None:
         return statistics.median(times)
 
     cfg = Config.from_yaml(None, ["data.dataset=synthetic", f"data.batch_size={SWINB_BATCH}"])
-    ds = build_dataset(cfg)
-    it = iter(train_loader(ds, SWINB_BATCH, 0, 0, 8))
+    ds = build_dataset(cfg, train=True)
+    it = iter(train_loader(ds, SWINB_BATCH, 0, 0, cfg.data.img_size, 8,
+                           transform=build_train_transform(cfg)))
     t0 = time.perf_counter()
     batches = list(it)
     loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
@@ -1236,7 +1258,8 @@ def distill_host_times(store: Path, map_path: Path) -> None:
     replay = host_ms(lambda: seeded_pair_mixup(seeds, x16, zeros, 1, a.mixup, a.cutmix,
                                                a.mixup_switch_prob)[0].to(torch.bfloat16))
     print(f"distill host/device times a bs{SWINB_BATCH} batch (median of 5): synthetic loader "
-          f"{loader_ms:.1f} ms (host, 8 threads, mean of {len(batches)} batches), seeded pair "
+          f"{loader_ms:.1f} ms (host, 8 workers, mean of {len(batches)} batches, the "
+          f"workers' start included), seeded pair "
           f"mixup {mix:.2f} ms (host draws + device mix), Swin-B-22k forward {fwd:.2f} ms "
           f"(CUDA events), remap + softmax + top-K {head:.3f} ms, store read {read:.2f} ms "
           f"(host, native), student mixup replay {replay:.2f} ms [{card_info()}]")
@@ -2010,8 +2033,9 @@ def phase_evit_train() -> dict:
         check(losses[route][-1] < losses[route][0], f"{name} {route}: loss did not fall: "
                                                     f"{losses[route]}")
     # the host issues ~5,400 launches a step and sets the pace; its noise is
-    # large, so each route is timed four times, interleaved
-    for order in (DW_ROUTES[::-1], DW_ROUTES, DW_ROUTES[::-1]):
+    # large, so each route is timed twice, interleaved (four times before
+    # the image-folder phases took the smoke's time)
+    for order in (DW_ROUTES[::-1],):
         for route in order:
             ips[route].append(train_throughput(models[route], batch_size, 224, dtype, iters,
                                                warmup))
@@ -2033,7 +2057,7 @@ def phase_evit_train() -> dict:
         check(abs(g_k - g_ref) <= 2e-2 * g_ref, f"{route} vs library grad_norm {g_k} vs {g_ref}")
     median = {r: statistics.median(v) for r, v in ips.items()}
     print(f"train throughput {name} bf16 B={batch_size} (rounds in the orders library, "
-          f"fused, wgrad / reversed / forward / reversed): " + "; ".join(
+          f"fused, wgrad / reversed): " + "; ".join(
               f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])} img/s (median {median[r]:.1f})"
               for r in DW_ROUTES) + f"; highest median: {max(median, key=median.get)} [{card}]")
     # eval with the depthwise convs on the library conv and on K7/K9
@@ -3412,8 +3436,8 @@ def phase_cream_search() -> dict:
     on "library" and on "fused": K7/K9 launches in each of the first 3 steps
     equal to the paths' sites (`cream_dw_launches`), the first step's loss
     within 2 bf16 ulps and grad norm within 2% between routes; after the
-    other 10 paths once on each route, img/s of their 10 steps in 2
-    interleaved rounds, peak memory; and the meta step's ms (bf16, the
+    other 10 paths once on each route, img/s of their 10 steps in one
+    round, peak memory; and the meta step's ms (bf16, the
     CLI's slice of a quarter of the batch, CUDA events, median of 5 after
     one)."""
     import tempfile
@@ -3495,7 +3519,7 @@ def phase_cream_search() -> dict:
     ips = {r: [] for r in routes}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for order in (routes, routes[::-1]):
+    for order in (routes,):
         for route in order:
             counter = iter(range(3, 13))
             ms = timed_steps(lambda: run(states[route], next(counter)), 10)
@@ -3516,8 +3540,7 @@ def phase_cream_search() -> dict:
           f"paths' sites), library none; step 1 fused vs library: loss {l_k:.5f} vs "
           f"{l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), grad_norm "
           f"{g_k:.4f} vs {g_ref:.4f} (rel {abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2); img/s "
-          f"(10 steps after each path once, CUDA events, rounds library, fused / fused, "
-          f"library): "
+          f"(10 steps after each path once, CUDA events, one round library, fused): "
           + "; ".join(f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])}" for r in routes)
           + f"; peak memory {peak:.2f} GiB; meta step (bf16, slice {sl} x 1,000 classes) "
           f"{meta_ms:.2f} ms; depthwise sites the kernels refused: {dict(DW_REFUSED)} "
@@ -3632,7 +3655,7 @@ def phase_cdarts_retrain() -> dict:
             "launches": launches["fused"]}
 
 
-def phase_darts_search(rounds: int = 2, per: int = 3) -> dict:
+def phase_darts_search(rounds: int = 1, per: int = 3) -> dict:
     """9w. darts_search_cifar (C 16, 8 layers, 4 nodes): the fp32 B=2 logits
     and CE alpha grads (eval mode, TF32 off) on seeded weights and the
     stored alphas against the JAX package's, run in float64 (1e-3; grads
@@ -4189,7 +4212,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
     512, through `speed_test.detector_train_step_fn` (the CLIs' step): on
     "fused" K7/K9 launch at every site `models.retinanet.dw3x3_step_launches`
     counts, none refused, none on "library"; train img/s on "library" and
-    "fused" in 3 interleaved rounds (CUDA events, 4 steps after 1), peak
+    "fused" in 2 interleaved rounds (CUDA events, 4 steps after 1), peak
     memory; first `steps` steps on one batch on "fused" from the seeded
     weights: the loss falls, every loss finite; device time and idle share
     of a step (`profile`)."""
@@ -4219,7 +4242,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in [first] + history] for k in first[1]
              if k not in ("num_pos", "grad_norm")}
     per_step = {k: (dwconv.LAUNCHES[k] - n0[k]) // (steps - 1) for k in n0}
-    for r in range(3):
+    for r in range(2):
         for route in (("library", "fused") if r % 2 == 0 else ("fused", "library")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4231,7 +4254,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
     print(f"train {name} bf16 B={batch} canvas {DET_CANVAS} ({metric}_train_throughput): "
           + "; ".join(f"{r} " + " / ".join(f"{v:.1f}" for v in ips[r]) + f" img/s (peak "
                       f"{peak[r]:.2f} GiB)" for r in ips)
-          + f" (3 interleaved rounds, CUDA events, 4 steps after 1); fused K7/K9 launches a "
+          + f" (2 interleaved rounds, CUDA events, 4 steps after 1); fused K7/K9 launches a "
           f"step {per_step} (want {want}); loss over {steps} steps on one batch "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, "
           f"device {prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
@@ -4653,6 +4676,363 @@ def phase_seg_clis() -> dict:
     return res
 
 
+TRANSFORM_GOLDEN = DATA / "train_transform_seed0.npz"
+# the generated folder: ImageNet's common sizes (W, H), 10 classes
+FOLDER_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500), (500, 500)]
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_VAL = 10, 768, 256
+
+
+def phase_pixels() -> dict:
+    """9z14. The seeded train recipe and the eval preprocessing on this
+    host: every output of the stored golden (the JAX package's Pillow
+    pixels: TrainAugConfig(), rand-m3-n2-mstd0.5 and the colour-jitter route
+    for 4 seeds on 8 stored source images, and the eval resize + crop at
+    224) reproduced bit for bit (sha256 of the float32 output), so a numpy
+    or BLAS here that rounds otherwise fails; a BMP written here read back
+    bit for bit; the port's transform ms an image at 500 x 375."""
+    import hashlib
+    import tempfile
+
+    from cream_tpu_torch.data import det_aug, image_io, transforms
+
+    g = np.load(TRANSFORM_GOLDEN)
+    stored = dict(zip(g["keys"].tolist(), g["digests"].tolist()))
+    recipes = json.loads(str(g["recipes"]))
+    sources = [g[f"source{i}"] for i in range(len([k for k in g.files if k.startswith("source")]))]
+    made = {name: det_aug.make_train_transform(det_aug.TrainAugConfig(**kw))
+            for name, kw in recipes.items()}
+    pp = transforms.eval_preprocess_config(224)
+    bad = []
+    for key, want in stored.items():
+        name, i, *seed = key.split("/")
+        src = sources[int(i)]
+        out = (transforms.preprocess_pil(src, pp) if name == "eval"
+               else made[name](src, int(seed[0])))
+        if hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest() != want:
+            bad.append(key)
+    check(not bad, f"{len(bad)} of {len(stored)} stored transform outputs differ: {bad[:8]}")
+    rng = np.random.default_rng(0)
+    img = folder_image(rng, 500, 375)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "x.bmp"
+        image_io.write_bmp(path, img)
+        back = image_io.read_rgb(str(path))
+    check(back.dtype == np.uint8 and np.array_equal(back, img), "a BMP did not read back")
+    t = made["default"]
+    t0 = time.perf_counter()
+    for seed in range(40):
+        t(img, seed)
+    ms = (time.perf_counter() - t0) * 1e3 / 40
+    t0 = time.perf_counter()
+    for _ in range(40):
+        transforms.preprocess_pil(img, pp)
+    eval_ms = (time.perf_counter() - t0) * 1e3 / 40
+    print(f"pixels: {len(stored)} stored outputs of the JAX package's Pillow recipe and eval "
+          f"preprocessing reproduced bit for bit; a BMP read back bit for bit; the port's "
+          f"TrainAugConfig() transform {ms:.2f} ms an image, eval preprocessing "
+          f"{eval_ms:.2f} ms, at 500x375 (one thread, the mean of 40)")
+    return {"transform_ms": ms, "eval_ms": eval_ms}
+
+
+def folder_image(rng, w: int, h: int) -> np.ndarray:
+    """A uint8 (h, w, 3) image with work for every op of the recipe: a
+    low-frequency colour field (a random 4 x 5 colour grid, bilinearly
+    upsampled), a hard-edged rectangle, a darker half-plane and a little
+    noise."""
+    grid = rng.uniform(0, 255, (4, 5 * 3))
+    wy = np.clip(1 - np.abs(np.linspace(0, 3, h)[:, None] - np.arange(4)), 0, None)
+    wx = np.clip(1 - np.abs(np.linspace(0, 4, w)[:, None] - np.arange(5)), 0, None)
+    img = np.matmul(wx[None], (wy @ grid).reshape(h, 5, 3))
+    x0, y0 = int(rng.integers(0, w - w // 4)), int(rng.integers(0, h - h // 4))
+    img[y0:y0 + h // 4, x0:x0 + w // 4] = rng.uniform(0, 255, 3)
+    a, b = rng.normal(size=2)
+    yy, xx = np.ogrid[:h, :w]
+    img[(a * (xx - w / 2) + b * (yy - h / 2)) > 0] *= rng.uniform(0.4, 0.9)
+    img += rng.normal(0, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_folder(root: Path, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """An ImageNet-style folder under `root`: train/ and val/ with
+    FOLDER_CLASSES class folders of BMPs, `n_train` and `n_val` images at
+    sizes drawn from FOLDER_SIZES, each image from its own seed; 8 writer
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cream_tpu_torch.data.image_io import write_bmp
+
+    jobs = [(split, i) for split, n in (("train", n_train), ("val", n_val))
+            for i in range(n)]
+    for split in ("train", "val"):
+        for c in range(FOLDER_CLASSES):
+            (root / split / f"n{c:08d}").mkdir(parents=True)
+
+    def write(job):
+        split, i = job
+        rng = np.random.default_rng([seed, split == "val", i])
+        w, h = FOLDER_SIZES[int(rng.integers(len(FOLDER_SIZES)))]
+        path = root / split / f"n{i % FOLDER_CLASSES:08d}" / f"{split}_{i:05d}.bmp"
+        write_bmp(path, folder_image(rng, w, h))
+        return path.stat().st_size
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        nbytes = sum(pool.map(write, jobs))
+    return {"images": len(jobs), "bytes": nbytes, "s": time.perf_counter() - t0}
+
+
+class Cycle:
+    """`reps` passes over `dataset` as one dataset: item i is the dataset's
+    i % len(dataset), and a loader draws each pass its own aug seeds. It
+    gives a steady rate a window longer than the generated folder (the
+    passes after the first read warm files). Module-level, so the loaders
+    pickle it to their workers."""
+
+    def __init__(self, dataset, reps: int):
+        self.dataset, self.reps = dataset, reps
+
+    def __len__(self) -> int:
+        return self.reps * len(self.dataset)
+
+    def load(self, i: int):
+        return self.dataset.load(i % len(self.dataset))
+
+
+def phase_folder_loader(root: Path) -> dict:
+    """9z15. The loaders alone on the generated folder (no card work):
+    train_loader with the full default recipe (TrainAugConfig()) at bs256 and
+    8 worker processes over five passes of the 768 train images (15 batches:
+    img/s with the workers' start, and the steady rate over the 10 batches
+    after the first 5, the window 9z16's steady train step is timed over;
+    the workers speed up over their first batches), and eval_loader (resize
+    + crop) at bs256 over the 256
+    val images; img/s beside the host's CPU count; the recipe alone on one
+    image in 1, 2, 4 and 8 threads (the loaders' threads before they took
+    processes)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cream_tpu_torch.data.det_aug import TrainAugConfig, make_train_transform
+    from cream_tpu_torch.data.imagenet import (ImageFolder, Workers, eval_loader,
+                                               train_loader)
+
+    train_ds, val_ds = ImageFolder(str(root / "train")), ImageFolder(str(root / "val"))
+    check((len(train_ds), len(val_ds), len(train_ds.class_to_idx)) ==
+          (FOLDER_TRAIN, FOLDER_VAL, FOLDER_CLASSES), "the generated folder's listing")
+    with Workers(len, 2) as pool:   # the loaders' fork server starts once a process
+        pool.map(["warm"])
+    t0 = time.perf_counter()
+    arrivals = [(time.perf_counter(), len(b["label"])) for b in train_loader(
+        Cycle(train_ds, 5), BATCH, 0, 0, 224, 8,
+        transform=make_train_transform(TrainAugConfig()))]
+    n = sum(k for _, k in arrivals)
+    train_s = arrivals[-1][0] - t0
+    # after 5 batches: the workers warmed, the rate a long epoch sees
+    steady = (sum(k for _, k in arrivals[5:])) / (arrivals[-1][0] - arrivals[4][0])
+    batch_s = [b - a for a, b in zip([t0] + [t for t, _ in arrivals], [t for t, _ in arrivals])]
+    t0 = time.perf_counter()
+    m = sum(int((b["label"] >= 0).sum()) for b in eval_loader(val_ds, BATCH, 224,
+                                                               num_workers=8))
+    eval_s = time.perf_counter() - t0
+    res = {"train_img_per_s": n / train_s, "steady_img_per_s": steady,
+           "eval_img_per_s": m / eval_s, "cpus": os.cpu_count(), "threads": {}}
+    # the recipe alone on one decoded image in 1, 2, 4 and 8 threads
+    recipe = make_train_transform(TrainAugConfig())
+    img = train_ds.load(0)[0]
+    for threads in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda seed: recipe(img, seed), range(96)))
+        res["threads"][threads] = 96 / (time.perf_counter() - t0)
+    print(f"folder_loader_img_per_s: train_loader (TrainAugConfig(), bs{BATCH}, 8 worker "
+          f"processes) {res['train_img_per_s']:.1f} img/s over {n} images, the workers' start "
+          f"included; {res['steady_img_per_s']:.1f} steady (the {len(arrivals) - 5} batches "
+          f"after 5; s a batch "
+          + " ".join(f"{v:.2f}" for v in batch_s)
+          + "); eval_loader "
+          f"(resize + crop) "
+          f"{res['eval_img_per_s']:.1f} img/s over {m}; no card work; os.cpu_count() "
+          f"{res['cpus']}; the recipe alone on one {img.shape[1]}x{img.shape[0]} image in "
+          f"1/2/4/8 threads: "
+          + " / ".join(f"{v:.1f}" for v in res["threads"].values()) + " img/s")
+    return res
+
+
+def phase_folder_train(root: Path) -> dict:
+    """9z16. main path (training from a folder): cli.train.main on the
+    generated folder, TinyViT-21M-224 bf16 compute with fp32 params, bs256,
+    the full default recipe (RandAugment rand-m9-mstd0.5-inc1, random
+    erasing 0.25, mixup 0.8 / cutmix 1.0), one epoch of 3 steps, then its
+    eval: 10 K1 + 10 K2 launches a step, every loss finite; the epoch's
+    img/s from the loader's start to the last step's end. Then the folder's
+    steady train img/s (tinyvit21m_224_folder_train_throughput): the same
+    step fed by train_loader + prefetch over 5 passes of the train images
+    (15 batches), timed by CUDA events over 6 steps after 5 (by then the
+    batches that the prefetch queue held during the first steps are used
+    up, and each step waits for the loader), and the idle share of the 4
+    steps after those (cli.profile_step.profile), beside the synthetic
+    train img/s (cli.speed_test.train_throughput); peak memory and img/s
+    with remat_stem off and on. Returns the main path's K1/K2 launches."""
+    from cream_tpu_torch.cli import train as train_cli
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.core.config import Config
+    from cream_tpu_torch.data.imagenet import ImageFolder, prefetch, train_loader
+    from cream_tpu_torch.data.mixup import mixup_cutmix
+
+    starts, ends, per_step, losses = [], [], [], []
+    real_step, real_loader = train_cli.make_train_step, train_cli.train_loader
+
+    def make_step(**kw):
+        step = real_step(**kw)
+
+        def timed(state, batch, seed):
+            k = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+            state, metrics = step(state, batch, seed)
+            per_step.append((wa.LAUNCHES - k[0], wa.BWD_LAUNCHES - k[1]))
+            losses.append(float(metrics["loss"]))
+            ends.append(time.perf_counter())
+            return state, metrics
+        return timed
+
+    def loader(*args, **kw):
+        starts.append(time.perf_counter())
+        return real_loader(*args, **kw)
+
+    opts = ["model.name=tiny_vit_21m_224", "model.dtype=bfloat16", "data.dataset=imagenet",
+            f"data.data_path={root}", f"data.batch_size={BATCH}", "data.num_workers=8",
+            "aug.mixup=0.8", "aug.cutmix=1.0", "train.epochs=1", "train.warmup_epochs=0",
+            "train.nan_budget=0",
+            f"output={root / 'out'}"]
+    train_cli.make_train_step, train_cli.train_loader = make_step, loader
+    try:
+        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        acc = train_cli.main(opts)
+        wall = time.perf_counter() - t0
+        launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+    finally:
+        train_cli.make_train_step, train_cli.train_loader = real_step, real_loader
+    steps = FOLDER_TRAIN // BATCH
+    check(per_step == [(10, 10)] * steps, f"folder train: K1/K2 launches a step {per_step}")
+    check(launches == (10 * (steps + 1), 10 * steps),
+          f"folder train: {launches} K1/K2 launches, want 10 + 10 a step and 10 K1 for "
+          f"the eval forward")
+    check(all(np.isfinite(losses)), f"folder train: a loss is not finite: {losses}")
+    epoch_ips = steps * BATCH / (ends[-1] - starts[0])
+
+    dtype = torch.bfloat16
+    peak, ips = {}, {}
+    for remat in (False, True):
+        model = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype, remat_stem=remat)
+        model.load_state_dict(seeded_state_dict(model, 0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ips[remat] = train_throughput(model, BATCH, 224, dtype, 10, 3)
+        peak[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model
+
+    cfg = Config.from_yaml(None, opts)
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                         params=dict(model.named_parameters())))
+    step = make_train_step(loss_fn=soft_target_ce)
+    ds = ImageFolder(str(root / "train"))
+    recipe = train_cli.build_train_transform(cfg)
+    passes, warm, timed_steps, profiled = 5, 5, 6, 4
+    check(warm + timed_steps + profiled == passes * steps, "the steady window's batch count")
+    batches = prefetch(train_loader(Cycle(ds, passes), BATCH, 0, 0, 224, 8, transform=recipe))
+    mix_gen = torch.Generator().manual_seed(0)
+    a = cfg.aug
+
+    def folder_step():
+        b = next(batches)
+        images = torch.from_numpy(b["image"]).to("cuda", dtype)
+        labels = torch.from_numpy(b["label"]).to("cuda")
+        images, targets = mixup_cutmix(mix_gen, images, labels, 1000, a.mixup, a.cutmix,
+                                       a.mixup_switch_prob, a.label_smoothing)
+        step(state, {"image": images, "label": targets}, 0)
+
+    for _ in range(warm):
+        folder_step()
+    torch.cuda.synchronize()
+    window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    window[0].record()
+    marks = [time.perf_counter()]
+    for _ in range(timed_steps):
+        folder_step()
+        marks.append(time.perf_counter())
+    window[1].record()
+    torch.cuda.synchronize()
+    folder_ips = timed_steps * BATCH / (window[0].elapsed_time(window[1]) / 1e3)
+    prof = profile(folder_step, steps=profiled, warmup=0, top=8)
+    check(next(batches, None) is None, "the steady window left a batch of its loader")
+    res = {"folder_img_per_s": folder_ips, "epoch_img_per_s": epoch_ips,
+           "synthetic_img_per_s": ips[False],
+           "remat_img_per_s": ips[True], "peak_gib": peak[False],
+           "remat_peak_gib": peak[True], "losses": losses, "acc1": acc, "cli_s": wall,
+           "launches": launches, **{k: prof[k] for k in ("wall_ms", "device_ms",
+                                                          "idle_share")}}
+    print(f"folder train (cli.train, tiny_vit_21m_224 bf16 bs{BATCH}, the full recipe with "
+          f"mixup 0.8 / cutmix 1.0, {steps} steps + eval in {wall:.1f} s): K1/K2 launches a "
+          f"step {per_step[0]}, losses {[round(v, 4) for v in losses]}; the {steps}-step "
+          f"epoch {epoch_ips:.1f} img/s (the loader's start to the last step's end); "
+          f"tinyvit21m_224_folder_train_throughput {folder_ips:.1f} img/s steady (CUDA events, "
+          f"{timed_steps} steps after {warm}, the loader running; s a step "
+          + " ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:]))
+          + f") vs synthetic {ips[False]:.1f} "
+          f"img/s (train_throughput, 10 steps after 3); the {profiled} folder-fed steps after "
+          f"those: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, idle "
+          f"share {prof['idle_share']:.3f}; peak memory {peak[False]:.2f} GiB, with remat_stem "
+          f"{peak[True]:.2f} GiB ({ips[True]:.1f} img/s) [{card_info()}]")
+    check(peak[True] < peak[False], "remat_stem did not lower the peak memory")
+    return res
+
+
+def phase_folder_eval(root: Path) -> dict:
+    """9z17. main path (eval from a folder): cli.eval.main on the generated
+    val folder, TinyViT-21M-224 bf16 bs256, seeded weights written as a .pth
+    and passed by --torch-ckpt: 10 K1 launches a forward, n = 256; img/s
+    (the CLI's wall, the loader included)."""
+    from cream_tpu_torch.cli import eval as eval_cli
+
+    model = create_model("tiny_vit_21m_224", device="cpu")
+    ckpt = root / "tiny_vit_21m_224_seed0.pth"
+    torch.save(seeded_state_dict(model, 0), ckpt)
+    del model
+    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    acc = eval_cli.main(["model.name=tiny_vit_21m_224", "model.dtype=bfloat16",
+                         "data.dataset=imagenet", f"data.data_path={root}",
+                         f"data.batch_size={BATCH}", "data.num_workers=8",
+                         "--torch-ckpt", str(ckpt)])
+    launches = wa.LAUNCHES
+    forwards = -(-FOLDER_VAL // BATCH)
+    check(acc["n"] == FOLDER_VAL, f"eval CLI: n = {acc['n']}")
+    check(launches == 10 * forwards and wa.BWD_LAUNCHES == 0,
+          f"eval CLI: {launches} K1 launches over {forwards} forwards, want 10 a forward")
+    ips = acc["n"] / acc["seconds"]
+    print(f"folder eval (cli.eval, tiny_vit_21m_224 bf16 bs{BATCH}, --torch-ckpt): "
+          f"acc@1 {acc['acc1']:.3f} acc@5 {acc['acc5']:.3f} n {acc['n']}, {launches} K1 "
+          f"launches ({forwards} forward), {ips:.1f} img/s (the CLI's wall, the loader "
+          f"included) [{card_info()}]")
+    return {"img_per_s": ips, "launches": launches, **acc}
+
+
+def phase_folder() -> dict:
+    """9z15-9z17 on one generated folder in a temporary directory under
+    build/, deleted afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        made = write_folder(root, FOLDER_TRAIN, FOLDER_VAL)
+        print(f"folder: {made['images']} BMPs ({made['bytes'] / 2 ** 20:.1f} MiB) written in "
+              f"{made['s']:.1f} s")
+        res = {"loader": phase_folder_loader(root), "train": phase_folder_train(root),
+               "eval": phase_folder_eval(root)}
+    return res
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -4760,6 +5140,10 @@ def main() -> None:
     cyd_train = phase_cydas_train()
     seg_clis = phase_seg_clis()
     seg_s = time.time() - t_seg
+    t_folder = time.time()
+    pixels = phase_pixels()
+    folder = phase_folder()
+    folder_s = time.time() - t_folder
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -4782,9 +5166,11 @@ def main() -> None:
     rows = []
     for name, src, line, launches, err, t in (
             ("window_attention_fwd", "window_attention.cu", 190,
-             k1_eval + k1_train + k1_swin + k1_s3_train + k1_distill, worst_k1, t1),
+             k1_eval + k1_train + k1_swin + k1_s3_train + k1_distill
+             + folder["train"]["launches"][0] + folder["eval"]["launches"], worst_k1, t1),
             ("window_attention_bwd", "window_attention_bwd.cu", 268,
-             k2_train + k2_s3_train + k2_distill, worst_k2, t2)):
+             k2_train + k2_s3_train + k2_distill + folder["train"]["launches"][1],
+             worst_k2, t2)):
         rows.append({
             "name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
             "replaces": f"cream_tpu/ops/pallas/window_attention.py:{line}",
@@ -4893,7 +5279,9 @@ def main() -> None:
           f"its and Swin-T's eval paths K1 {k1_swin}, its train path K1/K2 "
           f"{k1_s3_train}/{k2_s3_train}; under swin_base: K1 per Swin-B bf16 bs256 forward; "
           f"the distillation path (save_logits, --check, the distill train CLI and the timed "
-          f"distill steps) K1/K2 {k1_distill}/{k2_distill}); per EfficientViT-M5 bf16 bs512 "
+          f"distill steps) K1/K2 {k1_distill}/{k2_distill}; training and eval from an image "
+          f"folder, cli.train and cli.eval, K1/K2 {folder['train']['launches']} and "
+          f"{folder['eval']['launches']}); per EfficientViT-M5 bf16 bs512 "
           f"forward (K4, K5), "
           f"launches on the M5 bs512 + M0 bs1024 eval paths' cascade (K4) and core (K5) routes; "
           f"per EfficientViT-M5 bf16 bs512 train step (K7/K8/K9: the sum over its depthwise "
@@ -4987,6 +5375,20 @@ def main() -> None:
           + f" img/s (medians; fused peak {cyd_train['peak_gib']['fused']:.2f} GiB, idle "
           f"{cyd_train['idle_share']:.3f}); CLIs {[(n, r['losses'][-1]) for n, r in seg_clis.items()]}"
           f" [{card}]")
+    ft, fl = folder["train"], folder["loader"]
+    print(f"image-folder data (phases 9z14-9z17, {folder_s:.1f} s): the port's "
+          f"TrainAugConfig() transform {pixels['transform_ms']:.2f} ms an image at 500x375 "
+          f"(eval preprocessing {pixels['eval_ms']:.2f}); folder_loader_img_per_s "
+          f"{fl['train_img_per_s']:.1f} ({fl['steady_img_per_s']:.1f} steady; "
+          f"eval loader {fl['eval_img_per_s']:.1f}) on "
+          f"{fl['cpus']} CPUs; tinyvit21m_224_folder_train_throughput "
+          f"{ft['folder_img_per_s']:.1f} img/s steady "
+          f"({ft['folder_img_per_s'] / fl['steady_img_per_s']:.3f}x the loader's steady rate; "
+          f"cli.train's 3-step epoch {ft['epoch_img_per_s']:.1f}) vs synthetic "
+          f"{ft['synthetic_img_per_s']:.1f}, idle share of a steady folder-fed step "
+          f"{ft['idle_share']:.3f}; peak "
+          f"{ft['peak_gib']:.2f} GiB, remat_stem {ft['remat_peak_gib']:.2f} GiB; cli.eval "
+          f"{folder['eval']['img_per_s']:.1f} img/s [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,9 @@
         --torch-ckpt tiny_vit_21m_22kto1k_distill.pth model.name=tiny_vit_21m_224
 
 Without --torch-ckpt the model gets seeded random weights
-(`zoo.load.seeded_state_dict` with `train.seed`).
+(`zoo.load.seeded_state_dict` with `train.seed`). The image is decoded by
+`data.image_io.read_rgb` (BMP without Pillow) and resized and cropped as the
+eval loader does.
 """
 from __future__ import annotations
 
@@ -25,8 +27,7 @@ def predict(model: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
 
 
 def main(argv=None):
-    from PIL import Image
-
+    from cream_tpu_torch.data.image_io import read_rgb
     from cream_tpu_torch.data.transforms import (eval_preprocess_config,
                                                  preprocess_pil)
     from cream_tpu_torch.models import create_model
@@ -49,7 +50,7 @@ def main(argv=None):
     model.load_state_dict(sd)
 
     pp = eval_preprocess_config(cfg.data.img_size, crop=cfg.data.crop)
-    img = preprocess_pil(Image.open(args.image), pp)
+    img = preprocess_pil(read_rgb(args.image), pp)
     logits = predict(model, torch.from_numpy(img)[None])
     probs = torch.softmax(logits, -1)[0].cpu()
     top5 = np.asarray(torch.topk(probs, 5).indices)

@@ -1,7 +1,9 @@
 """Teacher logits saver for fast distillation: counterpart of
 `cream_tpu/cli/save_logits.py` (TinyViT/save_logits.py).
 
-Per epoch: run the teacher over the seeded training set and store each
+Per epoch: run the teacher over the seeded training set (each image through
+the trainer's seeded augmentation recipe, `cli.train.build_train_transform`,
+as the JAX CLI's teacher sees it) and store each
 sample's top-K softmax probabilities, class indices and augmentation seed
 in the sparse logits store (`distill.LogitsWriter`), with the store's
 recipe (`recipe.json`: what the teacher saw, which the distill trainer
@@ -41,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from cream_tpu_torch.cli.train import build_dataset, model_options
+from cream_tpu_torch.cli.train import build_dataset, build_train_transform, model_options
 from cream_tpu_torch.core.config import Config
 from cream_tpu_torch.data.imagenet import prefetch, train_loader
 from cream_tpu_torch.data.mixup import seeded_pair_mixup
@@ -125,7 +127,8 @@ def main(argv=None) -> list[dict]:
     teacher.load_state_dict(teacher_state_dict(cfg, teacher, args.torch_ckpt, args.ckpt,
                                                args.allow_random))
     teacher.eval()
-    ds = build_dataset(cfg)
+    ds = build_dataset(cfg, train=True)
+    transform = build_train_transform(cfg)
     K = cfg.distill.logits_topk
     num_out_classes = cfg.model.num_classes
     mapping = None
@@ -138,7 +141,8 @@ def main(argv=None) -> list[dict]:
     summaries = []
     for epoch in range(args.epochs):
         batches = prefetch(train_loader(ds, cfg.data.batch_size, epoch, cfg.train.seed,
-                                        cfg.data.num_workers))
+                                        cfg.data.img_size, cfg.data.num_workers,
+                                        transform=transform))
         if args.check:
             reader = LogitsReader(args.out, epoch)
             seen = {"max_err": 0.0, "diff": 0.0, "n": 0}

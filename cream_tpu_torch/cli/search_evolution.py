@@ -24,10 +24,11 @@ which `--resume` reads.
         --param-min 5e6 --param-max 6e6 --epochs 2 --population 16 --out evo.json
     # deploy: models.autoformer.extract_subnet(supernet, best_config)
 
-Data: `data.dataset=synthetic` only; `--evo-subset` (the per-class
-EVO_IMNET subset, AutoFormer/lib/subImageNet.py) needs the image folders
-and is refused until they are ported. One card: the JAX CLI's mesh waits
-for the port's DDP.
+Data: the val split of `cli.train.build_dataset` (synthetic or an image
+folder) through the eval resize and crop; `--evo-subset N` scores on the
+per-class EVO_IMNET subset of a folder (`data.imagenet.sub_imagenet`, the
+membership of AutoFormer/lib/subImageNet.py). One card: the JAX CLI's mesh
+waits for the port's DDP.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 from cream_tpu_torch.cli.train import build_dataset
 from cream_tpu_torch.core.checkpoint import restore_params
 from cream_tpu_torch.core.config import Config
-from cream_tpu_torch.data.imagenet import eval_loader
+from cream_tpu_torch.data.imagenet import eval_loader, sub_imagenet
 from cream_tpu_torch.models import create_model
 from cream_tpu_torch.models.autoformer import SPACES, config_param_count, sample_config
 from cream_tpu_torch.nas.evolution import (EvolutionSearcher, autoformer_crossover,
@@ -74,9 +75,6 @@ def main(argv=None):
     ap.add_argument("opts", nargs="*")
     args = ap.parse_args(argv)
     cfg = Config.from_yaml(args.cfg, args.opts)
-    if args.evo_subset > 0:
-        raise SystemExit("--evo-subset needs the image-folder datasets, which are not "
-                         "ported yet (only data.dataset=synthetic is)")
     device = torch.device(args.device)
     dtype = getattr(torch, cfg.model.dtype)
     space = SPACES[args.space]
@@ -98,9 +96,12 @@ def main(argv=None):
             "--allow-random for smoke tests only.")
     model.eval()
 
-    ds = build_dataset(cfg)
+    ds = build_dataset(cfg, train=False)
+    if args.evo_subset > 0 and hasattr(ds, "samples"):
+        ds = sub_imagenet(ds, per_class=args.evo_subset)
     batches = []
-    for i, b in enumerate(eval_loader(ds, cfg.data.batch_size, cfg.data.num_workers)):
+    for i, b in enumerate(eval_loader(ds, cfg.data.batch_size, cfg.data.img_size,
+                                      cfg.data.crop, num_workers=cfg.data.num_workers)):
         if i >= args.max_eval_batches:
             break
         batches.append((torch.from_numpy(b["image"]).to(device, dtype),

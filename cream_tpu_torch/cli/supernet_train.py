@@ -14,8 +14,9 @@ Every batch trains a uniformly sampled subnet of the one supernet
 optional EMA (train.ema_decay), optional frozen-teacher KD
 (distill.kind=soft|hard with distill.teacher, its weights from
 --teacher-torch-ckpt or seeded), a checkpoint after every epoch and
-auto-resume from the newest. Data: `data.dataset=synthetic` only (the image
-folders wait for their loaders); one card (data-parallel training waits for
+auto-resume from the newest. Data: `data.dataset=synthetic` or an image
+folder (`cli.train.build_dataset`), through the JAX CLI's default seeded
+random resized crop and flip; one card (data-parallel training waits for
 the port's DDP). Weights start from `zoo.load`'s seeded random weights
 (train.seed); `model.drop_path_rate` defaults to the supernet's 0.1.
 Returns the checkpoint directory, which `cli.search_evolution --ckpt`
@@ -73,7 +74,7 @@ def main(argv=None):
     model = create_model(name, num_classes=cfg.model.num_classes, img_size=cfg.model.img_size,
                          device=device, dtype=dtype, **kw)
     model.load_state_dict(seeded_state_dict(model, cfg.train.seed))
-    ds = build_dataset(cfg)
+    ds = build_dataset(cfg, train=True)
     steps_per_epoch = max(len(ds) // cfg.data.batch_size, 1)
     sched = cosine_schedule(cfg.train.base_lr, cfg.train.warmup_epochs * steps_per_epoch,
                             steps_per_epoch * cfg.train.epochs, cfg.train.warmup_lr,
@@ -100,7 +101,8 @@ def main(argv=None):
         batches = ({"image": torch.from_numpy(b["image"]).to(device, dtype),
                     "label": torch.from_numpy(b["label"]).to(device)}
                    for b in prefetch(train_loader(ds, cfg.data.batch_size, epoch,
-                                                  cfg.train.seed, cfg.data.num_workers)))
+                                                  cfg.train.seed, cfg.data.img_size,
+                                                  cfg.data.num_workers)))
         state, losses = train_supernet_epoch(state, step, batches, space, epoch,
                                              cfg.train.seed)
         print(f"epoch {epoch}: mean loss {np.mean(losses):.4f} ({time.time() - t0:.1f}s)")

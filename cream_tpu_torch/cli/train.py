@@ -3,6 +3,8 @@
 
     python -m cream_tpu_torch.cli.train model.name=tiny_vit_21m_224 \
         data.dataset=synthetic data.batch_size=256 train.epochs=1
+    python -m cream_tpu_torch.cli.train model.name=tiny_vit_21m_224 \
+        data.dataset=imagenet data.data_path=/data/imagenet data.batch_size=256
     python -m cream_tpu_torch.cli.train --device cpu model.dtype=float32 \
         model.name=tiny_vit_5m_224 model.img_size=64 data.img_size=64 \
         data.dataset=synthetic data.batch_size=2 train.epochs=1 \
@@ -18,10 +20,13 @@ AdamW on a warmup + cosine schedule (optionally with gradient accumulation
 and an EMA of the params), mixup/cutmix targets (or one-hot targets without
 smoothing when both are off), repeated augmentation (`aug.repeated_aug`), a
 NaN-loss budget, an eval pass and a checkpoint after every epoch, and
-auto-resume from the newest checkpoint. Data: `data.dataset=synthetic`
-only; the image-folder datasets and their augmentation wait for the
-PIL-based loaders. Weights start from `zoo.load`'s seeded random weights
-(`train.seed`).
+auto-resume from the newest checkpoint. Data: `data.dataset=synthetic`, or
+an ImageNet-style folder (`data.data_path` holding `train/` and `val/`
+class folders, or `train.zip` and `val.zip`); training images go through
+the JAX trainer's seeded recipe (random resized crop, flip, RandAugment or
+colour jitter, random erasing; `aug.*`), eval images through its resize
+and centre crop, Pillow's pixels computed in numpy. Weights start from
+`zoo.load`'s seeded random weights (`train.seed`).
 
 Fast distillation (`distill.enabled` with `distill.teacher_logits_path`, a
 store `cli.save_logits` wrote): each epoch reads the stored top-K of its
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -45,8 +51,9 @@ import torch.nn.functional as F
 from cream_tpu_torch.core.checkpoint import (AsyncCheckpointer, latest_step,
                                              restore_checkpoint)
 from cream_tpu_torch.core.config import Config
-from cream_tpu_torch.data.imagenet import (SyntheticDataset, eval_loader,
-                                           prefetch, train_loader)
+from cream_tpu_torch.data.det_aug import make_train_transform, train_aug_config
+from cream_tpu_torch.data.imagenet import (ImageFolder, SyntheticDataset, ZipImageFolder,
+                                           eval_loader, prefetch, train_loader)
 from cream_tpu_torch.data.mixup import mixup_cutmix, seeded_pair_mixup
 from cream_tpu_torch.distill.logits_store import LogitsReader, check_recipe
 from cream_tpu_torch.distill.pipeline import make_distill_train_step, replay_recipe
@@ -60,15 +67,24 @@ from cream_tpu_torch.train.optim import MultiSteps
 from cream_tpu_torch.zoo.load import seeded_state_dict
 
 
-def build_dataset(cfg: Config):
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"data.dataset={cfg.data.dataset!r}: only 'synthetic' is ported; "
-            "the image-folder datasets and their augmentation are PIL-based "
-            "and wait for a later slice")
-    return SyntheticDataset(n=max(4 * cfg.data.batch_size, 64),
-                            img_size=cfg.data.img_size,
-                            num_classes=cfg.model.num_classes)
+def build_train_transform(cfg: Config):
+    """The full seeded augmentation recipe of the config (shared by the train
+    and save_logits CLIs so teacher and student see identical pixels)."""
+    return make_train_transform(train_aug_config(cfg))
+
+
+def build_dataset(cfg: Config, train: bool):
+    """`data.dataset=synthetic`, else the `train` or `val` split under
+    `data.data_path`: `<split>.zip` (or a path ending in .zip) as a
+    ZipImageFolder, a directory as an ImageFolder."""
+    if cfg.data.dataset == "synthetic":
+        return SyntheticDataset(n=max(4 * cfg.data.batch_size, 64),
+                                img_size=cfg.data.img_size,
+                                num_classes=cfg.model.num_classes)
+    p = os.path.join(cfg.data.data_path, "train" if train else "val")
+    if p.endswith(".zip") or os.path.isfile(p + ".zip"):
+        return ZipImageFolder(p if p.endswith(".zip") else p + ".zip")
+    return ImageFolder(p)
 
 
 def model_options(cfg: Config) -> dict:
@@ -138,7 +154,8 @@ def main(argv=None):
                          device=device, dtype=dtype, img_size=cfg.model.img_size,
                          **model_options(cfg))
     model.load_state_dict(seeded_state_dict(model, cfg.train.seed))
-    train_ds = eval_ds = build_dataset(cfg)
+    train_ds = build_dataset(cfg, train=True)
+    eval_ds = build_dataset(cfg, train=False)
     steps_per_epoch = max(len(train_ds) // cfg.data.batch_size, 1)
     total_steps = steps_per_epoch * cfg.train.epochs
 
@@ -185,7 +202,8 @@ def main(argv=None):
             reader = open_store(cfg, epoch, len(train_ds)) if distill else None
             for i, batch in enumerate(prefetch(train_loader(
                     train_ds, cfg.data.batch_size, epoch, cfg.train.seed,
-                    cfg.data.num_workers,
+                    cfg.data.img_size, cfg.data.num_workers,
+                    transform=build_train_transform(cfg),
                     repeated_aug=0 if distill else cfg.aug.repeated_aug))):
                 if distill:
                     step_batch = distill_batch(cfg, batch, reader, device, dtype)
@@ -226,7 +244,9 @@ def main(argv=None):
                 "image": torch.from_numpy(b["image"]).to(device, dtype),
                 "label": torch.from_numpy(b["label"]).to(device)})
                 for b in eval_loader(eval_ds, cfg.data.batch_size,
-                                     cfg.data.num_workers)]
+                                     cfg.data.img_size, cfg.data.crop,
+                                     num_workers=cfg.data.num_workers,
+                                     native=cfg.data.native_loader)]
             acc = topk_accuracy_counts(evals)
             max_acc = max(max_acc, acc["acc1"])
             print(f"epoch {epoch} done in {time.time() - t0:.1f}s "

@@ -15,9 +15,10 @@ top-1/top-5 over the dataset, beside the tokenizer's host seconds and the
 text and image passes' seconds. Weights: `--torch-ckpt` (a TinyCLIP or
 OpenAI-CLIP .pth in any historical layout; a pruned TinyCLIP checkpoint
 builds its own ragged model), else seeded random weights (`train.seed`),
-which check the pipeline and say nothing of accuracy. Data:
-`data.dataset=synthetic` only, normalized with CLIP's mean and std; the
-image-folder datasets (PIL resize and crop) are not ported.
+which check the pipeline and say nothing of accuracy. Data: the val split
+of `cli.train.build_dataset` (synthetic or an image folder), resized and
+centre-cropped to the model's image size and normalized with CLIP's mean
+and std, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -57,6 +58,12 @@ def build_clip(cfg: Config, device: torch.device, dtype: torch.dtype,
     return model.eval()
 
 
+def _num_classes(ds) -> int:
+    """The synthetic set's class count; 1,000 for a folder, which carries no
+    `num_classes` (as in the JAX CLI)."""
+    return getattr(ds, "num_classes", 1000) or 1000
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg", default=None)
@@ -71,18 +78,15 @@ def main(argv=None) -> dict:
     device = torch.device(args.device)
     dtype = getattr(torch, cfg.model.dtype)
     model = build_clip(cfg, device, dtype, args.torch_ckpt)
-    if cfg.data.img_size != model.img_size:
-        raise ValueError(f"data.img_size={cfg.data.img_size}, but {cfg.model.name} takes "
-                         f"{model.img_size}: images are not resized here")
-    ds = build_dataset(cfg)
+    ds = build_dataset(cfg, train=False)
     templates = {}
     if args.classnames:
         with open(args.classnames) as fh:
             classnames = [line.strip() for line in fh if line.strip()]
-    elif ds.num_classes == 1000:
+    elif _num_classes(ds) == 1000:
         classnames, templates["templates"] = openai_imagenet_constants()
     else:
-        classnames = [f"class {i}" for i in range(ds.num_classes)]
+        classnames = [f"class {i}" for i in range(_num_classes(ds))]
 
     tokenizer = get_tokenizer(args.bpe)
     timing = {"image_s": 0.0}
@@ -102,8 +106,9 @@ def main(argv=None) -> dict:
         encode_text, lambda texts: tokenizer(texts, model.context_length), classnames,
         device=device, stats=timing, **templates)
     batches = ({"image": torch.from_numpy(b["image"]), "label": b["label"]}
-               for b in prefetch(eval_loader(ds, cfg.data.batch_size, cfg.data.num_workers,
-                                             clip_norm=True)))
+               for b in prefetch(eval_loader(ds, cfg.data.batch_size, model.img_size,
+                                             crop=True, clip_norm=True,
+                                             num_workers=cfg.data.num_workers)))
     res = zero_shot_eval(encode_image, classifier, batches)
     n_prompts = len(classnames) * len(templates.get("templates", DEFAULT_TEMPLATES))
     print(f"zero-shot top1={res['zeroshot_top1']:.3f} top5={res['zeroshot_top5']:.3f} "

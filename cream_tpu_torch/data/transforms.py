@@ -1,8 +1,9 @@
 """Eval preprocessing constants + config.
 
-Counterpart of `cream_tpu/data/transforms.py`. Decode and resize run on the
-host with PIL, imported only when an image is preprocessed. This module pins
-the semantics each model family needs for checkpoint-parity eval:
+Counterpart of `cream_tpu/data/transforms.py`. Resize and crop run on the
+host in numpy (`pil_ops.resize_bicubic`, Pillow's bicubic bit for bit),
+without Pillow. This module pins the semantics each model family needs for
+checkpoint-parity eval:
 
   * Swin/TinyViT lineage: Resize(shorter=int(256/224*img), bicubic) →
     CenterCrop(img) → Normalize(ImageNet mean/std)
@@ -16,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from cream_tpu_torch.data import pil_ops
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -61,16 +64,19 @@ def crop_offsets(nw: int, nh: int, crop: int) -> tuple:
     return (int(round((nw - crop) / 2.0)), int(round((nh - crop) / 2.0)))
 
 
-def preprocess_pil(pil_img, cfg: EvalPreprocess) -> np.ndarray:
-    """PIL image -> normalized float32 HWC (bicubic shorter-side resize +
+def preprocess_pil(img, cfg: EvalPreprocess) -> np.ndarray:
+    """An image -> normalized float32 HWC (bicubic shorter-side resize +
     center crop), matching torchvision Resize+CenterCrop semantics exactly
-    (size math pinned by tests/test_preprocess_parity.py)."""
-    from PIL import Image
-
-    w, h = pil_img.size
+    (size math pinned by tests/test_preprocess_parity.py) and the JAX
+    package's PIL pixels bit for bit. `img`: a uint8 array (H, W, 3), or
+    any layout `pil_ops.convert_rgb` takes, or a PIL image."""
+    if hasattr(img, "convert"):             # a PIL image: its RGB pixels
+        img = np.asarray(img.convert("RGB"))
+    img = pil_ops.convert_rgb(img)
+    h, w = img.shape[:2]
     nw, nh = resize_size(w, h, cfg.resize_shorter)
-    img = pil_img.convert("RGB").resize((nw, nh), Image.BICUBIC)
+    img = pil_ops.resize_bicubic(img, (nw, nh))
     left, top = crop_offsets(nw, nh, cfg.crop)
-    img = img.crop((left, top, left + cfg.crop, top + cfg.crop))
+    img = img[top:top + cfg.crop, left:left + cfg.crop]     # inside: nw, nh >= crop
     arr = np.asarray(img, np.float32) / 255.0
     return normalize(arr, cfg)

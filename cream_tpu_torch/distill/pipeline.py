@@ -9,8 +9,12 @@ so on the card the student's window attention runs K1/K2.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+
 import torch
 
+from cream_tpu_torch.data.det_aug import train_aug_config
 from cream_tpu_torch.train.losses import dense_from_topk, soft_target_ce
 from cream_tpu_torch.train.optim import global_norm
 from cream_tpu_torch.train.state import TrainState
@@ -46,15 +50,17 @@ def make_distill_train_step(num_classes: int):
 def replay_recipe(cfg) -> dict:
     """What a teacher (save_logits) and a student (the distill trainer) of
     this package see for a config: the writer, the pixel transform (the
-    train loader's normalisation at `data.img_size`) and the seeded pair
-    mixup's stream and settings (None when mixup and cutmix are off). A
-    store is replayed only under an equal recipe (`check_recipe`)."""
+    seeded train recipe `det_aug.make_train_transform` and its
+    `TrainAugConfig`) and the seeded pair mixup's stream and settings (None
+    when mixup and cutmix are off), in its JSON form. A store is replayed
+    only under an equal recipe (`check_recipe`)."""
     mixing = cfg.aug.mixup > 0 or cfg.aug.cutmix > 0
-    return {
+    return json.loads(json.dumps({
         "writer": "cream_tpu_torch",
-        "pixels": {"transform": "normalize", "img_size": cfg.data.img_size},
+        "pixels": {"transform": "cream_tpu_torch.data.det_aug.make_train_transform",
+                   "config": dataclasses.asdict(train_aug_config(cfg))},
         "mixup": ({"stream": "cream_tpu_torch.data.mixup.seeded_pair_mixup: a CPU "
                              "torch.Generator per pair, seeded seeds[2i] ^ seeds[2i+1]",
                    "mixup": cfg.aug.mixup, "cutmix": cfg.aug.cutmix,
                    "switch_prob": cfg.aug.mixup_switch_prob} if mixing else None),
-    }
+    }))

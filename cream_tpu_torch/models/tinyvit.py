@@ -20,6 +20,11 @@ drop path (per block, rate growing linearly from 0 at the first MBConv to
 the `generator` passed to `forward`, the counterpart of the JAX package's
 "drop_path"/"dropout" rngs.
 
+`remat_stem` recomputes the stage-0 MBConvs' activations in the backward
+instead of keeping them (`torch.utils.checkpoint`, the JAX `nn.remat`): a
+memory knob for large batches or resolutions; losses, grads and BN
+statistics are those without it.
+
 Two routes of the JAX package, both off by default: `mbconv_kernel` runs the
 stage-0 MBConvs' eval forward as one fused op (K6, `MBConv.use_kernel`, the
 JAX `MBConv.use_pallas`), and `pin_layouts` passes each PatchMerging's output
@@ -32,6 +37,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from cream_tpu_torch.models.registry import register_model
 from cream_tpu_torch.nn.act import gelu
@@ -107,18 +113,55 @@ class TinyViTBlock(nn.Module):
         return x + drop_path(h, self.drop_path_rate, eval_, generator)
 
 
-class TinyViTLayer(nn.Module):
-    """One stage: its blocks, then the PatchMerging into the next stage."""
+def remat(block: nn.Module, x: torch.Tensor,
+          generator: torch.Generator | None) -> torch.Tensor:
+    """`block(x, generator)` under `torch.utils.checkpoint`: its activations
+    are recomputed in the backward instead of kept. The recomputation
+    replays the forward's random draws (a copy of `generator` at its state
+    before the block) and leaves the BatchNorm running statistics as the
+    forward left them, so a step's loss, grads and statistics are those
+    without remat (flax's `nn.remat` semantics)."""
+    start = None if generator is None else generator.get_state()
+    calls = []
 
-    def __init__(self, blocks: list[nn.Module], downsample: nn.Module | None):
+    def run(x):
+        if not calls:
+            calls.append(1)
+            return block(x, generator)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        stats = [b.clone() for b in block.buffers()]
+        try:                # the recomputation may stop early: restore anyway
+            return block(x, gen)
+        finally:
+            with torch.no_grad():
+                for b, kept in zip(block.buffers(), stats):
+                    b.copy_(kept)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+class TinyViTLayer(nn.Module):
+    """One stage: its blocks, then the PatchMerging into the next stage.
+    With `remat`, each block's activations are recomputed in the backward
+    (`remat`) when it trains."""
+
+    def __init__(self, blocks: list[nn.Module], downsample: nn.Module | None,
+                 remat: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.downsample = downsample
+        self.remat = remat
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, generator)
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = remat(blk, x, generator)
+            else:
+                x = blk(x, generator)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -137,8 +180,6 @@ class TinyViT(nn.Module):
                  pin_layouts: bool = False, mbconv_kernel: bool = False, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if remat_stem:
-            raise NotImplementedError("remat_stem is not ported to cream_tpu_torch")
         self.img_size, self.num_classes, self.dtype = img_size, num_classes, dtype
         self.pin_layouts = pin_layouts
         total_depth = sum(depths)
@@ -164,7 +205,7 @@ class TinyViT(nn.Module):
             if s < len(depths) - 1:
                 down = PatchMerging(embed_dims[s], embed_dims[s + 1], **kw)
                 res = _conv_s2_out(res)
-            self.layers.append(TinyViTLayer(blocks, down))
+            self.layers.append(TinyViTLayer(blocks, down, remat=remat_stem and s == 0))
         self.norm_head = nn.LayerNorm(embed_dims[-1], eps=1e-5, device=device)
         if num_classes > 0:
             self.head = nn.Linear(embed_dims[-1], num_classes, device=device)

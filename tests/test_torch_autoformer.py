@@ -541,8 +541,9 @@ def _cli_opts(tmp_path, batch=4):
 def test_clis_train_search_and_extract(tmp_path, capsys):
     """supernet_train (2 epochs; a third resumed from the newest
     checkpoint), then search_evolution from its checkpoint, a resume from
-    the CLI's own output (the finished search, unchanged), the refusals,
-    and the best config's extracted subnet against the supernet."""
+    the CLI's own output (the finished search, unchanged), the refusal of a
+    random supernet, --evo-subset on the synthetic set (a no-op), and the
+    best config's extracted subnet against the supernet."""
     train_opts = ["--device", "cpu", "--space", "tiny", "train.warmup_epochs=0"] \
         + _cli_opts(tmp_path, batch=16)
     ckpt = supernet_train.main(train_opts + ["train.epochs=2"])
@@ -563,10 +564,13 @@ def test_clis_train_search_and_extract(tmp_path, capsys):
     # the finished search resumed from the CLI's own output: nothing more to score
     state, done = json.load(open(tmp_path / "evo_r.json"))["state"], run["state"]
     assert set(state.pop("visited")) == set(done.pop("visited")) and state == done
-    for bad in ([], ["--ckpt", ckpt, "--evo-subset", "10"]):
-        with pytest.raises(SystemExit):
-            search_evolution.main(search + bad + ["--out", str(tmp_path / "x.json")]
-                                  + opts)
+    with pytest.raises(SystemExit):
+        search_evolution.main(search + ["--out", str(tmp_path / "x.json")] + opts)
+    # --evo-subset cuts image folders only (tests/test_torch_image_folder.py);
+    # on the synthetic set it is a no-op, as in the JAX CLI
+    subset = search_evolution.main(search + ["--ckpt", ckpt, "--epochs", "1", "--evo-subset",
+                                             "10", "--out", str(tmp_path / "x.json")] + opts)
+    assert subset == top
     best = resumed[0][1]
     m = create_model(NAME, device="cpu", num_classes=10, img_size=32)
     from cream_tpu_torch.core.checkpoint import restore_params

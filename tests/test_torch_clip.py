@@ -646,9 +646,11 @@ def test_zero_shot_eval_skips_padding():
 
 
 def test_eval_loader_clip_norm():
+    # crop=False at the images' own size: the resize and crop are the
+    # identity, so only the normalisation differs
     ds = SyntheticDataset(n=3, img_size=8, num_classes=4)
-    plain = next(eval_loader(ds, 3, 1))["image"]
-    clip = next(eval_loader(ds, 3, 1, clip_norm=True))["image"]
+    plain = next(eval_loader(ds, 3, 8, crop=False, num_workers=1))["image"]
+    clip = next(eval_loader(ds, 3, 8, crop=False, clip_norm=True, num_workers=1))["image"]
     raw = np.stack([ds.load(i)[0] for i in range(3)]).astype(np.float32) / 255
     np.testing.assert_allclose(clip, (raw - np.float32([0.48145466, 0.4578275, 0.40821073]))
                                / np.float32([0.26862954, 0.26130258, 0.27577711]), rtol=1e-6)
@@ -696,10 +698,13 @@ def test_zero_shot_cli_end_to_end(merges_file, tmp_path):
 def test_zero_shot_cli_refusals(merges_file, tmp_path):
     names = tmp_path / "names.txt"
     names.write_text("goldfish\n")
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        zero_shot_cli.main(_cli_args(merges_file, names, "data.dataset=imagenet"))
-    with pytest.raises(ValueError, match="img_size"):
-        zero_shot_cli.main(_cli_args(merges_file, names, "data.img_size=32"))
+    # image folders are read now (tests/test_torch_image_folder.py): a
+    # missing one raises; images of another size are resized to the model's
+    with pytest.raises(FileNotFoundError):
+        zero_shot_cli.main(_cli_args(merges_file, names, "data.dataset=imagenet",
+                                     f"data.data_path={tmp_path / 'absent'}"))
+    res = zero_shot_cli.main(_cli_args(merges_file, names, "data.img_size=32"))
+    assert res["n"] == 64 and tuple(res["classifier"].shape) == (512, 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             zero_shot_cli.main(_cli_args(merges_file, names)[2:])

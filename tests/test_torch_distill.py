@@ -199,19 +199,19 @@ def test_sample_seed_matches_jax(base, epoch, index):
     (10, 3, 0, 0), (64, 8, 2, 5), (37, 4, 1, 123), (100, 16, 7, 2 ** 20)])
 def test_train_loader_index_seed_and_label_match_jax(n, batch, epoch, base_seed,
                                                      repeated_aug):
-    """The same epoch order, labels and per-sample seeds as the JAX loader
-    (given a trivial transform, so PIL does no pixel work)."""
-    got = list(train_loader(SyntheticDataset(n, 8, 10), batch, epoch, base_seed, 2,
+    """The same epoch order, labels, per-sample seeds and pixels (the
+    default seeded random resized crop + flip) as the JAX loader."""
+    got = list(train_loader(SyntheticDataset(n, 8, 10), batch, epoch, base_seed, 8, 2,
                             repeated_aug=repeated_aug))
     want = list(jax_train_loader(JaxSyntheticDataset(n, 8, 10), batch, epoch, base_seed,
-                                 8, 2, transform=lambda img, seed: np.zeros(1, np.float32),
-                                 repeated_aug=repeated_aug))
+                                 8, 2, repeated_aug=repeated_aug))
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         for k in ("index", "seed", "label"):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
             assert g[k].dtype == np.int32
         assert g["image"].shape == (batch, 8, 8, 3)
+        np.testing.assert_array_equal(g["image"], w["image"])
 
 
 # ---- the remap ----
@@ -600,7 +600,7 @@ def test_distill_train_refuses_a_store_it_cannot_replay(teacher_store, tmp_path,
         with pytest.raises(ValueError, match="recipe"):
             train.main([*opts, "aug.mixup=0.5"])
     elif fault == "seed":
-        first = next(iter(train_loader(SyntheticDataset(64, 64, 1000), 4, 0, 0, 1)))
+        first = next(iter(train_loader(SyntheticDataset(64, 64, 1000), 4, 0, 0, 64, 1)))
         with open(store / "epoch0.bin", "r+b") as f:
             f.seek(int(first["index"][1]) * (4 + 4 * 10))
             f.write(np.int32(12345).tobytes())

@@ -137,12 +137,14 @@ def test_cuda_request_without_cuda_raises():
 
 
 def test_model_rejects_unported_options_and_train_mode():
-    """remat_stem stays refused; pin_layouts is ported (K11). Train mode is
-    ported: it runs without a generator only where it draws nothing
-    (TinyViT-5M has drop path 0), and refuses to draw without one."""
+    """Every option of the JAX model is ported: pin_layouts (K11) and
+    remat_stem (stage 0 only; its parity is held in
+    test_torch_image_folder.py). Train mode is ported: it runs without a
+    generator only where it draws nothing (TinyViT-5M has drop path 0), and
+    refuses to draw without one."""
     assert create_model("tiny_vit_5m_224", device="cpu", pin_layouts=True).pin_layouts
-    with pytest.raises(NotImplementedError):
-        create_model("tiny_vit_5m_224", device="cpu", remat_stem=True)
+    m = create_model("tiny_vit_5m_224", device="cpu", remat_stem=True)
+    assert [layer.remat for layer in m.layers] == [True, False, False, False]
     m = create_model("tiny_vit_5m_224", device="cpu", img_size=64).train()
     assert m(torch.zeros(2, 64, 64, 3)).shape == (2, 1000)
     m = create_model("tiny_vit_21m_224", device="cpu", img_size=64).train()

@@ -34,8 +34,7 @@ from cream_tpu.zoo.import_torch import convert_tinyvit
 from cream_tpu_torch.core import checkpoint
 from cream_tpu_torch.data import mixup
 from cream_tpu_torch.data.imagenet import (SyntheticDataset, eval_loader,
-                                           normalize_uint8, prefetch,
-                                           train_loader)
+                                           prefetch, train_loader)
 from cream_tpu_torch.models import create_model
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.ops.common import drop_path, dropout
@@ -517,14 +516,22 @@ def test_synthetic_dataset_matches_jax():
         jimg, jlabel = jds.load(i)
         np.testing.assert_array_equal(img, np.asarray(jimg))
         assert label == jlabel
-    batches = list(prefetch(train_loader(ds, 3, epoch=1, num_workers=2)))
+    # the loaders give the JAX loaders' batches: the seeded random resized
+    # crop + flip of the train loader, the eval resize + crop, bit for bit
+    from cream_tpu.data.imagenet import eval_loader as jax_eval_loader
+    from cream_tpu.data.imagenet import train_loader as jax_train_loader
+    batches = list(prefetch(train_loader(ds, 3, epoch=1, img_size=32, num_workers=2)))
     assert len(batches) == 2 and batches[0]["image"].shape == (3, 32, 32, 3)
     order = np.random.default_rng(1).permutation(8)
     np.testing.assert_array_equal(np.concatenate([b["index"] for b in batches]), order[:6])
-    np.testing.assert_allclose(batches[0]["image"][0], normalize_uint8(ds.load(order[0])[0]))
-    ev = list(eval_loader(ds, 3, num_workers=2))
+    want = list(jax_train_loader(jds, 3, epoch=1, img_size=32, num_workers=2))
+    for got, w in zip(batches, want):
+        np.testing.assert_array_equal(got["image"], w["image"])
+    ev = list(eval_loader(ds, 3, img_size=32, num_workers=2))
     assert [len(b["label"]) for b in ev] == [3, 3, 3]
     np.testing.assert_array_equal(ev[-1]["label"][-1:], [-1])
+    for got, w in zip(ev, jax_eval_loader(jds, 3, img_size=32, num_workers=2)):
+        np.testing.assert_array_equal(got["image"], w["image"])
 
 
 def _golden_batch():

@@ -55,8 +55,10 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     opts = ["--device", "cpu", *BASE, f"output={tmp_path}", "train.epochs=1"]
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        train.main([*opts, "data.dataset=imagenet", "data.data_path=/nonexistent"])
+    # image folders are read now (tests/test_torch_image_folder.py); a
+    # missing one raises before anything is written
+    with pytest.raises(FileNotFoundError):
+        train.main([*opts, "data.dataset=imagenet", f"data.data_path={tmp_path / 'absent'}"])
     with pytest.raises(NotImplementedError, match="distill"):
         train.main([*opts, "distill.enabled=true"])
     assert not (tmp_path / "tiny_vit_5m_224").exists()
