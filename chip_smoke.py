@@ -38,6 +38,21 @@ non-zero):
      train.make_train_step: 10 K1 + 10 K2 launches per step, the loss falls
      over 10 steps on one batch, kernel path against plain path on the same
      weights and batch, train img/s of both, peak memory
+9a0. data-parallel step (`core.mesh`, `train.steps.data_parallel_mean`, the
+     global BatchNorm of `nn.layers`): TinyViT-21M-224 bf16, global bs256,
+     one AdamW step under a one-rank NCCL group in this process and, where
+     two cards are present, on two ranks of a card each (`dp_rank`), against
+     the one-card step on the same batch and weights: 10 + 10 K1/K2 launches
+     a rank-step, loss within 2 bf16 ulps, grad norm within 2%, BN running
+     stats within 1e-3 (L2, a tensor); img/s by CUDA events, plain, DP, DP,
+     plain; the DP step's profile with the grad all-reduce's and the global
+     BatchNorm's device ms
+9a1. torchrun on the card (`--nproc_per_node=W`, W = min(cards, 2)) of
+     cli.train, TinyViT-21M-224 bf16 global bs256 on the synthetic set, one
+     epoch and its eval: finite losses, 10 + 10 K1/K2 launches a rank-step
+9a2. core.dryrun.dryrun_multichip(W, device="cuda"): a data-parallel
+     TinyViT-5M step and the contrastive gradient through the gather on W
+     NCCL ranks
  9a. Swin goldens: s3_tiny, swin_tiny and mini_swin_tiny fp32 (B=2) on
      seeded weights against the JAX package's logits stored in
      tests/data/torch_port/ (12, 12 and 0 fp32 K1 launches), and one fp32
@@ -120,7 +135,7 @@ non-zero):
      time by kind of op (cli.profile_step.profile); bf16 vs fp32 top-1 on
      images whose fp32 top-2 margin is above 4 bf16 ulps
  9o. main path (DeiT / Mini-DeiT train): the same two at bf16 bs256, drop
-     path 0.1: the loss falls over 20 steps on one batch; train img/s
+     path 0.1: the loss falls over 10 steps on one batch; train img/s
      through cli.speed_test.train_throughput, peak memory, device time by
      kind (the iRPE gather and its scatter-add backward named)
  9p. Mini-Swin-T bf16 bs128 with capture_distill: logits bit for bit those
@@ -181,7 +196,7 @@ non-zero):
      a seeded module's fold at TinyViT-21M's and -5M/11M's stage-0 shapes
      (bs256 bf16; fp32 at bs32) and at maps its 14x14 bf16 tiles cut
      raggedly, the same bits on two launches; kernel, plain and
-     unfused-module device times by CUDA-graph replay in 3 interleaved
+     unfused-module device times by CUDA-graph replay in 2 interleaved
      rounds (CUDA events beside them) against the roofline bound and the
      CUDA-core floor
  20. K3 vs plain: the bias-attention kernel against
@@ -258,7 +273,7 @@ non-zero):
      share, the forward's FLOPs against the bf16 peak
 9z4. main path (detector train): both at bf16 bs16 through the CLIs' step
      on "library" and "fused" (K7/K9 at every enumerated site, none
-     refused), img/s in 2 interleaved rounds, peak memory; 20 steps on one
+     refused), img/s in 2 interleaved rounds, peak memory; 10 steps on one
      batch: the loss falls, all losses finite; idle share of a step
 9z5. both detection CLIs --synthetic on the card (M4, canvas 512, B=2): the
      loss finite, the native COCO AP computed
@@ -273,7 +288,7 @@ non-zero):
      memory, idle share, FLOPs against the bf16 peak; bf16 top class per
      query against fp32 where the fp32 top-2 margin is above 4 bf16 ulps
 9z9. main path (DETR train): the CLI's step at bf16 bs16 (one forward, six
-     host matchings, AdamW after clipping): 20 steps on one batch, the loss
+     host matchings, AdamW after clipping): 10 steps on one batch, the loss
      falls, every loss finite; img/s, peak memory, idle share
 9z10. CyDAS golden: cydas_seg fp32 at 97 x 129 (eval and the three heads)
      against the JAX record (1e-3), one train step on "library" and "fused"
@@ -284,8 +299,8 @@ non-zero):
 9z12. main path (CyDAS train): the CLI's step at bf16 bs12, crop 769, on
      "library" and "fused" (12 K7 launches a step at the six stride-1
      depthwise sites, none refused, the first loss within 2 bf16 ulps and
-     the grad norm within 2% of library's), img/s in 3 interleaved rounds,
-     peak memory; 20 steps on one batch: the loss falls, all finite
+     the grad norm within 2% of library's), img/s in 2 interleaved rounds,
+     peak memory; 10 steps on one batch: the loss falls, all finite
 9z13. the DETR and segmentation CLIs --synthetic on the card
 9z14. pixels on this host: the seeded train recipe (TrainAugConfig(),
      rand-m3-n2-mstd0.5, the colour-jitter route) and the eval resize +
@@ -321,9 +336,12 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -332,11 +350,16 @@ sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from cream_tpu_torch.cli.inference import predict  # noqa: E402
+from cream_tpu_torch.cli.train import steps_per_epoch  # noqa: E402
 from cream_tpu_torch.cli.speed_test import (card_info, throughput,  # noqa: E402
+                                            timed_images_per_s, train_step_fn,
                                             train_throughput)
+from cream_tpu_torch.core import mesh as port_mesh  # noqa: E402
+from cream_tpu_torch.core.dryrun import dryrun_multichip, free_port, launch_ranks  # noqa: E402
 from cream_tpu_torch.models import create_model  # noqa: E402
 from cream_tpu_torch.models.clip import prune_clip, prune_clip_state_dict  # noqa: E402
 from cream_tpu_torch.models.cream import dw3x3_path_sites, dw3x3_sites  # noqa: E402
@@ -2115,7 +2138,7 @@ def phase_k6(gen) -> tuple[float, dict]:
     shapes (bf16 at bs256, fp32 at bs32) and at maps its bf16 tiles cut
     raggedly, the same bits on two launches; bf16 device times of the
     kernel, the plain version and the unfused eval module by CUDA-graph
-    replay in 3 interleaved rounds (CUDA-events times beside them), against
+    replay in 2 interleaved rounds (CUDA-events times beside them), against
     the roofline bound and the CUDA-core floor."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2157,7 +2180,7 @@ def phase_k6(gen) -> tuple[float, dict]:
                 def module():
                     return m(x)
                 n0 = mbconv.LAUNCHES
-                k_ms, p_ms, u_ms = interleaved_graph_ms(kern, plain, module)
+                k_ms, p_ms, u_ms = interleaved_graph_ms(kern, plain, module, rounds=2)
                 check(mbconv.LAUNCHES > n0, f"K6 {name}: the timing did not launch K6")
                 t = dict(ms=k_ms, host_ms=cuda_ms(kern), plain_ms=p_ms,
                          plain_host_ms=cuda_ms(plain), module_ms=u_ms,
@@ -2165,7 +2188,7 @@ def phase_k6(gen) -> tuple[float, dict]:
             t["bound_ms"], t["bound_by"] = k6_bound_ms(B, H, W, C, hid, dtype)
             t["floor_ms"] = k6_floor_ms(B, H, W, C, hid)
             times[name] = t
-            print(f"k6 time {name} bf16 B={B} (device, CUDA graph, median of 3 interleaved "
+            print(f"k6 time {name} bf16 B={B} (device, CUDA graph, median of 2 interleaved "
                   f"rounds; CUDA events in parentheses): kernel {t['ms']:.4f} ms "
                   f"({t['host_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
                   f"({t['plain_host_ms']:.4f}), unfused eval MBConv module (cuDNN 1x1 and "
@@ -2846,7 +2869,7 @@ def phase_clip_train(batch: int = CLIP_TRAIN_BATCH) -> dict:
     """The TinyCLIP-39M/16 training main path: its L0 distillation step at
     bf16 `batch` (fp32 params) through cli.speed_test.
     tinyclip_train_throughput, with remat off and on: pairs/s (CUDA events,
-    10 steps after 3), peak memory; the first step's loss the same with
+    5 steps after 3), peak memory; the first step's loss the same with
     remat within 2 bf16 ulps, and less memory with it; the device time by
     kind of op of the step without remat (cli.profile_step.profile)."""
     from cream_tpu_torch.cli.profile_step import profile
@@ -2856,7 +2879,7 @@ def phase_clip_train(batch: int = CLIP_TRAIN_BATCH) -> dict:
     for remat in (False, True):
         model = create_model(TINYCLIP, device="cuda", dtype=torch.bfloat16, remat=remat)
         model.load_state_dict(seeded_state_dict(model, 0))
-        out[remat] = tinyclip_train_throughput(model, batch, 10, 3)
+        out[remat] = tinyclip_train_throughput(model, batch, 5, 3)
         if not remat:
             _, fn = tinyclip_train_step_fn(model, batch)
             out["profile"] = profile(fn, steps=3, warmup=2, top=8)
@@ -3426,20 +3449,24 @@ def cream_dw_launches(stages, student, teacher) -> dict:
     return {"k7_fwd": s1 + t1, "k7_bwd": s1, "k8": 0, "k9_fwd": s2 + t2, "k9_bwd": s2}
 
 
+# the Cream step's seeded path sequence: 3 checked steps, then every path's
+# first step once a route before the clock times the rest
+CREAM_PATHS = 8
+
+
 def phase_cream_search() -> dict:
     """9u. `cli.search_cream.main` at 224 (fp32, bs16, 1,000 classes, 2
     epochs of 3 steps, the board open from epoch 1): the board fills, the
     meta step runs, the extracted childnet passes the CLI's <= 1e-4 check.
     Then the supernet's train step (`make_cream_train_step`, SGD 0.01 /
-    0.9) in bf16 at bs128 over one seeded sequence of 13 paths (KD against
-    its first path from step 2 on, meta value 0.5), from the same weights
-    on "library" and on "fused": K7/K9 launches in each of the first 3 steps
-    equal to the paths' sites (`cream_dw_launches`), the first step's loss
-    within 2 bf16 ulps and grad norm within 2% between routes; after the
-    other 10 paths once on each route, img/s of their 10 steps in one
-    round, peak memory; and the meta step's ms (bf16, the
-    CLI's slice of a quarter of the batch, CUDA events, median of 5 after
-    one)."""
+    0.9) in bf16 at bs128 over one seeded sequence of CREAM_PATHS paths
+    (KD against its first path from step 2 on, meta value 0.5), from the
+    same weights on "library" and on "fused": K7/K9 launches in each of the
+    first 3 steps equal to the paths' sites (`cream_dw_launches`), the first
+    step's loss within 2 bf16 ulps and grad norm within 2% between routes;
+    after the other paths once on each route, img/s of their steps in one
+    round, peak memory; and the meta step's ms (bf16, the CLI's slice of a
+    quarter of the batch, CUDA events, median of 3 after one)."""
     import tempfile
 
     from cream_tpu_torch.cli import search_cream
@@ -3477,7 +3504,7 @@ def phase_cream_search() -> dict:
                                                 device="cuda")}
     rng = np.random.default_rng(0)
     paths = [nas.sample_architecture(rng, [d for _, d, _ in SEARCH_STAGES]).tolist()
-             for _ in range(13)]
+             for _ in range(CREAM_PATHS)]
     models = {}
     for route in routes:
         models[route] = create_model("cream_supernet", device="cuda", dtype=dtype)
@@ -3487,7 +3514,7 @@ def phase_cream_search() -> dict:
 
     def run(state, i):
         kd = i > 0
-        return step(state, batch, paths[i % 13], paths[0] if kd else None, 0.5, kd)[1]
+        return step(state, batch, paths[i % CREAM_PATHS], paths[0] if kd else None, 0.5, kd)[1]
 
     states = {r: TrainState(models[r], make_sgd(0.01, momentum=0.9)) for r in routes}
     first, per_step = {}, []
@@ -3514,23 +3541,23 @@ def phase_cream_search() -> dict:
     # the rest of the sequence once on each route before the clock: a path's
     # first step meets conv shapes (k5, k7 choices) not seen before
     for route in routes:
-        for i in range(3, 13):
+        for i in range(3, CREAM_PATHS):
             run(states[route], i)
     ips = {r: [] for r in routes}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for order in (routes,):
         for route in order:
-            counter = iter(range(3, 13))
-            ms = timed_steps(lambda: run(states[route], next(counter)), 10)
-            ips[route].append(CREAM_BATCH * 10 / sum(ms) * 1e3)
+            counter = iter(range(3, CREAM_PATHS))
+            ms = timed_steps(lambda: run(states[route], next(counter)), CREAM_PATHS - 3)
+            ips[route].append(CREAM_BATCH * (CREAM_PATHS - 3) / sum(ms) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sl = CREAM_BATCH // 4                      # the CLI's slice: a quarter of the batch
     meta = MetaMatchingHead(sl * 1000, device="cuda")
     meta_step = nas.make_meta_update_step(models["fused"], meta, 0.01, sl)
     kd = torch.softmax(torch.randn(sl, 1000, generator=gen, device="cuda"), -1)
     meta_ms = statistics.median(timed_steps(
-        lambda: meta_step(x[:2 * sl], batch["label"][:2 * sl], paths[1], paths[0], kd), 6)[1:])
+        lambda: meta_step(x[:2 * sl], batch["label"][:2 * sl], paths[1], paths[0], kd), 4)[1:])
     l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
     g_ref, g_k = float(first["library"]["grad_norm"]), float(first["fused"]["grad_norm"])
     loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
@@ -3540,7 +3567,8 @@ def phase_cream_search() -> dict:
           f"paths' sites), library none; step 1 fused vs library: loss {l_k:.5f} vs "
           f"{l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), grad_norm "
           f"{g_k:.4f} vs {g_ref:.4f} (rel {abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2); img/s "
-          f"(10 steps after each path once, CUDA events, one round library, fused): "
+          f"({CREAM_PATHS - 3} steps after each path once, CUDA events, one round library, "
+          f"fused): "
           + "; ".join(f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])}" for r in routes)
           + f"; peak memory {peak:.2f} GiB; meta step (bf16, slice {sl} x 1,000 classes) "
           f"{meta_ms:.2f} ms; depthwise sites the kernels refused: {dict(DW_REFUSED)} "
@@ -3655,7 +3683,7 @@ def phase_cdarts_retrain() -> dict:
             "launches": launches["fused"]}
 
 
-def phase_darts_search(rounds: int = 1, per: int = 3) -> dict:
+def phase_darts_search(rounds: int = 1, per: int = 2) -> dict:
     """9w. darts_search_cifar (C 16, 8 layers, 4 nodes): the fp32 B=2 logits
     and CE alpha grads (eval mode, TF32 off) on seeded weights and the
     stored alphas against the JAX package's, run in float64 (1e-3; grads
@@ -3667,9 +3695,9 @@ def phase_darts_search(rounds: int = 1, per: int = 3) -> dict:
     first weight step's loss within 2 bf16 ulps and grad norm within 2%
     between routes; ms a weight step and an alpha step (CUDA events) in
     `rounds` interleaved rounds of `per` steps; device time and idle share
-    of one weight + alpha step on "fused" (`profile`; ~56,000 launches,
-    which the profiler takes tens of seconds to read; its wall includes the
-    profiler's host cost); no depthwise site refused."""
+    of one weight step on "fused" (`profile`; ~33,000 launches, which the
+    profiler takes seconds to read; its wall includes the profiler's host
+    cost); no depthwise site refused."""
     from cream_tpu_torch.cli.profile_step import profile
     from cream_tpu_torch.nas.cdarts import make_alpha_adam, make_alpha_step, make_weight_step
     from cream_tpu_torch.train.optim import make_sgd
@@ -3722,8 +3750,7 @@ def phase_darts_search(rounds: int = 1, per: int = 3) -> dict:
         for route in (routes if i % 2 == 0 else routes[::-1]):
             for kind, fn in zip(("weight", "alpha"), runs[route]):
                 ms[route][kind].append(statistics.median(timed_steps(fn, per)))
-    prof = {"fused": profile(lambda: (runs["fused"][0](), runs["fused"][1]()), steps=1, warmup=0,
-                             top=6)}
+    prof = {"fused": profile(runs["fused"][0], steps=1, warmup=0, top=6)}
     l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
     g_ref, g_k = float(first["library"]["grad_norm"]), float(first["fused"]["grad_norm"])
     loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
@@ -3737,7 +3764,7 @@ def phase_darts_search(rounds: int = 1, per: int = 3) -> dict:
           f"{per} in {rounds} interleaved rounds): " + "; ".join(
               f"{r} weight {' / '.join(f'{v:.2f}' for v in ms[r]['weight'])}, alpha "
               f"{' / '.join(f'{v:.2f}' for v in ms[r]['alpha'])}" for r in routes)
-          + "; profile of a weight + alpha step: " + "; ".join(
+          + "; profile of a weight step: " + "; ".join(
               f"{r} wall {prof[r]['wall_ms']:.2f} ms, device {prof[r]['device_ms']:.2f} ms, idle "
               f"share {prof[r]['idle_share']:.3f}, {prof[r]['launches']:.0f} launches, by kind "
               + ", ".join(f"{k} {v:.2f}" for k, v in list(prof[r]["by_kind_ms"].items())[:6])
@@ -4259,7 +4286,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, "
           f"device {prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
           f"{prof['launches']:.0f} launches; device ms by kind: {kinds} [{card}]")
-    check(per_step == want, f"{name}: {per_step} K7/K9 launches a step in the 20 steps")
+    check(per_step == want, f"{name}: {per_step} K7/K9 launches a step in the {steps} steps")
     check(all(np.isfinite(v).all() for v in parts.values()) and all(np.isfinite(losses)),
           f"{name}: a loss is not finite: {parts}")
     check(losses[-1] < losses[0], f"{name}: train loss did not fall: {losses}")
@@ -4474,13 +4501,13 @@ def phase_detr_train(batch: int = DETR_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in hist] for k in ("loss_ce", "loss_bbox", "loss_giou")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ips = [timed_images_per_s(run, batch, 4, 1) for _ in range(3)]
+    ips = [timed_images_per_s(run, batch, 4, 1) for _ in range(2)]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile(run, steps=3, warmup=1, top=8)
     kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
     print(f"train {DETR_NAME} iRPE-K bf16 B={batch} canvas 512 "
           f"(detr_r50_irpe_512_train_throughput): " + " / ".join(f"{v:.1f}" for v in ips)
-          + f" img/s (3 rounds, CUDA events, 4 steps after 1), peak memory {peak:.2f} GiB; loss "
+          + f" img/s (2 rounds, CUDA events, 4 steps after 1), peak memory {peak:.2f} GiB; loss "
           f"over {steps} steps on one batch {losses[0]:.4f} -> {losses[-1]:.4f}; profile: wall "
           f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a step, idle share "
           f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by kind: "
@@ -4627,7 +4654,7 @@ def phase_cydas_train(batch: int = SEG_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in hist] for k in ("loss8", "loss16", "loss32")}
     per_step = {k: (dwconv.LAUNCHES[k] - n0[k]) // (steps - 1) for k in n0}
     ips, peak = {r: [] for r in runs}, {}
-    for r in range(3):
+    for r in range(2):
         for route in (("library", "fused") if r % 2 == 0 else ("fused", "library")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4638,7 +4665,7 @@ def phase_cydas_train(batch: int = SEG_BATCH, steps: int = 20) -> dict:
     print(f"train {SEG_NAME} bf16 B={batch} crop {SEG_CROP} (cydas_seg_769_train_throughput): "
           + "; ".join(f"{r} " + " / ".join(f"{v:.2f}" for v in ips[r]) + f" img/s (peak "
                       f"{peak[r]:.2f} GiB)" for r in ips)
-          + f" (3 interleaved rounds, CUDA events, 3 steps after 1); fused K7 launches a step "
+          + f" (2 interleaved rounds, CUDA events, 3 steps after 1); fused K7 launches a step "
           f"{per_step} (want {want}); loss over {steps} steps on one batch {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, device "
           f"{prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
@@ -5033,6 +5060,221 @@ def phase_folder() -> dict:
     return res
 
 
+# ---- data parallelism (slice 23) ----
+
+DP_BATCH = 256            # the global batch of the data-parallel phases
+
+
+def dp_world() -> int:
+    """The ranks of the card runs: two where two cards are present, else one."""
+    return min(torch.cuda.device_count(), 2)
+
+
+def dp_inputs(device) -> tuple[torch.nn.Module, dict]:
+    """TinyViT-21M-224 bf16 on seeded weights (drop path 0.2, its default) and
+    a seeded global batch of DP_BATCH low-frequency images with one-hot
+    labels, on `device`: the same bits on every card."""
+    gen = torch.Generator(device).manual_seed(5)
+    model = create_model("tiny_vit_21m_224", device=device, dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    x = smooth_images(gen, DP_BATCH).to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (DP_BATCH,), generator=gen, device=device)
+    return model, {"image": x, "label": F.one_hot(labels, 1000).float()}
+
+
+def dp_step_result(model: torch.nn.Module, batch: dict, rows: slice) -> dict:
+    """One AdamW step (1e-3, weight decay 0.05, clip 5) of `model` on the
+    rows `rows` of `batch`: the data-parallel step under a process group,
+    the one-card step without; its loss, grad norm, K1/K2 launches and the
+    BN running stats after it."""
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                         params=dict(model.named_parameters())))
+    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    _, metrics = make_train_step(loss_fn=soft_target_ce)(
+        state, {k: v[rows] for k, v in batch.items()}, 0)
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "launches": (wa.LAUNCHES, wa.BWD_LAUNCHES),
+            "stats": {k: v.float().cpu().numpy() for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def check_dp_step(tag: str, got: dict, want: dict) -> dict:
+    """The data-parallel step against the one-card step on the same global
+    batch: loss within 2 bf16 ulps, grad norm within 2%, each BN running
+    stat tensor within 1e-3 relative (L2; the largest element error over
+    the tensor's largest |value| is printed beside it: the two BatchNorms'
+    bf16 outputs round apart at a few elements, and the difference grows
+    through the blocks as the kernel and plain paths' do), 10 K1 + 10 K2
+    launches a rank-step. Returns the errors."""
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(want["loss"])) - 7)
+    stat_err = max(float(np.linalg.norm(got["stats"][k] - w) / max(np.linalg.norm(w), 1e-12))
+                   for k, w in want["stats"].items())
+    stat_max = max(float(np.abs(got["stats"][k] - w).max() / max(np.abs(w).max(), 1e-12))
+                   for k, w in want["stats"].items())
+    err = {"loss": abs(got["loss"] - want["loss"]), "loss_bound": loss_lim,
+           "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+           "bn_stats_rel": stat_err, "bn_stats_max_rel": stat_max, "launches": got["launches"]}
+    print(f"dp {tag}: loss {got['loss']:.5f} vs one card {want['loss']:.5f} (|diff| "
+          f"{err['loss']:.2e}, bound {loss_lim:.2e}); grad_norm {got['grad_norm']:.4f} vs "
+          f"{want['grad_norm']:.4f} (rel {err['grad_norm_rel']:.2e}, bound 2e-2); BN running "
+          f"stats rel err (L2) {stat_err:.2e} (bound 1e-3; largest element {stat_max:.2e} of "
+          f"its tensor's max); K1/K2 launches a rank-step "
+          f"{got['launches'][0]}/{got['launches'][1]}")
+    check(got["launches"] == (10, 10), f"dp {tag}: {got['launches']} K1/K2 launches a "
+          f"rank-step, want 10 + 10")
+    check(err["loss"] <= loss_lim, f"dp {tag}: loss {got['loss']} vs {want['loss']}")
+    check(err["grad_norm_rel"] <= 2e-2, f"dp {tag}: grad_norm {got['grad_norm']} vs "
+          f"{want['grad_norm']}")
+    check(stat_err <= 1e-3, f"dp {tag}: BN running stats err {stat_err}")
+    return err
+
+
+def dp_rank(out: str, steps: int = 5) -> None:
+    """A rank of the 2-card check (`launch_ranks`): the data-parallel step on
+    this rank's half of the global batch (its result to out/rank<r>.npz),
+    then `steps` timed steps (CUDA events)."""
+    port_mesh.init_distributed("cuda")
+    r, w = port_mesh.rank(), port_mesh.world_size()
+    device = port_mesh.local_device("cuda")
+    model, batch = dp_inputs(device)
+    n = DP_BATCH // w
+    res = dp_step_result(model, batch, slice(r * n, (r + 1) * n))
+    model, _ = dp_inputs(device)
+    ips = timed_images_per_s(train_step_fn(model, n, 224), DP_BATCH, steps, 2)
+    np.savez(Path(out) / f"rank{r}.npz", loss=res["loss"], grad_norm=res["grad_norm"],
+             launches=np.asarray(res["launches"]), img_per_s=ips,
+             **{f"stat|{k}": v for k, v in res["stats"].items()})
+    port_mesh.barrier()
+    dist.destroy_process_group()
+
+
+def phase_dp_step() -> dict:
+    """The data-parallel TinyViT-21M-224 bf16 step on a global batch of 256
+    against the one-card step on the same batch and weights: in this
+    process under a one-rank NCCL group, and (where two cards are present)
+    on two ranks of one card each (`dp_rank`). Then the step's img/s by CUDA
+    events, plain (no group), DP, DP, plain, and the DP step's profile: the
+    device ms of the grad all-reduce and of the global BatchNorm (their
+    `record_function` ranges) and of the NCCL kernels."""
+    from cream_tpu_torch.cli.profile_step import profile
+    w, steps = dp_world(), 5
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, batch = dp_inputs(device)
+    want = dp_step_result(model, batch, slice(None))
+    ips = {"plain": [], "dp": []}
+    model, _ = dp_inputs(device)
+    plain_step = train_step_fn(model, DP_BATCH, 224)
+    ips["plain"].append(timed_images_per_s(plain_step, DP_BATCH, steps, 2))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        model, _ = dp_inputs(device)
+        err = {"one_rank": check_dp_step("1 rank (NCCL, in process)",
+                                         dp_step_result(model, batch, slice(None)), want)}
+        model, _ = dp_inputs(device)
+        dp_step = train_step_fn(model, DP_BATCH, 224)
+        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        for _ in range(2):
+            ips["dp"].append(timed_images_per_s(dp_step, DP_BATCH, steps, 2))
+        launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+        check(launches == (10 * 2 * (steps + 2),) * 2, f"dp timed steps launched {launches}")
+        prof = profile(dp_step, steps=3, warmup=1,
+                       ranges=("grad_all_reduce", "global_batch_norm"))
+    finally:
+        dist.destroy_process_group()
+    ips["plain"].append(timed_images_per_s(plain_step, DP_BATCH, steps, 2))
+    two = None
+    if w == 2:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+            launch_ranks(2, ["-c", f"import chip_smoke as c; c.dp_rank({out!r})"], 600.0,
+                         cwd=str(ROOT))
+            ranks = [dict(np.load(Path(out) / f"rank{r}.npz")) for r in range(2)]
+        got = {"loss": float(ranks[0]["loss"]), "grad_norm": float(ranks[0]["grad_norm"]),
+               "launches": tuple(int(v) for v in ranks[0]["launches"]),
+               "stats": {k[5:]: v for k, v in ranks[0].items() if k.startswith("stat|")}}
+        err["two_ranks"] = check_dp_step("2 ranks (NCCL, a card each)", got, want)
+        two = [float(r["img_per_s"]) for r in ranks]
+    card = card_info()
+    ranges = prof["ranges_ms"]
+    print(f"dp step TinyViT-21M-224 bf16 global bs{DP_BATCH}, CUDA events over {steps} steps "
+          f"after 2: plain {' / '.join(f'{v:.1f}' for v in ips['plain'])} img/s, data-parallel "
+          f"(1 rank) {' / '.join(f'{v:.1f}' for v in ips['dp'])} img/s"
+          + (f", 2 ranks {' / '.join(f'{v:.1f}' for v in two)} img/s (rank 0 / 1)" if two else
+             ", 2 ranks: not run (one card)")
+          + f"; DP step profile: device {prof['device_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+          f"(idle {prof['idle_share']:.3f}), grad all-reduce {ranges['grad_all_reduce']:.3f} ms, "
+          f"global BatchNorm {ranges['global_batch_norm']:.3f} ms (fwd + bwd), NCCL kernels "
+          f"{prof['by_kind_ms'].get('NCCL collectives', 0.0):.3f} ms a step, "
+          f"{prof['launches']:.0f} launches [{card}]")
+    return {"img_per_s": ips, "two_ranks_img_per_s": two, "errors": err, "profile": prof,
+            "launches_per_rank_step": err["one_rank"]["launches"],
+            "launches": (launches[0] + 10, launches[1] + 10)}
+
+
+def phase_dp_cli() -> dict:
+    """torchrun on the card: `python -m torch.distributed.run --standalone
+    --nproc_per_node=W -m cream_tpu_torch.cli.train`, TinyViT-21M-224 bf16
+    compute / fp32 params, the synthetic set, a global batch of 256 (256 / W
+    rows a rank), the default recipe, one epoch (the synthetic set's 4 rank
+    batches in W slices: 4 steps at W = 1, 2 at W = 2) and its eval; finite
+    losses, 10 + 10 K1/K2 launches a rank-step (the CLI's own count on rank
+    0)."""
+    import re
+    import subprocess
+    w = dp_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={w}", "-m", "cream_tpu_torch.cli.train",
+               "model.name=tiny_vit_21m_224", "model.dtype=bfloat16", "data.dataset=synthetic",
+               f"data.batch_size={DP_BATCH // w}", "train.epochs=1", "train.warmup_epochs=0",
+               f"output={out}"]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+        t0 = time.time()
+        res = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.time() - t0
+    log = res.stdout + res.stderr
+    check(res.returncode == 0, f"torchrun cli.train failed (rc {res.returncode}):\n"
+          f"{log[-4000:]}")
+    m = re.search(r"epoch 0: (\d+) steps, window-attention kernel launches on rank 0 "
+                  r"K1 (\d+), K2 (\d+)", log)
+    check(m is not None, f"torchrun cli.train printed no launch count:\n{log[-2000:]}")
+    n_steps, k1, k2 = (int(g) for g in m.groups())
+    loss = re.search(r"epoch 0 \[0/\d+\] .*?loss: ([-\d.naninf]+)", log)
+    done = re.search(r"epoch 0 done in ([\d.]+)s acc@1=([\d.]+)", log)
+    print(f"dp cli: torchrun --nproc_per_node={w} cli.train tiny_vit_21m_224 bf16 global "
+          f"bs{DP_BATCH}: {n_steps} steps a rank, K1/K2 launches on rank 0 {k1}/{k2}, first "
+          f"loss {loss.group(1) if loss else 'not printed'}, "
+          f"{done.group(0) if done else 'no eval line'}; {wall:.1f} s with the processes' start "
+          f"[{card_info()}]")
+    # the synthetic set holds 4 rank batches (cli.train.build_dataset), cut into rank slices
+    want = steps_per_epoch(4 * (DP_BATCH // w), DP_BATCH // w, w)
+    check(n_steps == want and (k1, k2) == (10 * n_steps, 10 * n_steps),
+          f"torchrun cli.train: {n_steps} steps (want {want}), K1/K2 {k1}/{k2}")
+    check(loss is not None and np.isfinite(float(loss.group(1))), "torchrun cli.train loss")
+    check(done is not None, "torchrun cli.train did not finish its epoch")
+    return {"world": w, "steps": n_steps, "launches": (k1, k2), "seconds": wall}
+
+
+def phase_dryrun() -> dict:
+    """`core.dryrun.dryrun_multichip(W, device="cuda")`: a data-parallel
+    TinyViT-5M step and the contrastive gradient through the gather on W
+    NCCL ranks."""
+    w = dp_world()
+    t0 = time.time()
+    res = dryrun_multichip(w, device="cuda")
+    grad = res["contrastive"]["grad"]
+    print(f"dryrun_multichip({w}, cuda): step {res['step']}, loss {res['loss']:.4f}, "
+          f"grad_norm {res['grad_norm']:.2f}; contrastive loss {res['contrastive']['loss']:.4f}, "
+          f"grad {grad.shape} finite; {time.time() - t0:.1f} s")
+    check(res["step"] == 1 and np.isfinite(res["loss"]) and np.isfinite(grad).all(),
+          "dryrun_multichip")
+    return res
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -5075,6 +5317,11 @@ def main() -> None:
     phase_train_golden()
     k1_eval = phase_main()
     k1_train, k2_train = phase_train()
+    t_dp = time.time()
+    dp_step = phase_dp_step()
+    dp_cli = phase_dp_cli()
+    dryrun = phase_dryrun()
+    dp_s = time.time() - t_dp
     for name in ("s3_tiny", "swin_tiny", "mini_swin_tiny"):
         phase_golden(name, DATA / f"{name}_seed0.npz")
     phase_train_golden("s3_tiny", DATA / "s3_tiny_train_seed0.npz")
@@ -5098,7 +5345,7 @@ def main() -> None:
     counts = kernel_counts()
     phase_deit_goldens()
     deit_eval = {name: phase_deit_eval(name) for name in DEIT_METRICS}
-    deit_train = {name: phase_deit_train(name) for name in DEIT_METRICS}
+    deit_train = {name: phase_deit_train(name, steps=10) for name in DEIT_METRICS}
     capture = phase_mini_swin_capture()
     check(kernel_counts() == counts, "the DeiT, Mini-DeiT or capture phases launched a kernel")
     t_nas = time.time()
@@ -5122,7 +5369,7 @@ def main() -> None:
     det_train = {}
     for name in DET_METRICS:
         dwconv.reset_launches()
-        det_train[name] = phase_det_train(name)
+        det_train[name] = phase_det_train(name, steps=10)
     det_clis = phase_det_clis()
     det_s = time.time() - t_det
     t_seg = time.time()
@@ -5130,14 +5377,14 @@ def main() -> None:
     counts = kernel_counts()
     phase_detr_golden()
     detr_eval = phase_detr_eval()
-    detr_train = phase_detr_train()
+    detr_train = phase_detr_train(steps=10)
     check(kernel_counts() == counts, "the DETR phases launched a kernel")
     phase_cydas_golden()
     counts = kernel_counts()
     cyd_eval = phase_cydas_eval()
     check(kernel_counts() == counts, "the CyDAS eval phase launched a kernel")
     dwconv.reset_launches()
-    cyd_train = phase_cydas_train()
+    cyd_train = phase_cydas_train(steps=10)
     seg_clis = phase_seg_clis()
     seg_s = time.time() - t_seg
     t_folder = time.time()
@@ -5167,10 +5414,11 @@ def main() -> None:
     for name, src, line, launches, err, t in (
             ("window_attention_fwd", "window_attention.cu", 190,
              k1_eval + k1_train + k1_swin + k1_s3_train + k1_distill
-             + folder["train"]["launches"][0] + folder["eval"]["launches"], worst_k1, t1),
+             + folder["train"]["launches"][0] + folder["eval"]["launches"]
+             + dp_step["launches"][0] + dp_cli["launches"][0], worst_k1, t1),
             ("window_attention_bwd", "window_attention_bwd.cu", 268,
-             k2_train + k2_s3_train + k2_distill + folder["train"]["launches"][1],
-             worst_k2, t2)):
+             k2_train + k2_s3_train + k2_distill + folder["train"]["launches"][1]
+             + dp_step["launches"][1] + dp_cli["launches"][1], worst_k2, t2)):
         rows.append({
             "name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
             "replaces": f"cream_tpu/ops/pallas/window_attention.py:{line}",
@@ -5183,6 +5431,10 @@ def main() -> None:
                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     rows[0]["swin_base"] = {k: summed_over_blocks(t1, k, SWINB_SHAPES)
                             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    for row, i in zip(rows, (0, 1)):
+        row["data_parallel_launches"] = {"per_rank_step": dp_step["launches_per_rank_step"][i],
+                                         "dp_step_phase": dp_step["launches"][i],
+                                         "torchrun_cli_rank0": dp_cli["launches"][i]}
     rows.append(evit_row(
         "cga_fused", "cga.cu", "cga.py:56",
         sum(v["cascade"][0] for v in evit.values())
@@ -5389,6 +5641,19 @@ def main() -> None:
           f"{ft['idle_share']:.3f}; peak "
           f"{ft['peak_gib']:.2f} GiB, remat_stem {ft['remat_peak_gib']:.2f} GiB; cli.eval "
           f"{folder['eval']['img_per_s']:.1f} img/s [{card}]")
+    ips = dp_step["img_per_s"]
+    print(f"data parallelism (phases 9a0-9a2, {dp_s:.1f} s), {torch.cuda.device_count()} "
+          f"card(s), W = {dp_world()}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: "
+          f"tinyvit21m_224_dp_train_throughput bf16 global bs{DP_BATCH} "
+          f"{statistics.median(ips['dp']):.1f} img/s (1 rank; the plain step "
+          f"{statistics.median(ips['plain']):.1f} in the same run"
+          + (f"; 2 ranks {statistics.median(dp_step['two_ranks_img_per_s']):.1f}"
+             if dp_step["two_ranks_img_per_s"] else "; 2 ranks not run: one card")
+          + f"), grad all-reduce {dp_step['profile']['ranges_ms']['grad_all_reduce']:.3f} ms and "
+          f"global BatchNorm {dp_step['profile']['ranges_ms']['global_batch_norm']:.3f} ms of "
+          f"device time a step; torchrun cli.train {dp_cli['steps']} steps in "
+          f"{dp_cli['seconds']:.1f} s; dryrun_multichip({dp_world()}) loss {dryrun['loss']:.4f} "
+          f"[{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -65,6 +65,7 @@ from cream_tpu_torch.cli.speed_test import card_info
 
 # kind of kernel by name, first match wins
 KINDS = [
+    ("NCCL collectives", r"nccl"),
     ("K1 window attention fwd", r"window_attention_fwd_(mma_)?kernel"),
     ("K2 window attention bwd", r"window_attention_bwd_(mma_)?kernel|dbias_reduce"),
     ("K4 fused CGA", r"cga_(fused|bf16)_kernel"),
@@ -120,9 +121,12 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25) -> dict:
+def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25, ranges=()) -> dict:
     """Profile `steps` calls of `fn` (after `warmup` untimed ones) on the
-    current CUDA device; times in ms per call."""
+    current CUDA device; times in ms per call. `ranges` names
+    `torch.profiler.record_function` ranges (the data-parallel step's
+    "grad_all_reduce" and "global_batch_norm"): `ranges_ms` gives the device
+    time of the kernels each launched, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -148,6 +152,11 @@ def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25) -> dict:
     device_ms = _busy_us([(e.time_range.start, e.time_range.end)
                           for e in kernels]) / 1e3 / steps
     per = lambda us: us / 1e3 / steps
+    # the ranges' host events (each range also has a device-side annotation
+    # of the same name, which would count its span a second time)
+    in_range = {name: sum(e.device_time_total for e in prof.events()
+                          if e.name == name and e.device_type == DeviceType.CPU)
+                for name in ranges}
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
@@ -155,6 +164,7 @@ def profile(fn, steps: int = 5, warmup: int = 3, top: int = 25) -> dict:
         "by_kind_ms": {k: per(v) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms": {n[:90]: per(v) for n, v in
                            sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+        "ranges_ms": {name: per(us) for name, us in in_range.items()},
     }
 
 

@@ -1,4 +1,4 @@
-"""AutoFormer evolution search CLI on one card: counterpart of
+"""AutoFormer evolution search CLI, on one card or several: counterpart of
 `cream_tpu/cli/search_evolution.py` (AutoFormer/evolution.py).
 
 A candidate's fitness is the top-1 of the trained supernet at its config on
@@ -27,8 +27,14 @@ which `--resume` reads.
 Data: the val split of `cli.train.build_dataset` (synthetic or an image
 folder) through the eval resize and crop; `--evo-subset N` scores on the
 per-class EVO_IMNET subset of a folder (`data.imagenet.sub_imagenet`, the
-membership of AutoFormer/lib/subImageNet.py). One card: the JAX CLI's mesh
-waits for the port's DDP.
+membership of AutoFormer/lib/subImageNet.py).
+
+Under torchrun (`torchrun --nproc_per_node N -m cream_tpu_torch.cli.search_evolution
+...`; gloo with `--device cpu`) each rank scores its strided share of a
+candidate's batches (batch i on rank i mod N) and the correct counts are
+summed over the ranks, as the JAX CLI's mesh splits each batch over its
+devices; every rank runs the same seeded search, so N ranks find the one
+card's candidates, scores and best config, and rank 0 writes the result.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import time
 import torch
 
 from cream_tpu_torch.cli.train import build_dataset
+from cream_tpu_torch.core import mesh
 from cream_tpu_torch.core.checkpoint import restore_params
 from cream_tpu_torch.core.config import Config
 from cream_tpu_torch.data.imagenet import eval_loader, sub_imagenet
@@ -75,7 +82,8 @@ def main(argv=None):
     ap.add_argument("opts", nargs="*")
     args = ap.parse_args(argv)
     cfg = Config.from_yaml(args.cfg, args.opts)
-    device = torch.device(args.device)
+    mesh.init_distributed(args.device)
+    device = mesh.local_device(args.device)
     dtype = getattr(torch, cfg.model.dtype)
     space = SPACES[args.space]
     name = f"autoformer_supernet_{args.space}"
@@ -104,9 +112,11 @@ def main(argv=None):
                                       cfg.data.crop, num_workers=cfg.data.num_workers)):
         if i >= args.max_eval_batches:
             break
-        batches.append((torch.from_numpy(b["image"]).to(device, dtype),
-                        torch.from_numpy(b["label"]).to(device)))
-    n_images = sum(int((labels >= 0).sum()) for _, labels in batches)
+        if i % mesh.world_size() == mesh.rank():
+            batches.append((torch.from_numpy(b["image"]).to(device, dtype),
+                            torch.from_numpy(b["label"]).to(device)))
+    n_images = int(mesh.all_reduce_sum(torch.tensor(
+        sum(int((labels >= 0).sum()) for _, labels in batches), device=device)))
     num_patches = (cfg.model.img_size // model.patch_size) ** 2
 
     @torch.inference_mode()
@@ -115,7 +125,7 @@ def main(argv=None):
         for images, labels in batches:
             logits = model(images, config=config)
             correct += ((logits.argmax(-1) == labels) & (labels >= 0)).sum()
-        return int(correct) / max(n_images, 1)
+        return int(mesh.all_reduce_sum(correct)) / max(n_images, 1)
 
     searcher = EvolutionSearcher(
         sample_fn=lambda rng: sample_config(rng, space),
@@ -137,13 +147,14 @@ def main(argv=None):
     top = searcher.search()
     wall = time.perf_counter() - t0
     scored = len(searcher.history) - done
-    with open(args.out, "w") as f:
-        json.dump({"top": [(s, c) for s, c in top], "state": searcher.state_dict()}, f,
-                  default=str)
-    print(f"evolution: {scored} candidates scored in {wall:.2f} s "
-          f"({scored / max(wall, 1e-9):.2f} candidates/s, "
-          f"{scored * n_images / max(wall, 1e-9):.1f} img/s over {n_images} images)")
-    print("best:", top[0] if top else None)
+    if mesh.is_main_process():
+        with open(args.out, "w") as f:
+            json.dump({"top": [(s, c) for s, c in top], "state": searcher.state_dict()}, f,
+                      default=str)
+        print(f"evolution: {scored} candidates scored in {wall:.2f} s "
+              f"({scored / max(wall, 1e-9):.2f} candidates/s, "
+              f"{scored * n_images / max(wall, 1e-9):.1f} img/s over {n_images} images)")
+        print("best:", top[0] if top else None)
     return top
 
 

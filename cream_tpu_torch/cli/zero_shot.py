@@ -18,7 +18,10 @@ builds its own ragged model), else seeded random weights (`train.seed`),
 which check the pipeline and say nothing of accuracy. Data: the val split
 of `cli.train.build_dataset` (synthetic or an image folder), resized and
 centre-cropped to the model's image size and normalized with CLIP's mean
-and std, as the JAX CLI does.
+and std, as the JAX CLI does. Under torchrun (gloo with `--device cpu`)
+the classifier's prompts are split over the ranks
+(`train.zero_shot.encode_rows`), the classifier is the one card's, and rank
+0 prints.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import argparse
 import torch
 
 from cream_tpu_torch.cli.train import build_dataset
+from cream_tpu_torch.core import mesh
 from cream_tpu_torch.core.config import Config
 from cream_tpu_torch.data.imagenet import eval_loader, prefetch
 from cream_tpu_torch.data.tokenizer import get_tokenizer
@@ -75,7 +79,8 @@ def main(argv=None) -> dict:
     ap.add_argument("opts", nargs="*")
     args = ap.parse_args(argv)
     cfg = Config.from_yaml(args.cfg, args.opts)
-    device = torch.device(args.device)
+    mesh.init_distributed(args.device)
+    device = mesh.local_device(args.device)
     dtype = getattr(torch, cfg.model.dtype)
     model = build_clip(cfg, device, dtype, args.torch_ckpt)
     ds = build_dataset(cfg, train=False)
@@ -111,11 +116,12 @@ def main(argv=None) -> dict:
                                              num_workers=cfg.data.num_workers)))
     res = zero_shot_eval(encode_image, classifier, batches)
     n_prompts = len(classnames) * len(templates.get("templates", DEFAULT_TEMPLATES))
-    print(f"zero-shot top1={res['zeroshot_top1']:.3f} top5={res['zeroshot_top5']:.3f} "
-          f"n={res['n']}; classifier {tuple(classifier.shape)} from {len(classnames)} "
-          f"classes ({n_prompts} prompts): tokenizer "
-          f"{timing['tokenize_s']:.3f} s (host), text passes {timing['encode_s']:.3f} s, "
-          f"image passes {timing['image_s']:.3f} s")
+    if mesh.is_main_process():
+        print(f"zero-shot top1={res['zeroshot_top1']:.3f} top5={res['zeroshot_top5']:.3f} "
+              f"n={res['n']}; classifier {tuple(classifier.shape)} from {len(classnames)} "
+              f"classes ({n_prompts} prompts): tokenizer "
+              f"{timing['tokenize_s']:.3f} s (host), text passes {timing['encode_s']:.3f} s, "
+              f"image passes {timing['image_s']:.3f} s")
     return {**res, **timing, "classifier": classifier}
 
 

@@ -5,7 +5,9 @@ TinyViT/main.py:284-400, train_one_epoch_distill_using_saved_logits): the
 dense teacher distribution is rebuilt from the saved top-K
 (`losses.dense_from_topk`) and the student trains with soft-target CE on
 its fp32 logits. The forward and backward are `train.steps.loss_and_grads`,
-so on the card the student's window attention runs K1/K2.
+so on the card the student's window attention runs K1/K2; under a
+data-parallel group the step averages over the ranks as
+`train.steps.make_train_step` does (`data_parallel_mean`).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from cream_tpu_torch.data.det_aug import train_aug_config
 from cream_tpu_torch.train.losses import dense_from_topk, soft_target_ce
 from cream_tpu_torch.train.optim import global_norm
 from cream_tpu_torch.train.state import TrainState
-from cream_tpu_torch.train.steps import loss_and_grads, step_generator
+from cream_tpu_torch.train.steps import data_parallel_mean, loss_and_grads, step_generator
 
 
 def _fp32_soft_target_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -31,7 +33,8 @@ def make_distill_train_step(num_classes: int):
     on the model's device. Drop path and dropout draw from
     `step_generator(seed, state.step)`. metrics: 'loss', 'teacher_agree'
     (the share of images whose argmax is the teacher's top class) and
-    'grad_norm' (the raw grads' global norm, before clipping)."""
+    'grad_norm' (the raw grads' global norm, before clipping), the global
+    batch's under a data-parallel group."""
 
     def step(state: TrainState, batch, seed: int = 0):
         gen = step_generator(seed, state.step, batch["image"].device)
@@ -39,10 +42,11 @@ def make_distill_train_step(num_classes: int):
         loss, logits, grads = loss_and_grads(
             state.model, {"image": batch["image"], "label": target},
             _fp32_soft_target_ce, gen)
-        state.apply_gradients(grads)
         agree = (logits.argmax(-1) == batch["topk_indices"][:, 0]).float().mean()
-        return state, {"loss": loss, "teacher_agree": agree,
-                       "grad_norm": global_norm(grads.values())}
+        metrics = {"loss": loss, "teacher_agree": agree}
+        data_parallel_mean(grads, metrics)
+        state.apply_gradients(grads)
+        return state, {**metrics, "grad_norm": global_norm(grads.values())}
 
     return step
 

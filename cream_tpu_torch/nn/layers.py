@@ -13,7 +13,8 @@ Conventions:
     cast per call)
   * eval (`module.eval()`): BatchNorm uses its running statistics (eps
     1e-5). train (`module.train()`): the batch's statistics, as flax
-    `BatchNorm(use_running_average=False)` does (see `ConvBN`); drop path
+    `BatchNorm(use_running_average=False)` does (see `ConvBN`), the global
+    batch's under a data-parallel group (`batch_norm_train`); drop path
     and dropout draw from the generator the caller passes to `forward`
   * a depthwise 3x3 ConvBN can run its conv through the kernels of
     `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`); an eval MBConv
@@ -26,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cream_tpu_torch.core.mesh import data_group
 from cream_tpu_torch.nn.act import gelu
 from cream_tpu_torch.ops import dwconv, mbconv
 from cream_tpu_torch.ops.common import drop_path, dropout
@@ -58,15 +60,127 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor,
     whatever y's dtype (the output stays in y's dtype), and update the
     running stats as `r = momentum*r + (1-momentum)*batch` with the *biased*
     variance. (`F.batch_norm(training=True)` would put the unbiased one into
-    `running_var`.)"""
-    y, mean, invstd = torch.native_batch_norm(y, bn.weight, bn.bias, None, None, True,
-                                              0.0, bn.eps)
+    `running_var`.) Under a data-parallel group the batch is the global one
+    (`GlobalBatchNorm`), as flax's mean over a sharded batch is."""
+    if data_group() is not None:
+        y, mean, var = GlobalBatchNorm.apply(y, bn.weight, bn.bias, bn.eps)
+    else:
+        y, mean, invstd = torch.native_batch_norm(y, bn.weight, bn.bias, None, None, True,
+                                                  0.0, bn.eps)
+        var = invstd.detach().pow(-2) - bn.eps          # biased variance
     with torch.no_grad():
-        var = invstd.pow(-2) - bn.eps                  # biased variance
         bn.running_mean.mul_(momentum).add_(mean, alpha=1 - momentum)
         bn.running_var.mul_(momentum).add_(var, alpha=1 - momentum)
         bn.num_batches_tracked += 1
     return y
+
+
+def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.view((1, -1) + (1,) * (ndim - 2))
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of this rank's rows with the moments of the
+    global batch (SyncBN): each rank's fp32 sums and sums of squares over
+    every dim but dim 1, and its count, are summed over the group in one
+    all-reduce, and the variance is flax's fast one, E[x^2] - E[x]^2. The
+    backward sums the grads' two channel sums over the group in one
+    all-reduce, so each rank's input grad is the gradient of the ranks'
+    summed loss; the weight and bias grads are this rank's share, which the
+    data-parallel step averages with the rest. Returns (y, mean, biased
+    variance), the last two without grad. weight and bias may be None.
+
+    On a CUDA tensor the per-rank passes are ATen's fused SyncBN kernels
+    (`batch_norm_stats`: the rank's moments in one fp32 pass, from which its
+    sums are formed; `batch_norm_elemt`; `batch_norm_backward_reduce` and
+    `_elemt`), which read y in its own dtype; elsewhere the same arithmetic
+    is written out in fp32 (`_plain_*`), and `tests/test_torch_cuda.py`
+    holds the first to the second."""
+
+    @staticmethod
+    def forward(ctx, y, weight, bias, eps):
+        with torch.profiler.record_function("global_batch_norm"):
+            C, n = y.shape[1], y.numel() // y.shape[1]
+            sums = _local_sums(y)
+            stats = torch.cat([sums, sums.new_full((1,), float(n))])
+            torch.distributed.all_reduce(stats)
+            count = stats[2 * C]
+            mean = stats[:C] / count
+            var = (stats[C:2 * C] / count - mean * mean).clamp_min(0.0)
+            invstd = torch.rsqrt(var + eps)
+            out = _normalize(y, weight, bias, mean, invstd, eps)
+            ctx.save_for_backward(y, weight, mean, invstd, count)
+            ctx.bias_dtype = None if bias is None else bias.dtype
+            ctx.mark_non_differentiable(mean, var)
+            return out, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, _dmean, _dvar):
+        y, weight, mean, invstd, count = ctx.saved_tensors
+        with torch.profiler.record_function("global_batch_norm"):
+            C = y.shape[1]
+            # this rank's sum(dy) and sum(dy * (x - mean)), and its weight and
+            # bias grads
+            sum_dy, sum_dy_xmu, dweight, dbias = _backward_reduce(
+                dout, y, weight, mean, invstd, ctx.bias_dtype is not None)
+            sums = torch.cat([sum_dy, sum_dy_xmu])
+            torch.distributed.all_reduce(sums)
+            dx = _backward_elemt(dout, y, weight, mean, invstd, sums[:C], sums[C:], count)
+            return dx, dweight, dbias, None
+
+
+def _local_sums(y: torch.Tensor) -> torch.Tensor:
+    """This rank's fp32 sum and sum of squares per channel (dim 1), as one
+    (2C,) tensor."""
+    n = y.numel() // y.shape[1]
+    if y.is_cuda:
+        mean, invstd = torch.batch_norm_stats(y, 0.0)
+        return torch.cat([mean * n, (invstd.pow(-2) + mean * mean) * n])
+    x = y.float()
+    dims = [d for d in range(y.ndim) if d != 1]
+    return torch.cat([x.sum(dims), (x * x).sum(dims)])
+
+
+def _normalize(y, weight, bias, mean, invstd, eps) -> torch.Tensor:
+    """w * (x - mean) * invstd + b in fp32, in y's dtype."""
+    if y.is_cuda:
+        return torch.batch_norm_elemt(y, weight, bias, mean, invstd, eps)
+    view = lambda t: _channel_view(t, y.ndim)
+    out = (y.float() - view(mean)) * view(invstd)
+    if weight is not None:
+        out = out * view(weight)
+    if bias is not None:
+        out = out + view(bias)
+    return out.to(y.dtype)
+
+
+def _backward_reduce(dout, y, weight, mean, invstd, has_bias: bool):
+    """(sum dy, sum dy * (x - mean), weight grad, bias grad) of this rank."""
+    if y.is_cuda:
+        sum_dy, sum_dy_xmu, dweight, dbias = torch.batch_norm_backward_reduce(
+            dout, y, mean, invstd, weight, True, weight is not None, has_bias)
+        return (sum_dy, sum_dy_xmu, dweight if weight is not None else None,
+                dbias if has_bias else None)
+    dims = [d for d in range(y.ndim) if d != 1]
+    g, xmu = dout.float(), y.float() - _channel_view(mean, y.ndim)
+    sum_dy, sum_dy_xmu = g.sum(dims), (g * xmu).sum(dims)
+    dweight = None if weight is None else (sum_dy_xmu * invstd).to(weight.dtype)
+    return sum_dy, sum_dy_xmu, dweight, sum_dy if has_bias else None
+
+
+def _backward_elemt(dout, y, weight, mean, invstd, sum_dy, sum_dy_xmu, count) -> torch.Tensor:
+    """The input grad from the group's sums: (dy - sum_dy / N - (x - mean)
+    * invstd^2 * sum_dy_xmu / N) * invstd * w, in y's dtype."""
+    if y.is_cuda:
+        return torch.batch_norm_backward_elemt(dout, y, mean, invstd, weight, sum_dy,
+                                               sum_dy_xmu, count.int().reshape(1))
+    view = lambda t: _channel_view(t, y.ndim)
+    mul = invstd if weight is None else invstd * weight
+    xmu = y.float() - view(mean)
+    dx = (dout.float() - view(sum_dy / count)
+          - xmu * view(invstd * invstd * sum_dy_xmu / count)) * view(mul)
+    return dx.to(y.dtype)
 
 
 # depthwise sites a kernel route refused by shape, so they ran the library

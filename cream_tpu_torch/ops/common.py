@@ -3,7 +3,11 @@ and the 16-byte alignment the CUDA kernels' vector accesses need.
 
 The random draws take an explicit `torch.Generator` (the counterpart of the
 JAX package's rng keys); they cannot give JAX's bits, only its
-distribution."""
+distribution. Under a data-parallel group (`core.mesh`) a draw is made for
+the global batch, whose rows are the ranks' rows in rank order, and each
+rank keeps its own rows, as the JAX package's one key over the sharded
+global shape gives: W ranks then draw what one card draws on the
+concatenated batch."""
 from __future__ import annotations
 
 import itertools
@@ -11,11 +15,25 @@ import itertools
 import numpy as np
 import torch
 
+from cream_tpu_torch.core.mesh import data_group, global_rows
+
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it when its data does not start on a 16-byte boundary
     (a view with an offset): kernels that move 16 bytes per access need it."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def uniform_rows(shape, generator: torch.Generator) -> torch.Tensor:
+    """U[0, 1) draws of `shape` on the generator's device for a tensor whose
+    dim 0 holds this rank's rows of the global batch: without a group the
+    draws themselves, under one this rank's rows of the draws for the
+    global shape."""
+    if data_group() is None:
+        return torch.rand(shape, generator=generator, device=generator.device)
+    total, lo, hi = global_rows(shape[0])
+    return torch.rand((total, *shape[1:]), generator=generator,
+                      device=generator.device)[lo:hi]
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
@@ -28,8 +46,7 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         raise ValueError("drop_path needs a generator in training mode")
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator,
-                      device=generator.device) < keep
+    mask = uniform_rows(shape, generator) < keep
     return x * mask.to(x.device, x.dtype) / keep
 
 
@@ -45,8 +62,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator,
-                      device=generator.device) < keep
+    mask = uniform_rows(x.shape, generator) < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 

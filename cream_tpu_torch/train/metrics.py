@@ -12,6 +12,10 @@ import json
 import os
 import warnings
 
+import torch
+
+from cream_tpu_torch.core.mesh import all_reduce_sum
+
 
 class AverageMeter:
     def __init__(self, window: int | None = None):
@@ -51,6 +55,19 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(
             f"{k}: {m.smoothed:.4f} ({m.avg:.4f})" for k, m in self.meters.items())
+
+
+def global_counts(metrics_list: list[dict], device) -> dict:
+    """The eval steps' counts ('correct1', 'correct5', 'n', 'loss_sum')
+    summed over the batches and, under a data-parallel group, over the ranks
+    (in float64 on `device`, where the group's backend takes them): the
+    counts, not means, so that each rank's padded last batch weighs what it
+    holds."""
+    keys = ("correct1", "correct5", "n", "loss_sum")
+    tot = torch.zeros(len(keys), dtype=torch.float64, device=device)
+    for m in metrics_list:
+        tot += torch.stack([torch.as_tensor(m[k], device=device).double() for k in keys])
+    return dict(zip(keys, all_reduce_sum(tot).tolist()))
 
 
 def topk_accuracy_counts(metrics_list: list[dict]) -> dict:

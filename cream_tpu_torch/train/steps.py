@@ -1,19 +1,31 @@
 """Train and eval step factories.
 
-Counterpart of `cream_tpu/train/steps.py` on one card: forward, loss,
-backward, optimizer step and the step's metrics. Nothing is jitted: the
-model runs eagerly, and on the card its window attention goes through the
-K1/K2 kernels. Metrics stay on the device as 0-d tensors, so a step does not
-wait for the card; read them with `float()` where the host needs them.
+Counterpart of `cream_tpu/train/steps.py`: forward, loss, backward,
+optimizer step and the step's metrics. Nothing is jitted: the model runs
+eagerly, and on the card its window attention goes through the K1/K2
+kernels. Metrics stay on the device as 0-d tensors, so a step does not wait
+for the card; read them with `float()` where the host needs them.
+
+Data parallelism: under a process group (`core.mesh.init_distributed`)
+each rank runs the step on its rows of the global batch, and the step is
+the one-card step on the global batch, as the JAX package's step jitted
+over a `data` mesh is: BatchNorm takes the global moments and the draws are
+the global batch's (`nn.layers`, `ops.common`), and the step averages the
+grads and the loss and accuracy over the ranks (`data_parallel_mean`)
+before clipping and the optimizer, so `grad_norm` is the global one. The
+grads come from `torch.autograd.grad`, which `DistributedDataParallel`'s
+hooks would not see, so the step reduces them itself. Each rank's rows must
+be as many as every other rank's.
 """
 from __future__ import annotations
 
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cream_tpu_torch.core.mesh import all_reduce_mean_, data_group
+from cream_tpu_torch.core.prng import seeded_generator
 from cream_tpu_torch.train.optim import global_norm
 from cream_tpu_torch.train.state import TrainState
 
@@ -28,10 +40,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The step's generator on `device`, a pure function of (seed, step):
     the counterpart of `jax.random.fold_in(rng, step)`."""
-    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
-    gen = torch.Generator(device)
-    gen.manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
-    return gen
+    return seeded_generator([seed, step], device)
 
 
 def loss_and_grads(model: torch.nn.Module, batch, loss_fn: Callable,
@@ -76,15 +85,28 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss):
     def step(state: TrainState, batch, seed: int = 0):
         gen = step_generator(seed, state.step, batch["image"].device)
         loss, logits, grads = loss_and_grads(state.model, batch, loss_fn, gen)
-        state.apply_gradients(grads)
         metrics = {"loss": loss}
         labels = batch["label"]
         if labels.ndim == 1:
             metrics["accuracy"] = (logits.argmax(-1) == labels).float().mean()
+        data_parallel_mean(grads, metrics)
+        state.apply_gradients(grads)
         metrics["grad_norm"] = global_norm(grads.values())
         return state, metrics
 
     return step
+
+
+def data_parallel_mean(grads: dict, metrics: dict) -> None:
+    """Under a data-parallel group, replace the grads and the metrics (0-d
+    tensors) in place by their means over the ranks, in one bucketed
+    all-reduce (`core.mesh.all_reduce_mean_`); without one, nothing. Each
+    rank's loss is the mean over its rows, so the mean over the ranks is the
+    global batch's, and so are its grads."""
+    if data_group() is None:
+        return
+    with torch.profiler.record_function("grad_all_reduce"):
+        all_reduce_mean_(list(grads.values()) + list(metrics.values()))
 
 
 def make_eval_step():

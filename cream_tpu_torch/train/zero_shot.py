@@ -3,8 +3,12 @@
 Counterpart of `cream_tpu/train/zero_shot.py` (TinyCLIP/src/training/
 zero_shot.py): a classifier from class-name x template prompts (their text
 features averaged over the templates and L2-normalized), then top-1/top-5
-of image features against it. One card: the prompts go through the text
-tower in chunks of `batch_size` classes.
+of image features against it. The prompts go through the text tower in
+chunks of `batch_size` classes; under a data-parallel group (`core.mesh`)
+each chunk's prompt rows are zero-padded to a multiple of the rank count,
+each rank encodes its block of them and the blocks are gathered, the
+reference's rank-sharded build (TinyCLIP zero_shot.py:50-62) as the JAX
+package's mesh shards it.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from cream_tpu_torch.core import mesh
 
 # a high-signal subset of OpenAI's 80 ImageNet prompt templates; the full
 # set and the 1000 class names are in data/zero_shot_constants.json
@@ -60,13 +66,28 @@ def build_zero_shot_classifier(encode_text_fn, tokenizer, classnames,
         t0 = time.perf_counter()
         tokens = np.asarray(tokenizer([t.format(c) for c in chunk for t in templates]))
         t1 = device_clock(device)
-        emb = encode_text_fn(torch.from_numpy(tokens).to(device))
+        emb = encode_rows(encode_text_fn, tokens, device)
         emb = emb.reshape(len(chunk), len(templates), -1).mean(dim=1)
         weights.append(emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True))
         tok_s, enc_s = tok_s + t1 - t0, enc_s + device_clock(device) - t1
     if stats is not None:
         stats.update(tokenize_s=tok_s, encode_s=enc_s)
     return torch.cat(weights, dim=0).T
+
+
+def encode_rows(encode_fn, rows: np.ndarray, device) -> torch.Tensor:
+    """encode_fn over the rows of `rows` on `device`: on one card in one
+    call; under a data-parallel group the rows are zero-padded to a multiple
+    of the rank count, each rank encodes its block and the blocks are
+    gathered, the padding cut off."""
+    world = mesh.world_size()
+    if mesh.data_group() is None:
+        return encode_fn(torch.from_numpy(rows).to(device))
+    n = rows.shape[0]
+    rows = np.concatenate([rows, np.zeros(((-n) % world,) + rows.shape[1:], rows.dtype)])
+    per = rows.shape[0] // world
+    mine = rows[mesh.rank() * per:(mesh.rank() + 1) * per]
+    return mesh.all_gather_rows(encode_fn(torch.from_numpy(mine).to(device)))[:n]
 
 
 def zero_shot_eval(encode_image_fn, classifier: torch.Tensor, batches) -> dict:

@@ -52,7 +52,9 @@ attention windows (padded 7x7 windows over a 32x32 stage-0 map, 4x4 over
 8x8 at canvas 512; 4x4 and 2x2 at 128), RetinaNet's and Mask R-CNN's bf16
 outputs on "cascade" within 8 ulps of "plain" with 6 K4 launches a
 forward, and a train step on "fused" launching K7/K9 at every site the
-port's enumeration counts, none refused.
+port's enumeration counts, none refused; the data-parallel global
+BatchNorm's passes on the card (ATen's fused SyncBN kernels) against their
+written-out versions on the CPU.
 """
 import numpy as np
 import pytest
@@ -1791,3 +1793,52 @@ def test_cydas_fused_step_launches_every_site(card):
         losses[route] = float(loss)
     assert abs(losses["fused"] - losses["library"]) <= 2 * 2.0 ** (np.floor(np.log2(
         abs(losses["library"]))) - 7)
+
+
+# ---- the data-parallel global BatchNorm's per-rank passes ----
+
+@pytest.mark.parametrize("shape,channels_last,dtype,affine", [
+    ((8, 96, 14, 14), True, torch.bfloat16, True), ((4, 32, 7, 9), True, torch.float32, True),
+    ((6, 24, 5, 5), False, torch.float32, False), ((16, 48), False, torch.float32, True)])
+def test_global_batch_norm_passes_match_the_cpu(card, shape, channels_last, dtype, affine):
+    """`nn.layers`' GlobalBatchNorm passes on a CUDA tensor (batch_norm_stats
+    -> sums, batch_norm_elemt, batch_norm_backward_reduce / _elemt) against
+    the same passes written out in fp32 on the CPU: sums 1e-5 of their
+    largest, y and dx within 1 ulp of the dtype (2 for bf16), the weight
+    and bias grads 1e-5 of their largest."""
+    from cream_tpu_torch.nn import layers as L
+    g = torch.Generator().manual_seed(0)
+    y = (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g).to(dtype)
+    C = shape[1]
+    w = torch.rand(C, generator=g) + 0.5 if affine else None
+    b = torch.randn(C, generator=g) if affine else None
+    if channels_last:
+        y, dy = (t.to(memory_format=torch.channels_last) for t in (y, dy))
+    n = y.numel() // C
+    out = {}
+    for dev in ("cpu", "cuda"):
+        yd, dyd = y.to(dev), dy.to(dev)
+        wd = None if w is None else w.to(dev)
+        bd = None if b is None else b.to(dev)
+        sums = L._local_sums(yd)
+        mean = sums[:C] / n
+        invstd = torch.rsqrt((sums[C:] / n - mean * mean).clamp_min(0) + 1e-5)
+        fwd = L._normalize(yd, wd, bd, mean, invstd, 1e-5)
+        s_dy, s_xmu, dw, db = L._backward_reduce(dyd, yd, wd, mean, invstd, affine)
+        dx = L._backward_elemt(dyd, yd, wd, mean, invstd, s_dy, s_xmu,
+                               torch.tensor(float(n), device=dev))
+        out[dev] = [t if t is None else t.float().cpu()
+                    for t in (sums, fwd, s_dy, s_xmu, dw, db, dx)]
+    cpu, gpu = out["cpu"], out["cuda"]
+    ulps = (2 if dtype == torch.bfloat16 else 1) * (2.0 ** -7 if dtype == torch.bfloat16
+                                                   else 2.0 ** -23)
+    for i in (0, 2, 3, 4, 5):
+        if cpu[i] is None:
+            assert gpu[i] is None
+            continue
+        torch.testing.assert_close(gpu[i], cpu[i], rtol=0,
+                                   atol=1e-5 * float(cpu[i].abs().max()) + 1e-6)
+    for i in (1, 6):
+        lim = ulps * cpu[i].abs().clamp_min(2.0 ** -6) + 1e-5 * float(cpu[i].abs().max())
+        assert bool(((gpu[i] - cpu[i]).abs() <= lim).all()), i
