@@ -59,7 +59,7 @@ non-zero):
      s3_tiny train step against the JAX loss and per-param grad norms
  9b. main path (Swin eval): s3_tiny bf16 bs128 through predict and
      throughput: 12 K1 launches per forward, top-1 agreement and logits
-     (8 bf16 ulps) against use_kernel=False, img/s of both routes in 4
+     (8 bf16 ulps) against use_kernel=False, img/s of both routes in 2
      interleaved rounds; swin_tiny the same in one round; mini_swin_tiny
      (head transforms: the plain route, as in JAX) no K1, its img/s
  9c. main path (S3-Tiny train): s3_tiny bf16 bs128 through
@@ -151,7 +151,7 @@ non-zero):
      windows a block) and fp32 (CUDA cores); its launch plan against the
      library's; bf16 the same bits on two launches and at 1, 3 and G + 1
      windows (the last block short); kernel, plain and unfused
-     "plain"-route module device times by CUDA-graph replay in 3
+     "plain"-route module device times by CUDA-graph replay in 2
      interleaved rounds (CUDA events beside them; no single library call
      computes the cascade), per stage and summed per M5 and M0 forward
  12. EfficientViT golden: M5 fp32 on seeded weights against the JAX
@@ -163,7 +163,7 @@ non-zero):
      "core" route (one K5 launch per head) and the "plain" route on the same
      weights; top-1 agreement and logits against "plain"; img/s of the
      three routes, interleaved; then each route's whole forward by
-     CUDA-graph replay (the folds warmed first), 3 interleaved rounds
+     CUDA-graph replay (the folds warmed first), 2 interleaved rounds
  14. K7/K8/K9 vs plain: the depthwise 3x3 kernels against their plain
      versions, bf16 and fp32, at EfficientViT-M5 bs512's depthwise sites,
      TinyViT-21M bs256's MBConv, local_conv and PatchMerging sites, three
@@ -191,7 +191,7 @@ non-zero):
      bs256 through train.make_train_step with every depthwise ConvBN on
      "library" and on "fused": 12 + 12 K7 and 3 + 3 K9 launches per step
      on "fused", none on "library"; the first step's loss and grad norm
-     against "library"; train img/s of both routes in 4 interleaved rounds
+     against "library"; train img/s of both routes in 2 interleaved rounds
  19. K6 vs plain: the fused eval MBConv kernel against `fused_mbconv_ref` on
      a seeded module's fold at TinyViT-21M's and -5M/11M's stage-0 shapes
      (bs256 bf16; fp32 at bs32) and at maps its 14x14 bf16 tiles cut
@@ -230,7 +230,7 @@ non-zero):
      (img/s median, min, max; the largest config's; peak memory), the loss
      falls over 20 steps at the largest config, one model object throughout
  9s. evolution search (BASELINE.json configs[3]): cli.search_evolution.main
-     on 9r's checkpoint, 1,024 synthetic images at bf16 bs256, population 16,
+     on 9r's checkpoint, 1,024 synthetic images at bf16 bs256, population 8,
      2 epochs, window 5-6 M: candidates/s, eval img/s; the best config's
      AutoFormerSubnet img/s and its top-1 against the supernet
  9t. Cream childnets: cream_604 (224) and cream_14 (64) fp32 goldens,
@@ -310,16 +310,40 @@ non-zero):
 9z15. a generated ImageNet-style folder (10 classes, 768 train and 256 val
      BMPs at ImageNet's common sizes, in a temporary directory under build/):
      the train loader's img/s with the full recipe at bs256 and 8 worker
-     processes (with their start, and steady over 10 batches after 5),
+     processes (with their start, and steady over 4 batches after 2),
      beside the CPU count; the eval loader's
 9z16. main path (training from the folder): cli.train.main, TinyViT-21M-224
      bf16 bs256, the full default recipe, 3 steps and the eval: 10 K1 + 10
      K2 launches a step, finite losses, the epoch's img/s; then the folder's
-     steady train img/s (6 steps after 5, fed by the loader over 5 passes
-     of the folder) beside the synthetic one, the idle share of 4 steady
+     steady train img/s (3 steps after 2, fed by the loader over 2 passes
+     of the folder) beside the synthetic one, the idle share of 1 steady
      folder-fed steps, peak memory with remat_stem off and on
 9z17. main path (eval from the folder): cli.eval.main, TinyViT-21M-224 bf16
      bs256 with --torch-ckpt: 10 K1 launches a forward, n = 256, img/s
+9z18. JPEG data (a generated folder of 768 train and 512 val JPEGs at
+     ImageNet's common sizes, quality 90, one val PNG, under build/): the
+     native pipeline built from cream_tpu_torch/native/image_pipe.cc; its
+     eval and RRC + flip decision rows equal the exact path's; eval pixels
+     and full-scale train pixels within mean 0.012 / max 0.40 of the exact
+     path, the PNG bit for bit; prescaled train rows counted
+9z19. main path (eval from JPEGs): cli.eval.main, TinyViT-21M-224 bf16
+     bs256, --torch-ckpt, data.native_loader True and False: n = 512, 10 K1
+     launches a forward, img/s by the CLI's wall
+9z20. the loaders alone on the JPEG folder: native and exact eval_loader and
+     plain RRC + flip train_loader img/s, steady over passes 2-3
+9z21. main path (training fed by the native pipeline): TinyViT-21M-224
+     bf16 bs256 steps fed by train_loader(native=True) + prefetch: 10 + 10
+     K1/K2 launches a step, finite losses, img/s over 4 steps after 2, the
+     idle share of 3 more, the upload's and the loader's host ms, beside
+     the synthetic step
+9z22. image-text tar shards (2 x 256 pairs of the val JPEGs, one PNG) through
+     data.shards.image_text_loader, native and exact, feeding TinyCLIP-39M/16
+     bf16 bs256 pair forwards: pairs/s beside the synthetic pairs/s, pixels
+     within the tolerance, tokens equal
+9z23. the gated ConvBN variants (ops.bn's train-mode BN, the 1x1 channel
+     product): TinyViT-21M-224 bf16 bs256 train steps on each and with both
+     off, first loss within 2 bf16 ulps and grad norm within 2%, img/s in 2
+     interleaved rounds, BN device ms
  24. main path (TinyViT-21M-384 eval): bf16 bs64, stage 2's 24x24 window
      through forward_windowed: 12 K10 launches per forward, logits bit for
      bit equal to the same forward with K10's two functions swapped for
@@ -336,6 +360,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import functools
 import gc
 import json
 import os
@@ -641,7 +666,11 @@ def capturable(fn) -> bool:
     return False
 
 
-def graph_rounds(*fns, rounds: int = 3) -> list[list[float]]:
+# interleaved rounds of CUDA-graph timing a kernel check takes
+GRAPH_ROUNDS = 2
+
+
+def graph_rounds(*fns, rounds: int = GRAPH_ROUNDS) -> list[list[float]]:
     """Each fn's `graph_ms` in each of `rounds` rounds, the fns timed in
     turn each round, so a drift of the card's clock falls on all of them."""
     times = [[] for _ in fns]
@@ -651,7 +680,7 @@ def graph_rounds(*fns, rounds: int = 3) -> list[list[float]]:
     return times
 
 
-def interleaved_graph_ms(*fns, rounds: int = 3) -> list[float]:
+def interleaved_graph_ms(*fns, rounds: int = GRAPH_ROUNDS) -> list[float]:
     """The median over `rounds` of each fn's `graph_ms` (`graph_rounds`)."""
     return [statistics.median(t) for t in graph_rounds(*fns, rounds=rounds)]
 
@@ -1257,8 +1286,9 @@ def distill_host_times(store: Path, map_path: Path) -> None:
     it = iter(train_loader(ds, SWINB_BATCH, 0, 0, cfg.data.img_size, 8,
                            transform=build_train_transform(cfg)))
     t0 = time.perf_counter()
-    batches = list(it)
+    batches = [next(it) for _ in range(2)]
     loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    del it
     batch = batches[0]
     x = torch.from_numpy(batch["image"]).cuda()
     seeds, zeros = batch["seed"], torch.zeros(SWINB_BATCH, dtype=torch.int64, device="cuda")
@@ -1496,7 +1526,7 @@ def phase_k4(gen) -> tuple[float, dict]:
     library's; bf16 the same bits on two launches and window counts that
     leave the last block short (1, 3, G + 1); bf16 device times of the
     kernel, the plain version and the unfused "plain"-route module by
-    CUDA-graph replay in 3 interleaved rounds (CUDA events beside them),
+    CUDA-graph replay in 2 interleaved rounds (CUDA events beside them),
     per stage and summed per M5 and M0 forward."""
     worst_bf16, times = 0.0, {}
     for model, _ in EVIT_PATHS:
@@ -1565,7 +1595,7 @@ def phase_k4(gen) -> tuple[float, dict]:
                              module_host_ms=cuda_ms(module), per_forward=blocks)
                 t["bound_ms"], t["bound_by"] = k4_bound_ms(W, ws, C, heads, kernels, dtype)
                 times[name] = t
-                print(f"k4 time {name} bf16 W={W} (device, CUDA graph, median of 3 "
+                print(f"k4 time {name} bf16 W={W} (device, CUDA graph, median of {GRAPH_ROUNDS} "
                       f"interleaved rounds; CUDA events in parentheses): kernel {t['ms']:.4f} "
                       f"ms ({t['host_ms']:.4f}), plain {t['plain_ms']:.4f} ms "
                       f"({t['plain_host_ms']:.4f}), unfused plain-route CGA module "
@@ -1585,8 +1615,8 @@ def phase_k4(gen) -> tuple[float, dict]:
 
 def phase_evit_graph(name: str, batch: int) -> dict:
     """An EfficientViT eval forward by CUDA-graph replay on each attention
-    route, 3 interleaved rounds, so the host's issue is out of the time; the
-    cached folds are warmed first. The captured cascade forward holds one K4
+    route, 2 interleaved rounds, so the host's launch overhead is out of
+    the time; the cached folds are warmed first. The captured cascade forward holds one K4
     launch per attention block."""
     dtype = torch.bfloat16
     model = create_model(name, device="cuda", dtype=dtype)
@@ -1607,10 +1637,10 @@ def phase_evit_graph(name: str, batch: int) -> dict:
         n0 = cga.LAUNCHES
         rounds = graph_rounds(*(forward(r) for r in routes))
     # graph_ms runs fn once and captures it 10 times a round
-    check(cga.LAUNCHES - n0 == 3 * 11 * blocks,
+    check(cga.LAUNCHES - n0 == GRAPH_ROUNDS * 11 * blocks,
           f"{name}: {cga.LAUNCHES - n0} K4 launches issued for the cascade graphs")
     ms = {r: statistics.median(t) for r, t in zip(routes, rounds)}
-    print(f"graph {name} bf16 B={batch} eval forward (device, CUDA graph, 3 interleaved rounds "
+    print(f"graph {name} bf16 B={batch} eval forward (device, CUDA graph, {GRAPH_ROUNDS} interleaved rounds "
           f"cascade/core/plain): " + ", ".join(
               f"{r} {ms[r]:.4f} ms (rounds {' / '.join(f'{v:.4f}' for v in t)})"
               for r, t in zip(routes, rounds)) + f" [{card_info()}]")
@@ -1907,8 +1937,8 @@ def phase_tv_dw_train() -> dict:
     it, drop path 0.2) with every depthwise site on "library" and on
     "fused" (K7 at its 12 stride-1 sites, K9 at its 3 stride-2 sites), from
     the same weights and batch: launches per step, the first step's loss,
-    train img/s in 4 interleaved rounds. Returns the "fused" route's
-    launches."""
+    train img/s in 2 interleaved rounds of 5 steps after 2. Returns the
+    "fused" route's launches."""
     dtype, routes = torch.bfloat16, ("library", "fused")
     gen = torch.Generator("cuda").manual_seed(7)
     models = {}
@@ -1920,7 +1950,7 @@ def phase_tv_dw_train() -> dict:
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
     batch = {"image": x, "label": F.one_hot(labels, 1000).float()}
     step = make_train_step(loss_fn=soft_target_ce)
-    warmup, iters = 3, 10
+    warmup, iters = 2, 5
     first, ips, launches = {}, {r: [] for r in routes}, {}
     for route in routes:
         state = TrainState(models[route], make_adamw(
@@ -1932,11 +1962,11 @@ def phase_tv_dw_train() -> dict:
         check(dict(dwconv.LAUNCHES) == want,
               f"tiny_vit_21m_224 {route}: K7/K8/K9 launches per step {dwconv.LAUNCHES}, want {want}")
     dwconv.reset_launches()
-    for order in (routes, routes[::-1], routes, routes[::-1]):
+    for order in (routes, routes[::-1]):
         for route in order:
             ips[route].append(train_throughput(models[route], BATCH, 224, dtype, iters, warmup))
     launches = dict(dwconv.LAUNCHES)
-    runs = 4 * (warmup + iters)
+    runs = 2 * (warmup + iters)
     check(launches == {k: v * runs for k, v in tv_dw_launches("fused").items()},
           f"tiny_vit_21m_224: K7/K8/K9 launches {launches} in the timed train steps")
     l_ref, l_k = float(first["library"]["loss"]), float(first["fused"]["loss"])
@@ -1948,7 +1978,7 @@ def phase_tv_dw_train() -> dict:
           f"{l_ref:.5f} (|diff| {abs(l_k - l_ref):.2e}, bound {loss_lim:.2e}), grad_norm "
           f"{g_k:.4f} vs {g_ref:.4f} (rel diff {abs(g_k - g_ref) / g_ref:.2e}, bound 2e-2)")
     print(f"train throughput tiny_vit_21m_224 bf16 B={BATCH} dw routes (rounds in the orders "
-          f"library, fused / reversed / forward / reversed): " + "; ".join(
+          f"library, fused / reversed): " + "; ".join(
               f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])} img/s (median {median[r]:.1f})"
               for r in routes) + f"; fused / library {median['fused'] / median['library']:.4f} "
           f"[{card_info()}]")
@@ -2027,7 +2057,7 @@ def phase_evit_train() -> dict:
                                         params=dict(m.named_parameters())))
 
     step = make_train_step(loss_fn=soft_target_ce)
-    n_steps, warmup, iters = 10, 3, 10
+    n_steps, warmup, iters = 10, 2, 5
     launches, first, losses, peak, ips = {}, {}, {}, {}, {}
     for route in DW_ROUTES:
         state = new_state(models[route])
@@ -2717,6 +2747,17 @@ def phase_clip_pairs(name: str, batch: int) -> dict:
             "by_kind_ms": prof["by_kind_ms"]}
 
 
+@functools.lru_cache(maxsize=None)
+def zero_shot_merges() -> tuple:
+    """A BPE merges list learned from OpenAI's zero-shot class names and
+    templates (500 merges; the released file is not in the repository),
+    once a process: phase_zero_shot and phase_jpeg_shards share it."""
+    from cream_tpu_torch.data.tokenizer import learn_merges
+    from cream_tpu_torch.train.zero_shot import openai_imagenet_constants
+    names, templates = openai_imagenet_constants()
+    return tuple(learn_merges(names + templates, 500))
+
+
 def phase_zero_shot() -> dict:
     """cli.zero_shot end to end, in bf16 and in fp32: TinyCLIP-ViT-39M/16
     on seeded weights, OpenAI's 1,000 ImageNet class names x 80 templates
@@ -2729,14 +2770,14 @@ def phase_zero_shot() -> dict:
     import tempfile
 
     from cream_tpu_torch.cli import zero_shot
-    from cream_tpu_torch.data.tokenizer import learn_merges, write_merges
+    from cream_tpu_torch.data.tokenizer import write_merges
     from cream_tpu_torch.train.zero_shot import openai_imagenet_constants
     torch.backends.cuda.matmul.allow_tf32 = False
-    names, templates = openai_imagenet_constants()
+    templates = openai_imagenet_constants()[1]
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         bpe = Path(tmp) / "merges.txt.gz"
         t0 = time.perf_counter()
-        write_merges(bpe, learn_merges(names + templates, 500))
+        write_merges(bpe, zero_shot_merges())
         learn_s = time.perf_counter() - t0
         out = {}
         for dtype in ("bfloat16", "float32"):
@@ -2879,7 +2920,7 @@ def phase_clip_train(batch: int = CLIP_TRAIN_BATCH) -> dict:
     for remat in (False, True):
         model = create_model(TINYCLIP, device="cuda", dtype=torch.bfloat16, remat=remat)
         model.load_state_dict(seeded_state_dict(model, 0))
-        out[remat] = tinyclip_train_throughput(model, batch, 5, 3)
+        out[remat] = tinyclip_train_throughput(model, batch, 3, 2)
         if not remat:
             _, fn = tinyclip_train_step_fn(model, batch)
             out["profile"] = profile(fn, steps=3, warmup=2, top=8)
@@ -3327,11 +3368,11 @@ def phase_autoformer_train() -> tuple[str, dict]:
 def phase_evolution(ckpt: str) -> dict:
     """9s. BASELINE.json configs[3]: `cli.search_evolution.main` on 9r's
     checkpoint, 1,024 synthetic val images at bf16 bs256, the tiny space,
-    population 16, 2 epochs, parameter window 5-6 M (around AutoFormer-T's
-    5.7 M): candidates scored per second and eval img/s (the CLI's own
-    clock around the search); the best config's `AutoFormerSubnet` bf16
-    bs256 through `throughput`, and its top-1 against the supernet at that
-    config on 512 low-frequency images (>= 99% on those whose top-2 margin
+    population 8, 2 epochs, parameter window 5-6 M
+    (around AutoFormer-T's 5.7 M): candidates scored per second and eval
+    img/s (the CLI's own clock around the search); the best config's
+    `AutoFormerSubnet` bf16 bs256 through `throughput`, and its top-1
+    against the supernet at that config on 512 low-frequency images (>= 99% on those whose top-2 margin
     is above 4 bf16 ulps)."""
     import contextlib
     import io
@@ -3345,7 +3386,7 @@ def phase_evolution(ckpt: str) -> dict:
     with contextlib.redirect_stdout(buf):
         top = search_evolution.main([
             "--space", "tiny", "--ckpt", ckpt, "--param-min", "5e6", "--param-max", "6e6",
-            "--population", "16", "--max-eval-batches", "4", "--epochs", "2",
+            "--population", "8", "--max-eval-batches", "4", "--epochs", "2",
             "--out", str(out / "evo.json"), "data.dataset=synthetic",
             f"data.batch_size={EVO_BATCH}"])
     text = buf.getvalue()
@@ -3368,14 +3409,14 @@ def phase_evolution(ckpt: str) -> dict:
     agree, decided, agree_decided = top1_agreement(got, ref)
     n_dec = round(decided * len(ref))
     print(f"cli.search_evolution (BASELINE configs[3]) bf16, {EVO_BATCH}-image batches x 4, "
-          f"population 16, 2 epochs, window 5-6 M: {line[len('evolution: '):]}; best "
+          f"population 8, 2 epochs, window 5-6 M: {line[len('evolution: '):]}; best "
           f"{score:.4f} at depth {best['layer_num']}, embed {best['embed_dim'][0]}, "
           f"{config_param_count(best) / 1e6:.3f} M params [{card_info()}]")
     print(f"AutoFormerSubnet of the best config bf16 B={EVO_BATCH} "
           f"(autoformer_subnet_infer_throughput): {ips:.1f} img/s; top-1 vs the supernet at "
           f"that config {agree:.4f} over {len(ref)} images, {agree_decided:.4f} on the "
           f"{n_dec} decided (need >= 0.99 on >= 100) [{card_info()}]")
-    check(len(history) > 16 and 5e6 <= config_param_count(best) <= 6e6, "evolution search")
+    check(len(history) > 8 and 5e6 <= config_param_count(best) <= 6e6, "evolution search")
     check(n_dec >= 100 and agree_decided >= 0.99, f"subnet vs supernet top-1 {agree_decided}")
     return {"candidates": int(n), "search_s": float(wall),
             "candidates_per_s": int(n) / float(wall),
@@ -3451,7 +3492,7 @@ def cream_dw_launches(stages, student, teacher) -> dict:
 
 # the Cream step's seeded path sequence: 3 checked steps, then every path's
 # first step once a route before the clock times the rest
-CREAM_PATHS = 8
+CREAM_PATHS = 5
 
 
 def phase_cream_search() -> dict:
@@ -3683,7 +3724,7 @@ def phase_cdarts_retrain() -> dict:
             "launches": launches["fused"]}
 
 
-def phase_darts_search(rounds: int = 1, per: int = 2) -> dict:
+def phase_darts_search(rounds: int = 1, per: int = 1) -> dict:
     """9w. darts_search_cifar (C 16, 8 layers, 4 nodes): the fp32 B=2 logits
     and CE alpha grads (eval mode, TF32 off) on seeded weights and the
     stored alphas against the JAX package's, run in float64 (1e-3; grads
@@ -4115,7 +4156,7 @@ def phase_det_k4(gen) -> tuple[float, dict]:
     for a canvas-512 detector at bs16 (padded 7x7 windows over the 32x32
     map, 7x7 over 16x16, 4x4 over 8x8), bf16 (8 ulps; the same bits on two
     launches) and fp32; bf16 kernel, plain and unfused plain-route module
-    times by CUDA-graph replay in 3 interleaved rounds, beside the bound,
+    times by CUDA-graph replay in 2 interleaved rounds, beside the bound,
     summed per forward."""
     worst, times = 0.0, {}
     for name, W, ws, C, heads, kernels, blocks in DET_K4:
@@ -4150,7 +4191,7 @@ def phase_det_k4(gen) -> tuple[float, dict]:
             t = dict(ms=k_ms, plain_ms=p_ms, module_ms=u_ms, per_forward=blocks)
             t["bound_ms"], t["bound_by"] = k4_bound_ms(W, ws, C, heads, kernels, dtype)
             times[name] = t
-            print(f"k4 time {name} bf16 W={W} (device, CUDA graph, median of 3 interleaved "
+            print(f"k4 time {name} bf16 W={W} (device, CUDA graph, median of {GRAPH_ROUNDS} interleaved "
                   f"rounds): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, unfused module "
                   f"{u_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
                   f"[{card_info()}]")
@@ -4269,7 +4310,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in [first] + history] for k in first[1]
              if k not in ("num_pos", "grad_norm")}
     per_step = {k: (dwconv.LAUNCHES[k] - n0[k]) // (steps - 1) for k in n0}
-    for r in range(2):
+    for r in range(1):
         for route in (("library", "fused") if r % 2 == 0 else ("fused", "library")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4281,7 +4322,7 @@ def phase_det_train(name: str, batch: int = DET_BATCH, steps: int = 20) -> dict:
     print(f"train {name} bf16 B={batch} canvas {DET_CANVAS} ({metric}_train_throughput): "
           + "; ".join(f"{r} " + " / ".join(f"{v:.1f}" for v in ips[r]) + f" img/s (peak "
                       f"{peak[r]:.2f} GiB)" for r in ips)
-          + f" (2 interleaved rounds, CUDA events, 4 steps after 1); fused K7/K9 launches a "
+          + f" (one round, CUDA events, 4 steps after 1); fused K7/K9 launches a "
           f"step {per_step} (want {want}); loss over {steps} steps on one batch "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, "
           f"device {prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
@@ -4501,13 +4542,13 @@ def phase_detr_train(batch: int = DETR_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in hist] for k in ("loss_ce", "loss_bbox", "loss_giou")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ips = [timed_images_per_s(run, batch, 4, 1) for _ in range(2)]
+    ips = [timed_images_per_s(run, batch, 4, 1)]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile(run, steps=3, warmup=1, top=8)
     kinds = ", ".join(f"{k} {v:.2f}" for k, v in list(prof["by_kind_ms"].items())[:8])
     print(f"train {DETR_NAME} iRPE-K bf16 B={batch} canvas 512 "
           f"(detr_r50_irpe_512_train_throughput): " + " / ".join(f"{v:.1f}" for v in ips)
-          + f" img/s (2 rounds, CUDA events, 4 steps after 1), peak memory {peak:.2f} GiB; loss "
+          + f" img/s (one round, CUDA events, 4 steps after 1), peak memory {peak:.2f} GiB; loss "
           f"over {steps} steps on one batch {losses[0]:.4f} -> {losses[-1]:.4f}; profile: wall "
           f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms a step, idle share "
           f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; device ms by kind: "
@@ -4654,7 +4695,7 @@ def phase_cydas_train(batch: int = SEG_BATCH, steps: int = 20) -> dict:
     parts = {k: [float(h[1][k]) for h in hist] for k in ("loss8", "loss16", "loss32")}
     per_step = {k: (dwconv.LAUNCHES[k] - n0[k]) // (steps - 1) for k in n0}
     ips, peak = {r: [] for r in runs}, {}
-    for r in range(2):
+    for r in range(1):
         for route in (("library", "fused") if r % 2 == 0 else ("fused", "library")):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4665,7 +4706,7 @@ def phase_cydas_train(batch: int = SEG_BATCH, steps: int = 20) -> dict:
     print(f"train {SEG_NAME} bf16 B={batch} crop {SEG_CROP} (cydas_seg_769_train_throughput): "
           + "; ".join(f"{r} " + " / ".join(f"{v:.2f}" for v in ips[r]) + f" img/s (peak "
                       f"{peak[r]:.2f} GiB)" for r in ips)
-          + f" (2 interleaved rounds, CUDA events, 3 steps after 1); fused K7 launches a step "
+          + f" (one round, CUDA events, 3 steps after 1); fused K7 launches a step "
           f"{per_step} (want {want}); loss over {steps} steps on one batch {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; profile (fused): wall {prof['wall_ms']:.2f} ms, device "
           f"{prof['device_ms']:.2f} ms a step, idle share {prof['idle_share']:.3f}, "
@@ -4824,17 +4865,20 @@ class Cycle:
     def load(self, i: int):
         return self.dataset.load(i % len(self.dataset))
 
+    def load_bytes(self, i: int):
+        return self.dataset.load_bytes(i % len(self.dataset))
+
 
 def phase_folder_loader(root: Path) -> dict:
     """9z15. The loaders alone on the generated folder (no card work):
     train_loader with the full default recipe (TrainAugConfig()) at bs256 and
-    8 worker processes over five passes of the 768 train images (15 batches:
-    img/s with the workers' start, and the steady rate over the 10 batches
-    after the first 5, the window 9z16's steady train step is timed over;
-    the workers speed up over their first batches), and eval_loader (resize
-    + crop) at bs256 over the 256
-    val images; img/s beside the host's CPU count; the recipe alone on one
-    image in 1, 2, 4 and 8 threads (the loaders' threads before they took
+    8 worker processes over two passes of the 768 train images (6 batches:
+    img/s with the workers' start, and the steady rate over the 4 batches
+    after the first 2, the window 9z16's steady train step is timed over;
+    the workers speed up over their first batches), and eval_loader
+    (resize + crop) at bs256 over the 256 val images; img/s beside the
+    host's CPU count; the recipe alone on one image in 1, 2, 4 and 8
+    threads (48 images each; the loaders' threads before they took
     processes)."""
     import os
     from concurrent.futures import ThreadPoolExecutor
@@ -4850,12 +4894,12 @@ def phase_folder_loader(root: Path) -> dict:
         pool.map(["warm"])
     t0 = time.perf_counter()
     arrivals = [(time.perf_counter(), len(b["label"])) for b in train_loader(
-        Cycle(train_ds, 5), BATCH, 0, 0, 224, 8,
+        Cycle(train_ds, 2), BATCH, 0, 0, 224, 8,
         transform=make_train_transform(TrainAugConfig()))]
     n = sum(k for _, k in arrivals)
     train_s = arrivals[-1][0] - t0
-    # after 5 batches: the workers warmed, the rate a long epoch sees
-    steady = (sum(k for _, k in arrivals[5:])) / (arrivals[-1][0] - arrivals[4][0])
+    # after 2 batches: the workers warmed, the rate a long epoch sees
+    steady, _ = steady_rate(arrivals, 2)
     batch_s = [b - a for a, b in zip([t0] + [t for t, _ in arrivals], [t for t, _ in arrivals])]
     t0 = time.perf_counter()
     m = sum(int((b["label"] >= 0).sum()) for b in eval_loader(val_ds, BATCH, 224,
@@ -4869,12 +4913,12 @@ def phase_folder_loader(root: Path) -> dict:
     for threads in (1, 2, 4, 8):
         t0 = time.perf_counter()
         with ThreadPoolExecutor(threads) as pool:
-            list(pool.map(lambda seed: recipe(img, seed), range(96)))
-        res["threads"][threads] = 96 / (time.perf_counter() - t0)
+            list(pool.map(lambda seed: recipe(img, seed), range(48)))
+        res["threads"][threads] = 48 / (time.perf_counter() - t0)
     print(f"folder_loader_img_per_s: train_loader (TrainAugConfig(), bs{BATCH}, 8 worker "
           f"processes) {res['train_img_per_s']:.1f} img/s over {n} images, the workers' start "
-          f"included; {res['steady_img_per_s']:.1f} steady (the {len(arrivals) - 5} batches "
-          f"after 5; s a batch "
+          f"included; {res['steady_img_per_s']:.1f} steady (the {len(arrivals) - 2} batches "
+          f"after 2; s a batch "
           + " ".join(f"{v:.2f}" for v in batch_s)
           + "); eval_loader "
           f"(resize + crop) "
@@ -4893,11 +4937,11 @@ def phase_folder_train(root: Path) -> dict:
     eval: 10 K1 + 10 K2 launches a step, every loss finite; the epoch's
     img/s from the loader's start to the last step's end. Then the folder's
     steady train img/s (tinyvit21m_224_folder_train_throughput): the same
-    step fed by train_loader + prefetch over 5 passes of the train images
-    (15 batches), timed by CUDA events over 6 steps after 5 (by then the
+    step fed by train_loader + prefetch over 2 passes of the train images
+    (6 batches), timed by CUDA events over 3 steps after 2 (by then the
     batches that the prefetch queue held during the first steps are used
-    up, and each step waits for the loader), and the idle share of the 4
-    steps after those (cli.profile_step.profile), beside the synthetic
+    up, and each step waits for the loader), and the idle share of the step
+    after those (cli.profile_step.profile), beside the synthetic
     train img/s (cli.speed_test.train_throughput); peak memory and img/s
     with remat_stem off and on. Returns the main path's K1/K2 launches."""
     from cream_tpu_torch.cli import train as train_cli
@@ -4954,7 +4998,7 @@ def phase_folder_train(root: Path) -> dict:
         model.load_state_dict(seeded_state_dict(model, 0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ips[remat] = train_throughput(model, BATCH, 224, dtype, 10, 3)
+        ips[remat] = train_throughput(model, BATCH, 224, dtype, 5, 2)
         peak[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
         del model
 
@@ -4966,7 +5010,7 @@ def phase_folder_train(root: Path) -> dict:
     step = make_train_step(loss_fn=soft_target_ce)
     ds = ImageFolder(str(root / "train"))
     recipe = train_cli.build_train_transform(cfg)
-    passes, warm, timed_steps, profiled = 5, 5, 6, 4
+    passes, warm, timed_steps, profiled = 2, 2, 3, 1
     check(warm + timed_steps + profiled == passes * steps, "the steady window's batch count")
     batches = prefetch(train_loader(Cycle(ds, passes), BATCH, 0, 0, 224, 8, transform=recipe))
     mix_gen = torch.Generator().manual_seed(0)
@@ -5008,7 +5052,7 @@ def phase_folder_train(root: Path) -> dict:
           f"{timed_steps} steps after {warm}, the loader running; s a step "
           + " ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:]))
           + f") vs synthetic {ips[False]:.1f} "
-          f"img/s (train_throughput, 10 steps after 3); the {profiled} folder-fed steps after "
+          f"img/s (train_throughput, 5 steps after 2); the {profiled} folder-fed steps after "
           f"those: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, idle "
           f"share {prof['idle_share']:.3f}; peak memory {peak[False]:.2f} GiB, with remat_stem "
           f"{peak[True]:.2f} GiB ({ips[True]:.1f} img/s) [{card_info()}]")
@@ -5057,6 +5101,503 @@ def phase_folder() -> dict:
               f"{made['s']:.1f} s")
         res = {"loader": phase_folder_loader(root), "train": phase_folder_train(root),
                "eval": phase_folder_eval(root)}
+    return res
+
+
+# ---- JPEG data, tar shards and the gated ConvBN variants (slice 24) ----
+
+JPEG_TRAIN, JPEG_VAL = 768, 512
+# the native pipeline against the exact path (normalized units): JAX's own
+# tolerance, tests/test_native_pipe.py
+PIX_MEAN_TOL, PIX_MAX_TOL = 0.012, 0.40
+GATE_ROUTES = ("off", "mxu_bn", "conv1x1_dot")
+
+
+def write_jpeg_folder(root: Path, n_train: int, n_val: int, seed: int = 0) -> dict:
+    """An ImageNet-style folder of JPEGs (quality 90) under `root`: train/
+    and val/ with FOLDER_CLASSES class folders, images at sizes drawn from
+    FOLDER_SIZES (`folder_image`, each from its own seed), val's first image
+    a PNG; 8 writer threads (Pillow's encoder releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    jobs = [(split, i) for split, n in (("train", n_train), ("val", n_val))
+            for i in range(n)]
+    for split in ("train", "val"):
+        for c in range(FOLDER_CLASSES):
+            (root / split / f"n{c:08d}").mkdir(parents=True)
+
+    def write(job):
+        split, i = job
+        rng = np.random.default_rng([seed, split == "val", i, 24])
+        w, h = FOLDER_SIZES[int(rng.integers(len(FOLDER_SIZES)))]
+        png = (split, i) == ("val", 0)
+        path = (root / split / f"n{i % FOLDER_CLASSES:08d}"
+                / f"{split}_{i:05d}.{'png' if png else 'jpg'}")
+        Image.fromarray(folder_image(rng, w, h)).save(path, **({} if png else {"quality": 90}))
+        return path.stat().st_size
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        nbytes = sum(pool.map(write, jobs))
+    return {"images": len(jobs), "bytes": nbytes, "s": time.perf_counter() - t0}
+
+
+def pixel_errors(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    d = np.abs(got - want)
+    return float(d.mean()), float(d.max())
+
+
+def image_size(data: bytes) -> tuple[int, int]:
+    """(width, height) of an image file's bytes, from Pillow's header read."""
+    import io
+
+    from PIL import Image
+    with Image.open(io.BytesIO(data)) as im:
+        return im.size
+
+
+def prescaled(row) -> bool:
+    """Whether image_pipe.cc decodes a params row at a reduced DCT scale
+    (the box at least 12/7 of the resample size on both axes)."""
+    return row[2] * 7 >= 12 * row[4] and row[3] * 7 >= 12 * row[5]
+
+
+def phase_jpeg_pixels(root: Path) -> dict:
+    """9z18. The native pipeline on this host (the library built from
+    cream_tpu_torch/native/image_pipe.cc, the libjpeg it links) against the
+    exact path on the JPEG folder: the first val batch's `eval_params` and
+    the first train batch's `train_params` equal the exact path's decisions
+    (`transforms.resize_size` / `crop_offsets`, `det_aug.rrc_box` and the
+    flip coin on each decoded image); the eval batch's pixels (no
+    prescaling) and the train batch's rows that decode at full scale within
+    mean 0.012 / max 0.40 of the exact path, the PNG bit for bit; the rows
+    that decode at a reduced DCT scale (prescaling, the train path's
+    default) are counted and their distance printed."""
+    from cream_tpu_torch.data import native_pipe
+    from cream_tpu_torch.data.det_aug import rrc_box, sample_seed
+    from cream_tpu_torch.data.imagenet import ImageFolder, eval_loader, train_loader
+    from cream_tpu_torch.data.transforms import (crop_offsets, eval_preprocess_config,
+                                                 resize_size)
+
+    t0 = time.perf_counter()
+    lib = native_pipe.build()
+    build_s = time.perf_counter() - t0
+    val, train = ImageFolder(str(root / "val")), ImageFolder(str(root / "train"))
+    cfg = eval_preprocess_config(224)
+    idx = list(range(BATCH))
+    bufs = [val.load_bytes(i)[0] for i in idx]
+    wh = native_pipe.probe_sizes(bufs)
+    sizes = [image_size(b) for b in bufs]
+    png = [i for i in idx if val.samples[i][0].endswith(".png")]
+    check(png and all((wh[i] == 0).all() for i in png)
+          and all(tuple(wh[i]) == sizes[i] for i in idx if i not in png),
+          "probe_sizes against the decoded sizes")
+    rows = native_pipe.eval_params(wh, cfg)
+    for i in idx:
+        if i in png:
+            continue
+        w, h = sizes[i]
+        nw, nh = resize_size(w, h, cfg.resize_shorter)
+        check(tuple(rows[i]) == (0, 0, w, h, nw, nh, *crop_offsets(nw, nh, cfg.crop), 0),
+              f"eval decision row {i}: {rows[i]}")
+    exact = next(eval_loader(val, BATCH, 224, num_workers=8))
+    native = next(eval_loader(val, BATCH, 224, num_workers=8, native=True))
+    check(np.array_equal(exact["label"], native["label"]), "eval labels")
+    errs = [pixel_errors(native["image"][i], exact["image"][i]) for i in idx if i not in png]
+    check(all(np.array_equal(native["image"][i], exact["image"][i]) for i in png),
+          "the PNG's eval pixels are not the exact path's")
+    eval_mean, eval_max = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(eval_mean < PIX_MEAN_TOL and eval_max < PIX_MAX_TOL,
+          f"eval pixels: worst mean {eval_mean}, max {eval_max}")
+
+    ex = next(train_loader(train, BATCH, 0, 0, 224, 8))
+    nat = next(train_loader(train, BATCH, 0, 0, 224, 8, native=True))
+    for k in ("label", "index", "seed"):
+        check(np.array_equal(ex[k], nat[k]), f"train batch {k}")
+    tbufs = [train.load_bytes(int(i))[0] for i in ex["index"]]
+    trows = native_pipe.train_params(native_pipe.probe_sizes(tbufs), ex["seed"], 224)
+    n_pre, pre_errs, full_errs = 0, [], []
+    for r, i in enumerate(ex["index"]):
+        w, h = image_size(tbufs[r])
+        rng = np.random.default_rng(int(ex["seed"][r]))
+        box = rrc_box(w, h, rng)
+        flip = int(rng.random() < 0.5)
+        check(int(ex["seed"][r]) == sample_seed(0, 0, int(i)), "train seed")
+        check(tuple(trows[r]) == (*box, 224, 224, 0, 0, flip), f"train decision row {r}")
+        e = pixel_errors(nat["image"][r], ex["image"][r])
+        if prescaled(trows[r]):
+            n_pre += 1
+            pre_errs.append(e)
+        else:
+            full_errs.append(e)
+    train_mean = max(e[0] for e in full_errs)
+    train_max = max(e[1] for e in full_errs)
+    check(train_mean < PIX_MEAN_TOL and train_max < PIX_MAX_TOL,
+          f"train pixels at full scale: worst mean {train_mean}, max {train_max}")
+    pre = (f"{n_pre} rows decode at a reduced DCT scale: worst mean "
+           f"{max(e[0] for e in pre_errs):.4f}, max {max(e[1] for e in pre_errs):.4f}, median "
+           f"mean {statistics.median(e[0] for e in pre_errs):.4f}" if pre_errs
+           else "no row decodes at a reduced DCT scale")
+    print(f"jpeg pixels: the native pipeline ({lib.name}, built in {build_s:.1f} s, libjpeg "
+          f"{native_pipe.jpeg_library()}) on this host; the first val batch's {BATCH} eval "
+          f"decision rows and the first train batch's {BATCH} RRC + flip rows equal the exact "
+          f"path's; eval pixels (no prescaling) worst mean |d| {eval_mean:.4f}, max "
+          f"{eval_max:.4f} (bounds {PIX_MEAN_TOL}, {PIX_MAX_TOL}), the PNG bit for bit; train "
+          f"pixels at full scale ({len(full_errs)} rows) worst mean {train_mean:.4f}, max "
+          f"{train_max:.4f}; {pre}")
+    return {"eval_mean": eval_mean, "eval_max": eval_max, "train_mean": train_mean,
+            "train_max": train_max, "prescaled_rows": n_pre, "build_s": build_s,
+            "prescaled_worst_mean": max((e[0] for e in pre_errs), default=0.0)}
+
+
+def phase_jpeg_eval(root: Path) -> dict:
+    """9z19. main path (eval from a JPEG folder): cli.eval.main on the val
+    folder (512 images, one a PNG), TinyViT-21M-224 bf16 bs256, seeded
+    weights by --torch-ckpt, with data.native_loader=True and False: each
+    run n = 512 and 10 K1 launches a forward; img/s by the CLI's wall (the
+    loader included). Returns the K1 launches of both runs."""
+    from cream_tpu_torch.cli import eval as eval_cli
+
+    model = create_model("tiny_vit_21m_224", device="cpu")
+    ckpt = root / "tiny_vit_21m_224_seed0.pth"
+    torch.save(seeded_state_dict(model, 0), ckpt)
+    del model
+    forwards = -(-JPEG_VAL // BATCH)
+    res, launches = {}, 0
+    for native in (True, False):
+        wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+        acc = eval_cli.main(["model.name=tiny_vit_21m_224", "model.dtype=bfloat16",
+                             "data.dataset=imagenet", f"data.data_path={root}",
+                             f"data.batch_size={BATCH}", "data.num_workers=8",
+                             f"data.native_loader={native}", "--torch-ckpt", str(ckpt)])
+        check(acc["n"] == JPEG_VAL, f"JPEG eval CLI native={native}: n = {acc['n']}")
+        check(wa.LAUNCHES == 10 * forwards and wa.BWD_LAUNCHES == 0,
+              f"JPEG eval CLI native={native}: {wa.LAUNCHES} K1 launches over {forwards} "
+              f"forwards, want 10 a forward")
+        launches += wa.LAUNCHES
+        res[native] = {"img_per_s": acc["n"] / acc["seconds"], **acc}
+    print(f"jpeg eval (cli.eval, tiny_vit_21m_224 bf16 bs{BATCH}, --torch-ckpt, {JPEG_VAL} "
+          f"val images, {forwards} forwards, 10 K1 launches each): native_loader=True "
+          f"{res[True]['img_per_s']:.1f} img/s (acc@1 {res[True]['acc1']:.4f}), False "
+          f"{res[False]['img_per_s']:.1f} img/s (acc@1 {res[False]['acc1']:.4f}), the CLI's "
+          f"wall with the loader [{card_info()}]")
+    return {"native": res[True], "exact": res[False], "launches": launches}
+
+
+def steady_rate(arrivals: list, skip: int) -> tuple[float, float]:
+    """(img/s, s a batch) over the batches after the first `skip`:
+    `arrivals` holds (time, images) per batch."""
+    n = sum(k for _, k in arrivals[skip:])
+    span = arrivals[-1][0] - arrivals[skip - 1][0]
+    return n / span, span / (len(arrivals) - skip)
+
+
+def phase_jpeg_loaders(root: Path) -> dict:
+    """9z20. The loaders alone on the JPEG folder (no card work): the
+    native eval_loader and the native plain RRC + flip train_loader (the
+    C++ pool in the loader's thread, DCT prescaling on the train path), each
+    over 3 passes of its images (`Cycle`), img/s steady over passes 2-3;
+    beside them the exact path on 8 worker processes (Pillow's JPEG decode,
+    the numpy resampler) over 1 pass, steady over the batches after its
+    first (its passes cost ~5x the native's); the native batch's ms;
+    os.cpu_count()."""
+    from cream_tpu_torch.data.imagenet import ImageFolder, Workers, eval_loader, train_loader
+
+    val, train = ImageFolder(str(root / "val")), ImageFolder(str(root / "train"))
+    with Workers(len, 2) as pool:      # the fork server starts once a process
+        pool.map(["warm"])
+    res = {"cpus": os.cpu_count()}
+    for native in (True, False):
+        reps = 3 if native else 1
+        for kind, ds in (("eval", val), ("train", train)):
+            if kind == "eval":
+                it = eval_loader(Cycle(ds, reps), BATCH, 224, num_workers=8, native=native)
+            else:
+                it = train_loader(Cycle(ds, reps), BATCH, 0, 0, 224, 8, native=native)
+            arrivals = [(time.perf_counter(), int((b["label"] >= 0).sum())) for b in it]
+            ips, per_batch = steady_rate(arrivals, len(arrivals) // 3 if native else 1)
+            res[f"{kind}_{'native' if native else 'exact'}"] = {
+                "img_per_s": ips, "batch_ms": per_batch * 1e3}
+    print(f"jpeg loaders alone (bs{BATCH}, steady over passes 2-3 of 3, the exact path over "
+          f"the batches after the first of 1 pass; no card work, "
+          f"os.cpu_count() {res['cpus']}): eval_loader native "
+          f"{res['eval_native']['img_per_s']:.1f} img/s ({res['eval_native']['batch_ms']:.1f} "
+          f"ms a batch) vs exact on 8 worker processes {res['eval_exact']['img_per_s']:.1f}; "
+          f"plain RRC + flip train_loader native {res['train_native']['img_per_s']:.1f} img/s "
+          f"({res['train_native']['batch_ms']:.1f} ms a batch) vs exact "
+          f"{res['train_exact']['img_per_s']:.1f}")
+    return res
+
+
+def phase_jpeg_train(root: Path) -> dict:
+    """9z21. main path (training fed by the native pipeline): TinyViT-21M-224
+    bf16 / fp32 params bs256, AdamW(1e-3, wd 0.05, clip 5), int labels, fed
+    by train_loader(native=True) (plain RRC + flip) + prefetch over 3
+    passes of the 768 JPEGs (9 batches): 10 + 10 K1/K2 launches a step,
+    every loss finite; CUDA events over 4 steps after 2, the idle share of
+    the 3 after those (`profile`); the upload's host ms a batch (154 MB of
+    float32 to the card, cast there) and the loader's; the synthetic step's
+    img/s of the same run (train_throughput, 5 after 2)."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.data.imagenet import ImageFolder, prefetch, train_loader
+
+    dtype = torch.bfloat16
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    state = TrainState(model, make_adamw(1e-3, weight_decay=0.05, clip_grad=5.0,
+                                         params=dict(model.named_parameters())))
+    step = make_train_step()
+    ds = ImageFolder(str(root / "train"))
+    warm, timed_steps, profiled = 2, 4, 3
+    n_batches = 3 * JPEG_TRAIN // BATCH
+    check(warm + timed_steps + profiled == n_batches, "the fed window's batch count")
+    loader_ms, upload_ms, losses = [], [], []
+
+    def timed_loader():
+        it = train_loader(Cycle(ds, 3), BATCH, 0, 0, 224, 8, native=True)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            loader_ms.append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+    batches = prefetch(timed_loader())
+
+    def fed_step():
+        b = next(batches)
+        t0 = time.perf_counter()
+        images = torch.from_numpy(b["image"]).to("cuda").to(dtype)
+        labels = torch.from_numpy(b["label"]).to("cuda")
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+        _, metrics = step(state, {"image": images, "label": labels}, 0)
+        losses.append(metrics["loss"])
+
+    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    for _ in range(warm):
+        fed_step()
+    torch.cuda.synchronize()
+    window = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    window[0].record()
+    for _ in range(timed_steps):
+        fed_step()
+    window[1].record()
+    torch.cuda.synchronize()
+    fed_ips = timed_steps * BATCH / (window[0].elapsed_time(window[1]) / 1e3)
+    prof = profile(fed_step, steps=profiled, warmup=0, top=8)
+    check(next(batches, None) is None, "the fed window left a batch of its loader")
+    launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+    check(launches == (10 * n_batches, 10 * n_batches),
+          f"native-fed train: K1/K2 launches {launches} over {n_batches} steps, want 10 + 10 "
+          f"a step")
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"native-fed train: a loss is not finite: {losses}")
+    synthetic = train_throughput(model, BATCH, 224, dtype, 5, 2)
+    res = {"img_per_s": fed_ips, "synthetic_img_per_s": synthetic, "launches": launches,
+           "upload_ms": statistics.median(upload_ms), "loader_ms": statistics.median(loader_ms),
+           "losses": losses, **{k: prof[k] for k in ("wall_ms", "device_ms", "idle_share")}}
+    print(f"jpeg train (tiny_vit_21m_224 bf16 bs{BATCH}, train_loader(native=True) + prefetch, "
+          f"plain RRC + flip): K1/K2 launches {launches} over {n_batches} steps, losses "
+          f"{[round(v, 4) for v in losses]}; tinyvit21m_224_native_fed_train_throughput "
+          f"{fed_ips:.1f} img/s (CUDA events, {timed_steps} steps after {warm}) vs synthetic "
+          f"{synthetic:.1f} img/s (5 after 2); the {profiled} steps after those: wall "
+          f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}; host ms a batch: the loader's next() {res['loader_ms']:.1f} "
+          f"(median, in the prefetch thread), the upload (154 MB float32 to the card, cast "
+          f"there) {res['upload_ms']:.1f} [{card_info()}]")
+    return res
+
+
+def write_shards(root: Path, files: list, per: int = 256, seed: int = 0) -> list[str]:
+    """Tar shards of `per` (key.jpg | key.png, key.txt) pairs each under
+    `root`, the images `files`' bytes in order, each caption a zero-shot
+    template filled with a class name drawn from `seed`."""
+    import io
+    import tarfile
+
+    from cream_tpu_torch.train.zero_shot import openai_imagenet_constants
+
+    names, templates = openai_imagenet_constants()
+    rng = np.random.default_rng([seed, 24])
+    paths = []
+    for s in range(len(files) // per):
+        path = root / f"pairs-{s:03d}.tar"
+        with tarfile.open(path, "w") as tf:
+            for k, f in enumerate(files[s * per:(s + 1) * per]):
+                caption = templates[int(rng.integers(len(templates)))].format(
+                    names[int(rng.integers(len(names)))])
+                for ext, payload in ((Path(f).suffix.lstrip("."), Path(f).read_bytes()),
+                                     ("txt", caption.encode())):
+                    info = tarfile.TarInfo(f"{s:03d}_{k:05d}.{ext}")
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+        paths.append(str(path))
+    return paths
+
+
+def phase_jpeg_shards(root: Path) -> dict:
+    """9z22. Image-text tar shards feeding TinyCLIP: 2 shards of 256 image +
+    caption pairs (the val folder's 512 files: one PNG member) through data.shards.image_text_loader
+    (CLIP normalization, eval resize + crop at 224, the port's tokenizer on
+    merges learned as phase_zero_shot learns them) with native=True and
+    False, each batch through TinyCLIP-39M/16's bf16 bs256 pair forward
+    (cli.speed_test.pair_step): pairs/s from the shards (the loader, the
+    upload and the forwards, synchronized at the end) beside the synthetic
+    pairs/s of the same run (pair_throughput, 10 after 3); the two paths'
+    pixels within mean 0.012 / max 0.40 of each other (the PNG bit for bit),
+    their tokens equal."""
+    from cream_tpu_torch.cli.speed_test import pair_step, pair_throughput
+    from cream_tpu_torch.data.shards import ShardListDataset, image_text_loader
+    from cream_tpu_torch.data.tokenizer import SimpleTokenizer, write_merges
+
+    bpe = root / "merges.txt.gz"
+    write_merges(bpe, zero_shot_merges())
+    tok = SimpleTokenizer(str(bpe))
+    t0 = time.perf_counter()
+    val = sorted(str(p) for p in (root / "val").rglob("*.*"))
+    ds = ShardListDataset(write_shards(root, val), seed=0)
+    write_s = time.perf_counter() - t0
+    model = create_model(TINYCLIP, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    model.eval()
+    out = {}
+    for native in (True, False):
+        sims, batches = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for b in image_text_loader(ds, tok, 0, BATCH, 224, model.context_length, 8,
+                                       native=native):
+                images = torch.from_numpy(b["image"]).to("cuda").to(torch.bfloat16)
+                text = torch.from_numpy(b["text"]).to("cuda").long()
+                sims.append(pair_step(model, images, text).float().sum())
+                batches.append(b)
+            total = float(torch.stack(sims).sum())
+        torch.cuda.synchronize()
+        out[native] = {"pairs_per_s": len(batches) * BATCH / (time.perf_counter() - t0),
+                       "batches": batches, "finite": bool(np.isfinite(total))}
+    synthetic = pair_throughput(model, BATCH, torch.bfloat16, 10, 3)
+    nat, ex = out[True]["batches"], out[False]["batches"]
+    check(len(nat) == len(ex) == 2 and out[True]["finite"] and out[False]["finite"],
+          "shard batches")
+    png = [img[:4] == b"\x89PNG" for _, img, _ in ds.epoch_iter(0)]
+    check(sum(png) == 1, "the shards hold one PNG member")
+    worst = [0.0, 0.0]
+    for bi, (g, w) in enumerate(zip(nat, ex)):
+        check(np.array_equal(g["text"], w["text"]), "shard tokens differ between the paths")
+        for r in range(BATCH):
+            if png[bi * BATCH + r]:
+                check(np.array_equal(g["image"][r], w["image"][r]),
+                      "the PNG member's pixels are not the exact path's")
+                continue
+            e = pixel_errors(g["image"][r], w["image"][r])
+            worst = [max(worst[0], e[0]), max(worst[1], e[1])]
+    check(worst[0] < PIX_MEAN_TOL and worst[1] < PIX_MAX_TOL,
+          f"shard pixels native vs exact: worst mean {worst[0]}, max {worst[1]}")
+    print(f"jpeg shards (2 x 256 pairs of the val folder's files written in {write_s:.1f} s, "
+          f"TinyCLIP-39M/16 bf16 "
+          f"bs{BATCH} pair forwards): image_text_loader native=True "
+          f"{out[True]['pairs_per_s']:.1f} pairs/s, False {out[False]['pairs_per_s']:.1f} "
+          f"pairs/s (the loader, upload and forwards) vs synthetic {synthetic:.1f} pairs/s; "
+          f"pixels native vs exact worst mean {worst[0]:.4f}, max {worst[1]:.4f}, the PNG bit "
+          f"for bit, tokens equal [{card_info()}]")
+    return {"native_pairs_per_s": out[True]["pairs_per_s"],
+            "exact_pairs_per_s": out[False]["pairs_per_s"], "synthetic_pairs_per_s": synthetic,
+            "pix_mean": worst[0], "pix_max": worst[1]}
+
+
+class gates:
+    """Sets the JAX package's two ConvBN gates for `route` ("off", "mxu_bn",
+    "conv1x1_dot"), restoring them on exit."""
+
+    def __init__(self, route: str):
+        self.route = route
+
+    def __enter__(self):
+        from cream_tpu_torch.nn import layers
+        from cream_tpu_torch.ops import bn as bn_ops
+        self.saved = bn_ops.DEFAULT_MXU_BN, layers.DEFAULT_CONV1X1_DOT
+        bn_ops.DEFAULT_MXU_BN = self.route == "mxu_bn"
+        layers.DEFAULT_CONV1X1_DOT = self.route == "conv1x1_dot"
+
+    def __exit__(self, *exc):
+        from cream_tpu_torch.nn import layers
+        from cream_tpu_torch.ops import bn as bn_ops
+        bn_ops.DEFAULT_MXU_BN, layers.DEFAULT_CONV1X1_DOT = self.saved
+
+
+def phase_gated() -> dict:
+    """9z23. The gated ConvBN variants (off by default, as in JAX):
+    TinyViT-21M-224 bf16 bs256 train steps (train_step_fn: AdamW, int
+    labels) with every ConvBN's train-mode BN through ops.bn.bn_train_norm
+    ("mxu_bn"), with every 1x1 ConvBN conv as a channel product
+    ("conv1x1_dot") and with both off, each route's first step from the same
+    weights and batch on one model: 10 + 10 K1/K2 launches a step, the first
+    loss within 2 bf16 ulps and the grad norm within 2% of the gates-off
+    step's; img/s in 2 interleaved rounds of 5 steps after 2; the BN device
+    ms a step from `profile` (2 steps; the "batch norm" kernels, or the
+    "mxu_batch_norm" ranges' kernels)."""
+    from cream_tpu_torch.cli.profile_step import profile
+
+    dtype = torch.bfloat16
+    runs, first, ips, bn_ms = {}, {}, {r: [] for r in GATE_ROUTES}, {}
+    wa.LAUNCHES = wa.BWD_LAUNCHES = 0
+    model = create_model("tiny_vit_21m_224", device="cuda", dtype=dtype)
+    sd = {k: v.clone() for k, v in seeded_state_dict(model, 0).items()}
+    for route in GATE_ROUTES:
+        model.load_state_dict(sd)       # each route's first step from the same weights
+        runs[route] = train_step_fn(model, BATCH, 224, dtype)
+        k = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+        with gates(route):
+            _, first[route] = runs[route]()
+        check((wa.LAUNCHES - k[0], wa.BWD_LAUNCHES - k[1]) == (10, 10),
+              f"gated {route}: K1/K2 launches a step")
+    for order in (GATE_ROUTES, GATE_ROUTES[::-1]):
+        for route in order:
+            with gates(route):
+                ips[route].append(timed_images_per_s(runs[route], BATCH, 5, 2))
+    for route in GATE_ROUTES:
+        with gates(route):
+            prof = profile(runs[route], steps=2, warmup=0, top=8, ranges=("mxu_batch_norm",))
+        bn_ms[route] = prof["by_kind_ms"].get("batch norm", 0.0) + prof["ranges_ms"][
+            "mxu_batch_norm"]
+    steps = len(GATE_ROUTES) * (1 + 2 * 7 + 2)
+    launches = (wa.LAUNCHES, wa.BWD_LAUNCHES)
+    check(launches == (10 * steps, 10 * steps), f"gated steps: K1/K2 launches {launches}")
+    l_ref, g_ref = float(first["off"]["loss"]), float(first["off"]["grad_norm"])
+    loss_lim = 2 * 2.0 ** (np.floor(np.log2(l_ref)) - 7)
+    for route in GATE_ROUTES[1:]:
+        l, g = float(first[route]["loss"]), float(first[route]["grad_norm"])
+        check(np.isfinite(l) and abs(l - l_ref) <= loss_lim,
+              f"gated {route}: first loss {l} vs {l_ref} (bound {loss_lim})")
+        check(abs(g - g_ref) <= 2e-2 * g_ref, f"gated {route}: grad norm {g} vs {g_ref}")
+    print(f"gated ConvBN variants (tiny_vit_21m_224 bf16 bs{BATCH} train steps, 10 + 10 K1/K2 "
+          f"a step): first loss / grad norm " + ", ".join(
+              f"{r} {float(first[r]['loss']):.5f} / {float(first[r]['grad_norm']):.4f}"
+              for r in GATE_ROUTES) + f" (loss bound {loss_lim:.2e}, grad norm 2%); img/s "
+          f"(rounds forward / reversed): " + "; ".join(
+              f"{r} {' / '.join(f'{v:.1f}' for v in ips[r])}" for r in GATE_ROUTES)
+          + "; BN device ms a step " + ", ".join(f"{r} {bn_ms[r]:.2f}" for r in GATE_ROUTES)
+          + f" [{card_info()}]")
+    return {"img_per_s": ips, "bn_ms": bn_ms, "launches": launches,
+            "first": {r: (float(v["loss"]), float(v["grad_norm"])) for r, v in first.items()}}
+
+
+def phase_jpeg() -> dict:
+    """9z18-9z22 on one generated JPEG folder and two shards in a temporary
+    directory under build/, deleted afterwards, then 9z23."""
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        made = write_jpeg_folder(root, JPEG_TRAIN, JPEG_VAL)
+        print(f"jpeg folder: {made['images']} images ({made['bytes'] / 2 ** 20:.1f} MiB, one "
+              f"PNG) written in {made['s']:.1f} s")
+        res = {"pixels": phase_jpeg_pixels(root), "eval": phase_jpeg_eval(root),
+               "loaders": phase_jpeg_loaders(root), "train": phase_jpeg_train(root),
+               "shards": phase_jpeg_shards(root)}
+    res["gated"] = phase_gated()
     return res
 
 
@@ -5325,7 +5866,7 @@ def main() -> None:
     for name in ("s3_tiny", "swin_tiny", "mini_swin_tiny"):
         phase_golden(name, DATA / f"{name}_seed0.npz")
     phase_train_golden("s3_tiny", DATA / "s3_tiny_train_seed0.npz")
-    k1_swin = (phase_main("s3_tiny", S3T_BATCH, 12, rounds=4, lim_ulps=8)
+    k1_swin = (phase_main("s3_tiny", S3T_BATCH, 12, rounds=2, lim_ulps=8)
                + phase_main("swin_tiny", S3T_BATCH, 12, rounds=1, lim_ulps=8,
                             top1_on_decided=True))
     phase_mini_swin()
@@ -5339,13 +5880,13 @@ def main() -> None:
     teacher_ips = phase_clip_teacher()
     phase_clip_train_golden()
     clip_train = phase_clip_train()
-    clip_steps = phase_clip_train_steps()
+    clip_steps = phase_clip_train_steps(steps=10)
     clip_stages = phase_clip_pipeline()
     check((wa.LAUNCHES, wa.BWD_LAUNCHES) == launches, "the CLIP phases launched K1/K2")
     counts = kernel_counts()
     phase_deit_goldens()
     deit_eval = {name: phase_deit_eval(name) for name in DEIT_METRICS}
-    deit_train = {name: phase_deit_train(name, steps=10) for name in DEIT_METRICS}
+    deit_train = {name: phase_deit_train(name, steps=6) for name in DEIT_METRICS}
     capture = phase_mini_swin_capture()
     check(kernel_counts() == counts, "the DeiT, Mini-DeiT or capture phases launched a kernel")
     t_nas = time.time()
@@ -5360,7 +5901,7 @@ def main() -> None:
     retrain = phase_cdarts_retrain()
     darts_search = phase_darts_search()
     stage = phase_cdarts_stage()
-    nb201 = phase_nb201()
+    nb201 = phase_nb201(steps=5)
     darts_s = time.time() - t_darts
     t_det = time.time()
     phase_det_goldens()
@@ -5369,7 +5910,7 @@ def main() -> None:
     det_train = {}
     for name in DET_METRICS:
         dwconv.reset_launches()
-        det_train[name] = phase_det_train(name, steps=10)
+        det_train[name] = phase_det_train(name, steps=6)
     det_clis = phase_det_clis()
     det_s = time.time() - t_det
     t_seg = time.time()
@@ -5377,20 +5918,23 @@ def main() -> None:
     counts = kernel_counts()
     phase_detr_golden()
     detr_eval = phase_detr_eval()
-    detr_train = phase_detr_train(steps=10)
+    detr_train = phase_detr_train(steps=6)
     check(kernel_counts() == counts, "the DETR phases launched a kernel")
     phase_cydas_golden()
     counts = kernel_counts()
     cyd_eval = phase_cydas_eval()
     check(kernel_counts() == counts, "the CyDAS eval phase launched a kernel")
     dwconv.reset_launches()
-    cyd_train = phase_cydas_train(steps=10)
+    cyd_train = phase_cydas_train(steps=6)
     seg_clis = phase_seg_clis()
     seg_s = time.time() - t_seg
     t_folder = time.time()
     pixels = phase_pixels()
     folder = phase_folder()
     folder_s = time.time() - t_folder
+    t_jpeg = time.time()
+    jpeg = phase_jpeg()
+    jpeg_s = time.time() - t_jpeg
     worst_k5, t5 = phase_k5(gen)
     worst_k4, t4 = phase_k4(gen)
     phase_evit_golden()
@@ -5415,10 +5959,12 @@ def main() -> None:
             ("window_attention_fwd", "window_attention.cu", 190,
              k1_eval + k1_train + k1_swin + k1_s3_train + k1_distill
              + folder["train"]["launches"][0] + folder["eval"]["launches"]
-             + dp_step["launches"][0] + dp_cli["launches"][0], worst_k1, t1),
+             + dp_step["launches"][0] + dp_cli["launches"][0] + jpeg["eval"]["launches"]
+             + jpeg["train"]["launches"][0] + jpeg["gated"]["launches"][0], worst_k1, t1),
             ("window_attention_bwd", "window_attention_bwd.cu", 268,
              k2_train + k2_s3_train + k2_distill + folder["train"]["launches"][1]
-             + dp_step["launches"][1] + dp_cli["launches"][1], worst_k2, t2)):
+             + dp_step["launches"][1] + dp_cli["launches"][1] + jpeg["train"]["launches"][1]
+             + jpeg["gated"]["launches"][1], worst_k2, t2)):
         rows.append({
             "name": name, "route": "cuda", "source": f"cream_tpu_torch/csrc/{src}",
             "replaces": f"cream_tpu/ops/pallas/window_attention.py:{line}",
@@ -5432,6 +5978,9 @@ def main() -> None:
     rows[0]["swin_base"] = {k: summed_over_blocks(t1, k, SWINB_SHAPES)
                             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     for row, i in zip(rows, (0, 1)):
+        row["jpeg_launches"] = {"cli_eval_native_and_exact": jpeg["eval"]["launches"] * (1 - i),
+                                "native_fed_train": jpeg["train"]["launches"][i],
+                                "gated_steps": jpeg["gated"]["launches"][i]}
         row["data_parallel_launches"] = {"per_rank_step": dp_step["launches_per_rank_step"][i],
                                          "dp_step_phase": dp_step["launches"][i],
                                          "torchrun_cli_rank0": dp_cli["launches"][i]}
@@ -5641,6 +6190,22 @@ def main() -> None:
           f"{ft['idle_share']:.3f}; peak "
           f"{ft['peak_gib']:.2f} GiB, remat_stem {ft['remat_peak_gib']:.2f} GiB; cli.eval "
           f"{folder['eval']['img_per_s']:.1f} img/s [{card}]")
+    jp, jt, jl = jpeg["pixels"], jpeg["train"], jpeg["loaders"]
+    print(f"JPEG data (phases 9z18-9z23, {jpeg_s:.1f} s): cli.eval JPEG folder native / exact "
+          f"{jpeg['eval']['native']['img_per_s']:.1f} / {jpeg['eval']['exact']['img_per_s']:.1f} "
+          f"img/s; loaders alone native / exact: eval {jl['eval_native']['img_per_s']:.1f} / "
+          f"{jl['eval_exact']['img_per_s']:.1f}, plain train {jl['train_native']['img_per_s']:.1f}"
+          f" / {jl['train_exact']['img_per_s']:.1f} img/s on {jl['cpus']} CPUs; "
+          f"tinyvit21m_224_native_fed_train_throughput {jt['img_per_s']:.1f} img/s (idle share "
+          f"{jt['idle_share']:.3f}) vs synthetic {jt['synthetic_img_per_s']:.1f}; TinyCLIP pairs "
+          f"from shards native / exact {jpeg['shards']['native_pairs_per_s']:.1f} / "
+          f"{jpeg['shards']['exact_pairs_per_s']:.1f} vs synthetic "
+          f"{jpeg['shards']['synthetic_pairs_per_s']:.1f} pairs/s; pixels worst mean eval "
+          f"{jp['eval_mean']:.4f}, train {jp['train_mean']:.4f} ({jp['prescaled_rows']} rows "
+          f"prescaled, worst mean {jp['prescaled_worst_mean']:.4f}); gated steps img/s "
+          + ", ".join(f"{r} {statistics.median(v):.1f}" for r, v in jpeg["gated"]["img_per_s"].items())
+          + " (medians), BN device ms " + ", ".join(
+              f"{r} {v:.2f}" for r, v in jpeg["gated"]["bn_ms"].items()) + f" [{card}]")
     ips = dp_step["img_per_s"]
     print(f"data parallelism (phases 9a0-9a2, {dp_s:.1f} s), {torch.cuda.device_count()} "
           f"card(s), W = {dp_world()}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: "

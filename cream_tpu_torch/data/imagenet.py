@@ -8,9 +8,13 @@ Counterpart of `cream_tpu/data/imagenet.py`:
   * the seeded train augmentation (`det_aug`) and the eval resize + crop
     (`transforms.preprocess_pil`), Pillow's pixels computed in numpy
   * synthetic data for smoke tests and throughput runs
-The loaders give the JAX loaders' batches exactly: numpy NHWC dicts
-{image, label, index} (train batches also carry each sample's `seed`), in
-the same order, with the same padding and host sharding.
+  * `native=True | "auto"`: the eval resize + crop and the plain RRC + flip
+    through the C++ image pipeline (`native_pipe`, JPEG), in the loader's
+    own thread, with the exact path's decisions and pixels within ~1/255
+On the exact path (the default) the loaders give the JAX loaders' batches
+exactly: numpy NHWC dicts {image, label, index} (train batches also carry
+each sample's `seed`), in the same order, with the same padding and host
+sharding.
 
 The JAX loaders decode and augment on `num_workers` threads; here those are
 processes (`Workers`). The recipe is hundreds of numpy calls an image of
@@ -35,6 +39,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from cream_tpu_torch.data import native_pipe
 from cream_tpu_torch.data.det_aug import sample_seed, train_transform
 from cream_tpu_torch.data.image_io import read_rgb
 from cream_tpu_torch.data.samplers import repeated_aug_order
@@ -353,16 +358,32 @@ class _TrainLoad:
         return self.transform(img, seed), label, seed
 
 
-def _check_native(native) -> None:
-    """`native`: False or "auto" (the JAX loaders' behaviour where the C++
-    image pipeline is not built: decode in Python); True raises."""
-    if native is True:
-        raise NotImplementedError(
-            "native=True: the C++ image pipeline (native/image_pipe.cc) is not "
-            "ported to cream_tpu_torch yet; it comes in a later slice of the port. "
-            "Use native=False or 'auto'")
-    if native not in (False, "auto"):
-        raise ValueError(f"native={native!r}: expected False, True or 'auto'")
+def _use_native(dataset, native) -> bool:
+    """Whether a loader takes the native pipeline for `dataset`
+    (`native_pipe.use_native`: True raises where the library does not build
+    or the dataset has no `load_bytes`; "auto" then takes the exact path)."""
+    return native_pipe.use_native(
+        native, None if hasattr(dataset, "load_bytes") else
+        f"{type(dataset).__name__} has no load_bytes")
+
+
+def _native_batch(dataset, idx, params_fn, out_size, mean, std, exact_fn,
+                  n_threads, allow_prescale=True):
+    """Decode a batch through native_pipe in the calling thread (the C++
+    pool does the work, the GIL released); an image whose decode or parse
+    fails (non-JPEG bytes, truncation) takes the exact path, `exact_fn(j)`
+    of its batch position, so its pixels are the exact path's."""
+    pairs = [dataset.load_bytes(int(i)) for i in idx]
+    bufs = [p[0] for p in pairs]
+    labels = np.asarray([p[1] for p in pairs], np.int32)
+    wh = native_pipe.probe_sizes(bufs)
+    params = params_fn(wh)
+    images, status = native_pipe.decode_batch(
+        bufs, params, out_size, mean, std, n_threads=n_threads,
+        allow_prescale=allow_prescale)
+    for j in np.nonzero((status != 0) | (wh[:, 0] <= 0))[0]:
+        images[int(j)] = exact_fn(int(j))
+    return images, labels
 
 
 def eval_loader(dataset, batch_size: int, img_size: int = 224,
@@ -376,10 +397,14 @@ def eval_loader(dataset, batch_size: int, img_size: int = 224,
     batch is padded with label = index = -1 (the eval step masks them), so
     every batch has one shape.
 
+    native: False | True | "auto" — decode, resize and normalize through
+    the C++ pipeline (`native_pipe`) in this thread, no worker process
+    started; the size math is the exact path's, the resampling within ~1/255
+    of it (no DCT prescale); an image the pipeline cannot decode takes the
+    exact path. Keep False for golden-logit comparisons.
     shard: (process_index, process_count) — this host reads only its strided
     subset; batch_size is then per-host. Every host emits the SAME number of
     (padded) batches regardless of how the remainder falls."""
-    _check_native(native)
     cfg = eval_preprocess_config(img_size, crop=crop, clip=clip_norm)
 
     all_idx = np.arange(len(dataset))
@@ -392,14 +417,22 @@ def eval_loader(dataset, batch_size: int, img_size: int = 224,
     else:
         n_steps = -(-len(all_idx) // batch_size)
     n = len(all_idx)
+    load_one = _EvalLoad(dataset, cfg)
+    use_native = _use_native(dataset, native)
 
-    with Workers(_EvalLoad(dataset, cfg), num_workers) as pool:
+    with Workers(load_one, 1 if use_native else num_workers) as pool:
         for k in range(n_steps):
             idx = all_idx[k * batch_size:min((k + 1) * batch_size, n)].tolist()
-            results = pool.map(idx)
-            images = (np.stack([r[0] for r in results]) if idx else
-                      np.zeros((0, cfg.crop, cfg.crop, 3), np.float32))
-            labels = np.asarray([r[1] for r in results], np.int32)
+            if use_native and idx:
+                images, labels = _native_batch(
+                    dataset, idx, lambda wh: native_pipe.eval_params(wh, cfg),
+                    cfg.crop, cfg.mean, cfg.std, lambda j: load_one(idx[j])[0],
+                    num_workers, allow_prescale=False)
+            else:
+                results = pool.map(idx)
+                images = (np.stack([r[0] for r in results]) if idx else
+                          np.zeros((0, cfg.crop, cfg.crop, 3), np.float32))
+                labels = np.asarray([r[1] for r in results], np.int32)
             index = np.asarray(idx, np.int32)
             if pad_final and len(idx) < batch_size:
                 pad = batch_size - len(idx)
@@ -424,6 +457,12 @@ def train_loader(dataset, batch_size: int, epoch: int, base_seed: int = 0,
     det_aug.make_train_transform for the full RandAugment recipe); defaults
     to the plain seeded RRC + flip + normalize at `img_size`. With
     `num_workers` > 1 it, like `dataset`, is pickled to the workers.
+    native: False | True | "auto" — the plain RRC + flip pixels through the
+    C++ pipeline (`native_pipe`) in this thread, no worker process started:
+    the same seeded crop and flip decisions (`native_pipe.train_params`),
+    DCT prescaling allowed; only with transform=None (the full RandAugment
+    recipe stays on the exact path). An image the pipeline cannot decode
+    takes the exact path.
     repeated_aug: >1 gives the RASampler order (AutoFormer/lib/samplers.py):
     each epoch visits ~n/reps distinct samples, each repeated `repeated_aug`
     times with different aug seeds; else the `default_rng(base_seed + epoch)`
@@ -432,7 +471,9 @@ def train_loader(dataset, batch_size: int, epoch: int, base_seed: int = 0,
     epoch order, cut to an equal length on every host. The order/seeds are
     derived from (base_seed, epoch) BEFORE slicing, so the global sample/aug
     sequence is host-count-invariant."""
-    _check_native(native)
+    if native and transform is not None:
+        raise ValueError("native train path covers only the default "
+                         "RRC+flip transform")
     n = len(dataset)
     if repeated_aug and repeated_aug > 1:
         order, reps = repeated_aug_order(n, epoch, base_seed, repeated_aug)
@@ -453,8 +494,22 @@ def train_loader(dataset, batch_size: int, epoch: int, base_seed: int = 0,
 
     m = len(order)
     end = m - (m % batch_size) if drop_last else m
-    with Workers(_TrainLoad(dataset, transform, base_seed, epoch),
-                 num_workers) as pool:
+    load_one = _TrainLoad(dataset, transform, base_seed, epoch)
+    if _use_native(dataset, native):
+        for start in range(0, end, batch_size):
+            idx = order[start:start + batch_size]
+            rr = reps[start:start + batch_size]
+            seeds = [sample_seed(base_seed + 101 * int(r), epoch, int(i))
+                     for i, r in zip(idx, rr)]
+            images, labels = _native_batch(
+                dataset, idx, lambda wh: native_pipe.train_params(wh, seeds, img_size),
+                img_size, mean, std, lambda j: load_one((idx[j], rr[j]))[0],
+                num_workers)
+            yield {"image": images, "label": labels,
+                   "index": np.asarray(idx, np.int32),
+                   "seed": np.asarray(seeds, np.int32)}
+        return
+    with Workers(load_one, num_workers) as pool:
         for start in range(0, end, batch_size):
             idx = order[start:start + batch_size]
             rr = reps[start:start + batch_size]

@@ -17,7 +17,10 @@ Conventions:
     batch's under a data-parallel group (`batch_norm_train`); drop path
     and dropout draw from the generator the caller passes to `forward`
   * a depthwise 3x3 ConvBN can run its conv through the kernels of
-    `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`); an eval MBConv
+    `ops/dwconv.py` (`ConvBN.dw_kernel`, `set_dw_kernel`); the JAX
+    package's two gates, off by default: `DEFAULT_CONV1X1_DOT` (a 1x1
+    conv as a channel product) and `ops.bn.DEFAULT_MXU_BN` (train-mode BN
+    through `ops.bn.bn_train_norm`, `MXUBatchNorm`); an eval MBConv
     can run as one fused op, `ops/mbconv.py` (`MBConv.use_kernel`,
     `set_mbconv_kernel`)
 """
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from cream_tpu_torch.core.mesh import data_group
 from cream_tpu_torch.nn.act import gelu
+from cream_tpu_torch.ops import bn as bn_ops
 from cream_tpu_torch.ops import dwconv, mbconv
 from cream_tpu_torch.ops.common import drop_path, dropout
 from cream_tpu_torch.ops.fuse import cached_fold
@@ -36,6 +40,13 @@ from cream_tpu_torch.ops.fuse import cached_fold
 # depthwise 3x3 conv routes (the JAX package's `ConvBN.dw_vjp` values False,
 # True and "wgrad")
 DW_KERNELS = ("library", "fused", "wgrad")
+
+# Route stride-s 1x1 groups-1 pad-0 ConvBN convs through an explicit channel
+# product (x[:, ::s, ::s] @ W) instead of the library conv: the JAX package's
+# A/B knob of the same name (an XLA layout experiment there), off by
+# default. The weight stays the conv's `c.weight`, so state_dicts load
+# either way.
+DEFAULT_CONV1X1_DOT = False
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -73,6 +84,44 @@ def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor,
         bn.running_var.mul_(momentum).add_(var, alpha=1 - momentum)
         bn.num_batches_tracked += 1
     return y
+
+
+def mxu_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor,
+                         momentum: float) -> torch.Tensor:
+    """`batch_norm_train` through `ops.bn.bn_train_norm` (the JAX package's
+    `MXUBatchNorm`): the batch moments in fp32 (the one-pass variance), the
+    normalisation's backward folded into dx, the running stats updated as
+    flax does (biased variance). y's channels are dim 1. Its forward and
+    backward run inside `record_function("mxu_batch_norm")`, which
+    `cli.profile_step.profile(ranges=)` reads. Under a
+    data-parallel group the moments are the global batch's, which
+    `GlobalBatchNorm` computes (flax's mean over a sharded batch)."""
+    if data_group() is not None:
+        return batch_norm_train(bn, y, momentum)
+    with torch.profiler.record_function("mxu_batch_norm"):
+        mean, var = bn_ops._moments(y, 1)
+        out = bn_ops.bn_train_norm(y, mean, var, bn.weight, bn.bias, bn.eps, channel_dim=1)
+        with torch.no_grad():
+            bn.running_mean.mul_(momentum).add_(mean, alpha=1 - momentum)
+            bn.running_var.mul_(momentum).add_(var, alpha=1 - momentum)
+            bn.num_batches_tracked += 1
+    return out
+
+
+class MXUBatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode is `mxu_batch_norm_train` with flax's
+    momentum (0.9 the weight of the old value) and biased running variance;
+    eval mode on the running statistics. The counterpart of the JAX
+    package's `MXUBatchNorm`, with BatchNorm2d's state names, so a state
+    dict loads into either class."""
+
+    MOMENTUM = 0.9
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return mxu_batch_norm_train(self, y, self.MOMENTUM)
+        return F.batch_norm(y, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
 
 
 def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -229,6 +278,16 @@ def conv_nchw(conv: nn.Conv2d, x: torch.Tensor, stride: int, padding: int, group
     return route(x.contiguous(), w9).permute(0, 3, 1, 2)
 
 
+def conv1x1_dot(conv: nn.Conv2d, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """A 1x1 groups-1 pad-0 conv on the NHWC map x as the channel product
+    x[:, ::s, ::s] @ W (`torch.matmul`), in x's dtype, as an NCHW view
+    (channels_last strides): the JAX package's `_Conv1x1Dot`."""
+    if stride > 1:
+        x = x[:, ::stride, ::stride]
+    w = conv.weight.to(x.dtype).reshape(conv.out_channels, conv.in_channels)
+    return torch.matmul(x, w.t()).permute(0, 3, 1, 2)
+
+
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, y: torch.Tensor, training: bool,
                momentum: float = 0.9) -> torch.Tensor:
     """BatchNorm of y over every dim but dim 1: train mode as
@@ -265,19 +324,27 @@ class ConvBN(nn.Module):
       "wgrad": stride 1 through `dwconv.dw_conv3x3_wg` (library forward and
           dx, K8 weight grad) where `supports_fused`; stride 2 on the
           library conv (JAX has no stride-2 wgrad route).
-    The kernels take and return NHWC; BatchNorm runs on the NCHW view."""
+    The kernels take and return NHWC; BatchNorm runs on the NCHW view.
+
+    Two gates of the JAX package's, off by default and read at each call,
+    leave the state_dict as it is: `conv1x1_dot` (None: the module default
+    `DEFAULT_CONV1X1_DOT`) runs a 1x1 groups-1 pad-0 conv as a channel
+    product (`conv1x1_dot`); `ops.bn.DEFAULT_MXU_BN` runs the train-mode
+    BatchNorm through `ops.bn.bn_train_norm` (`mxu_batch_norm_train`)."""
 
     MOMENTUM = 0.9        # flax's convention: the weight of the old value
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  bn_weight_init: float = 1.0, *, dw_kernel: str = "library",
+                 conv1x1_dot: bool | None = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         _check_dw_kernel(dw_kernel)
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
         self.dw_kernel = dw_kernel
+        self.conv1x1_dot = conv1x1_dot
         self.c = nn.Conv2d(in_features, features, kernel_size, stride, padding,
                            groups=groups, bias=False, device=device)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, device=device)
@@ -291,10 +358,22 @@ class ConvBN(nn.Module):
         library conv."""
         return dw_route(self.dw_kernel, self.c, self.stride, self.padding, self.groups, x)
 
+    def is_1x1(self) -> bool:
+        """A 1x1 groups-1 pad-0 conv: the `conv1x1_dot` route's sites."""
+        return self.c.kernel_size == (1, 1) and self.groups == 1 and self.padding == 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv_nchw(self.c, x.to(self.dtype), self.stride, self.padding, self.groups,
-                      self.dw_kernel)
-        return batch_norm(self.bn, y, self.training, self.MOMENTUM).permute(0, 2, 3, 1)
+        x = x.to(self.dtype)
+        use_dot = DEFAULT_CONV1X1_DOT if self.conv1x1_dot is None else self.conv1x1_dot
+        if use_dot and self.is_1x1():
+            y = conv1x1_dot(self.c, x, self.stride)
+        else:
+            y = conv_nchw(self.c, x, self.stride, self.padding, self.groups, self.dw_kernel)
+        if self.training and bn_ops.DEFAULT_MXU_BN:
+            y = mxu_batch_norm_train(self.bn, y, self.MOMENTUM)
+        else:
+            y = batch_norm(self.bn, y, self.training, self.MOMENTUM)
+        return y.permute(0, 2, 3, 1)
 
 
 def set_dw_kernel(model: nn.Module, mode: str) -> None:

@@ -45,6 +45,7 @@ from cream_tpu_torch.train.steps import loss_and_grads
 from cream_tpu_torch.zoo.load import autoformer_state_dict_from_jax, seeded_state_dict
 
 from test_torch_train import _leaves
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
@@ -53,16 +54,6 @@ TRAIN_GOLDEN = DATA / "autoformer_supernet_tiny_train_seed0.npz"
 NAME = "autoformer_supernet_tiny"
 WEIGHT_SEED, INPUT_SEED = 0, 1
 GOLDEN_CONFIGS = ("smallest", "largest", "seed:1")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once,
-    and torch's default of a thread a core oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

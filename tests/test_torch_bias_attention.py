@@ -21,6 +21,7 @@ from cream_tpu_torch.ops import bias_attention
 from cream_tpu_torch.ops.common import attention_bias_indices
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 from cream_tpu_torch.zoo.load import bias_attention_state_dict_from_jax
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _np(t):

@@ -42,6 +42,7 @@ from cream_tpu_torch.nas import cdarts_stage as S
 from cream_tpu_torch.train.optim import global_norm
 from cream_tpu_torch.zoo.load import cdarts_controller_state_dict_from_jax, seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts, jax_variables_from_port
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
@@ -52,15 +53,6 @@ NARROW = dict(num_classes=5, layer_num=3, cells_per_layer=1, n_nodes=2, C=4, aux
 RUN_CFG = dict(layer_num=2, cells_per_layer=1, n_nodes=2, C=4, pretrain_epochs=1,
                search_iters=1, steps_per_iter=2, aux_pool_size=4)
 bridge = cdarts_controller_state_dict_from_jax
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

@@ -20,6 +20,7 @@ from cream_tpu.zoo.import_torch import _TreeBuilder
 from cream_tpu_torch.models.efficientvit import CascadedGroupAttention
 from cream_tpu_torch.ops import cga, cga_core, fuse
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _np(t):

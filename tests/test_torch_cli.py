@@ -14,6 +14,7 @@ from cream_tpu_torch.cli import inference
 from cream_tpu_torch.data import transforms
 from cream_tpu_torch.models import create_model
 from cream_tpu_torch.zoo.load import load_pth, seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _image(seed, w, h):

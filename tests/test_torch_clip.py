@@ -54,6 +54,7 @@ from cream_tpu_torch.zoo.load import (clip_classifier_state_dict_from_jax, clip_
                                       seeded_state_dict)
 
 import chip_smoke
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"

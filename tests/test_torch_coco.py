@@ -20,14 +20,7 @@ from cream_tpu.train import coco_eval as JE
 from cream_tpu_torch.cli import train_mask_rcnn, train_retinanet
 from cream_tpu_torch.data import coco as C
 from cream_tpu_torch.train import coco_eval as E
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -41,21 +41,12 @@ from cream_tpu_torch.nn import layers
 from cream_tpu_torch.nn.layers import set_dw_kernel
 from cream_tpu_torch.ops import dwconv
 from cream_tpu_torch.zoo.load import cream_state_dict_from_jax, seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
 GOLDENS = ("cream_604", "cream_14")
 WEIGHT_SEED, INPUT_SEED = 0, 1
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once,
-    and torch's default of a thread a core oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def golden_path(name: str) -> Path:

@@ -28,21 +28,12 @@ from cream_tpu_torch.zoo.load import seeded_state_dict
 
 from test_torch_cream_nas import _np, _supernet, supernet_to_jax
 from test_torch_train import _leaves
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 TRAIN_STAGES = ((16, 2, 2),)
 TRAIN_ARCHS = [[5, -1], [5, 3], [1, 0]]
 META_STAGES = ((16, 1, 2),)
 META_ARCHS = ([1], [5])          # (student, teacher)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once,
-    and torch's default of a thread a core oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(seed, batch=8, img=32):

@@ -54,7 +54,8 @@ outputs on "cascade" within 8 ulps of "plain" with 6 K4 launches a
 forward, and a train step on "fused" launching K7/K9 at every site the
 port's enumeration counts, none refused; the data-parallel global
 BatchNorm's passes on the card (ATen's fused SyncBN kernels) against their
-written-out versions on the CPU.
+written-out versions on the CPU; the gated train-mode BN (`ops.bn`) on the
+card against the CPU.
 """
 import numpy as np
 import pytest
@@ -1842,3 +1843,40 @@ def test_global_batch_norm_passes_match_the_cpu(card, shape, channels_last, dtyp
     for i in (1, 6):
         lim = ulps * cpu[i].abs().clamp_min(2.0 ** -6) + 1e-5 * float(cpu[i].abs().max())
         assert bool(((gpu[i] - cpu[i]).abs() <= lim).all()), i
+
+
+@pytest.mark.parametrize("shape,channels_last,dtype", [
+    ((8, 96, 14, 14), True, torch.bfloat16), ((4, 32, 7, 9), True, torch.float32),
+    ((6, 5, 4, 24), False, torch.float32)])
+def test_bn_train_norm_matches_the_cpu(card, shape, channels_last, dtype):
+    """`ops.bn.bn_train_norm` (the gated train-mode BN, its backward folded
+    into dx) on the card against the CPU: y and dx within 1 ulp of the
+    dtype (2 for bf16) plus 1e-5 of their largest, the moments and the
+    scale and bias grads 1e-5 of their largest. An NCHW view with
+    channels_last strides normalizes over dim 1, an NHWC tensor over -1."""
+    from cream_tpu_torch.ops import bn
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g).to(dtype)
+    cdim = 1 if channels_last else -1
+    if channels_last:
+        x, dy = (t.to(memory_format=torch.channels_last) for t in (x, dy))
+    C = x.shape[cdim]
+    scale, bias = torch.rand(C, generator=g) + 0.5, torch.randn(C, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).requires_grad_()
+        sd, bd = scale.to(dev).requires_grad_(), bias.to(dev).requires_grad_()
+        mu, var = bn._moments(xd, cdim)
+        y = bn.bn_train_norm(xd, mu, var, sd, bd, 1e-5, channel_dim=cdim)
+        assert y.dtype == dtype and y.stride() == xd.stride()
+        dx, ds, db = torch.autograd.grad(y, (xd, sd, bd), dy.to(dev))
+        out[dev] = [t.detach().float().cpu() for t in (mu, var, ds, db, y, dx)]
+    ulps = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    for i, (gpu, cpu) in enumerate(zip(out["cuda"], out["cpu"])):
+        if i < 4:
+            torch.testing.assert_close(gpu, cpu, rtol=0,
+                                       atol=1e-5 * float(cpu.abs().max()) + 1e-6)
+        else:
+            lim = ulps * cpu.abs().clamp_min(2.0 ** -6) + 1e-5 * float(cpu.abs().max())
+            assert bool(((gpu - cpu).abs() <= lim).all()), i

@@ -42,20 +42,12 @@ from cream_tpu_torch.train import segmentation as S
 from cream_tpu_torch.train.state import TrainState
 from cream_tpu_torch.zoo.load import cydas_seg_state_dict_from_jax, seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "cydas_seg_seed0.npz"
 WEIGHT_SEED, INPUT_SEED, LABEL_SEED, PIXEL_SEED = 0, 1, 2, 3
 LIVE_HW, GOLDEN_HW = (65, 97), (97, 129)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t) -> np.ndarray:

@@ -37,21 +37,13 @@ from cream_tpu_torch.nn.layers import set_dw_kernel
 from cream_tpu_torch.zoo import load
 from cream_tpu_torch.zoo.load import seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts, jax_variables_from_port
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
 RETRAIN_GOLDEN = DATA / "cdarts_retrain_imagenet_seed0.npz"
 SEARCH_GOLDEN = DATA / "darts_search_cifar_seed0.npz"
 WEIGHT_SEED, INPUT_SEED = 0, 1
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

@@ -29,6 +29,7 @@ from cream_tpu.data import det_aug as jax_det_aug
 from cream_tpu.data import transforms as jax_transforms
 from cream_tpu_torch.data import auto_augment as aa
 from cream_tpu_torch.data import det_aug, image_io, pil_ops, transforms
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_port" / "train_transform_seed0.npz"
 # the golden's recipes: TrainAugConfig(), RandAugment m3 n2, the colour-jitter

@@ -51,6 +51,7 @@ from cream_tpu_torch.zoo.load import (deit_rpe_state_dict_from_jax, load_pth,
                                       mini_swin_state_dict_from_jax, seeded_state_dict)
 
 from test_torch_train import _leaves
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"

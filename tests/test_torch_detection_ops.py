@@ -19,14 +19,7 @@ from cream_tpu.ops import detection as JD
 from cream_tpu.train import detection as JT
 from cream_tpu_torch.ops import detection as D
 from cream_tpu_torch.train import detection as T
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _t(a):

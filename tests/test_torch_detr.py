@@ -41,6 +41,7 @@ from cream_tpu_torch.train.state import TrainState
 from cream_tpu_torch.train.steps import make_loss_step
 from cream_tpu_torch.zoo.load import detr_state_dict_from_jax, seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "detr_resnet50_irpe_k_seed0.npz"
@@ -49,15 +50,6 @@ PAPER_RPE = "rpe-2.0-product-ctx-1-k"
 GOLDEN_HW, GOLDEN_MAX_BOXES = (160, 224), 8
 NARROW = dict(num_classes=5, num_queries=6, hidden_dim=32, nhead=4, num_encoder_layers=2,
               num_decoder_layers=2, dim_feedforward=64, aux_loss=True)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t) -> np.ndarray:

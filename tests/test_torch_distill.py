@@ -57,6 +57,7 @@ from cream_tpu_torch.zoo.remap import load_1k_to_22k, remap_22k_to_1k
 
 from test_torch_train import (BATCH, IMG, LR, NARROW, _jax_loss_and_grads, _jax_tree,
                               _leaves, _name_bridge, _narrow_pair, _np_sd)
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "tinyvit_21m_224_distill_seed0.npz"
@@ -345,9 +346,13 @@ def _topk_batch(rng, batch, classes, K):
     return vals, idx
 
 
-def _distill_loss(num_classes, vals, idx):
-    target = jax_losses.dense_from_topk(jnp.asarray(vals), jnp.asarray(idx), num_classes)
-    return lambda logits, _: jax_losses.soft_target_ce(logits.astype(jnp.float32), target)
+def _distill_ce(logits, target):
+    """JAX's distillation loss on the dense target of the stored top-K."""
+    return jax_losses.soft_target_ce(logits.astype(jnp.float32), target)
+
+
+def _dense_target(num_classes, vals, idx):
+    return jax_losses.dense_from_topk(jnp.asarray(vals), jnp.asarray(idx), num_classes)
 
 
 def test_narrow_tinyvit_three_distill_steps_match_jax():
@@ -379,7 +384,8 @@ def test_narrow_tinyvit_three_distill_steps_match_jax():
             "image": torch.from_numpy(x), "label": target},
             lambda lg, y: losses.soft_target_ce(lg.float(), y))
         _, jgrads = _jax_loss_and_grads(jm, jstate.params, jstate.batch_stats,
-                                        jnp.asarray(x), None, _distill_loss(C, vals, idx))
+                                        jnp.asarray(x), _dense_target(C, vals, idx),
+                                        _distill_ce)
         lrs.append(state.tx.lr())
         batch = {"image": torch.from_numpy(x), "topk_values": torch.from_numpy(vals),
                  "topk_indices": torch.from_numpy(idx)}
@@ -424,7 +430,8 @@ def jax_tinyvit21m_distill_golden() -> dict:
     jm = jax_create_model("tiny_vit_21m_224", drop_path_rate=0.0)
     x, vals, idx = _golden_batch()
     loss, grads = _jax_loss_and_grads(jm, variables["params"], variables["batch_stats"],
-                                      jnp.asarray(x), None, _distill_loss(1000, vals, idx))
+                                      jnp.asarray(x), _dense_target(1000, vals, idx),
+                                      _distill_ce)
     import optax
     jstate = JaxTrainState.create(params=variables["params"], tx=optax.sgd(0.0),
                                   batch_stats=variables["batch_stats"])
@@ -514,14 +521,6 @@ STUDENT = ["model.name=tiny_vit_5m_224", "model.dtype=float32", "model.img_size=
            "data.img_size=64", "data.dataset=synthetic", "data.batch_size=4",
            "data.num_workers=2", "train.warmup_epochs=0", "train.epochs=1",
            "distill.enabled=true"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

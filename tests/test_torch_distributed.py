@@ -59,6 +59,7 @@ from cream_tpu_torch.train.zero_shot import build_zero_shot_classifier
 from cream_tpu_torch.zoo.load import seeded_state_dict
 
 from test_torch_train import IMG, LR, NARROW, _jax_tree, _leaves
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 GLOBAL_BATCH, WORLD = 8, 2
 DEPTHS = NARROW["depths"]

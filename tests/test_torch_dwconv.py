@@ -23,6 +23,7 @@ from cream_tpu_torch.models import create_model
 from cream_tpu_torch.models.efficientvit import PatchMerging
 from cream_tpu_torch.nn.layers import DW_KERNELS, ConvBN, set_dw_kernel
 from cream_tpu_torch.ops import dwconv
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 # (B, H, W, C, stride): a TinyViT-like map, the CGA's 7x7 q-depthwise at 16
 # channels, a stride-2 PatchMerging map, a TinyViT local_conv-like map at

@@ -28,6 +28,7 @@ from cream_tpu_torch.zoo.load import (efficientvit_state_dict_from_jax, load_pth
                                       seeded_state_dict)
 
 from test_torch_cga import cga_variables
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "efficientvit_m5_seed0.npz"

@@ -43,6 +43,7 @@ from cream_tpu_torch.train.steps import loss_and_grads, make_train_step
 from cream_tpu_torch.zoo.load import seeded_state_dict
 
 from test_torch_cga import cga_variables
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "efficientvit_m5_train_seed0.npz"
@@ -122,16 +123,6 @@ def jax_narrow_run():
         steps.append({"stats": _leaves(jstate.batch_stats), "loss": float(jmetrics["loss"]),
                       "grad_norm": float(jmetrics["grad_norm"])})
     return steps, _leaves(jstate.params), _leaves(jstate.batch_stats)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Hundreds of tiny ops per step: one thread runs them about as fast as
-    eight, and does not slow to a crawl beside the suite's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("route", DW_KERNELS)

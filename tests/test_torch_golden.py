@@ -10,6 +10,7 @@ from cream_tpu.cli import golden as jax_golden
 from cream_tpu_torch.cli import golden
 from cream_tpu_torch.models import create_model
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 # the narrowest registered classifier the JAX CLI can import (widths 64,
 # 128, 192; 2.3 M params)

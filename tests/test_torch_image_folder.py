@@ -25,18 +25,9 @@ from cream_tpu_torch.data.image_io import write_bmp
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.zoo.load import seeded_state_dict
 from test_torch_data_aug import field
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 CLASSES = ("n01440764", "n01443537", "n01484850")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once,
-    and torch's default of a thread a core oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_folder(root, per_class=(4, 3, 5), seed=0, png_every=3) -> list:
@@ -189,13 +180,16 @@ def test_synthetic_set_loaders_match_jax():
 
 
 def test_native_option():
+    """A dataset without `load_bytes` (the synthetic set): "auto" takes the
+    exact path, True raises, as the JAX loaders do (the native pipeline
+    itself: tests/test_torch_native_pipe.py)."""
     ds = imagenet.SyntheticDataset(4, 16, 2)
-    assert len(list(imagenet.eval_loader(ds, 2, 16, native="auto"))) == 2
+    _same_batches(imagenet.eval_loader(ds, 2, 16, native="auto"),
+                  imagenet.eval_loader(ds, 2, 16), ("image", "label", "index"))
     for loader in (lambda: imagenet.eval_loader(ds, 2, 16, native=True),
                    lambda: imagenet.train_loader(ds, 2, 0, native=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(RuntimeError, match="load_bytes"):
             next(iter(loader()))
-
 
 
 def test_worker_functions_pickle(folder, tmp_path):

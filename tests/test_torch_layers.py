@@ -22,6 +22,7 @@ from cream_tpu_torch.nn.layers import ConvBN, MBConv, MlpLN, linear
 from cream_tpu_torch.ops.common import attention_bias_indices, drop_path
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _np(t):

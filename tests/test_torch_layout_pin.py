@@ -22,6 +22,7 @@ from cream_tpu_torch.ops import layout_pin
 from cream_tpu_torch.train.steps import loss_and_grads, step_generator
 from cream_tpu_torch.train.losses import soft_target_ce
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _input(shape, seed=0):

@@ -44,6 +44,7 @@ from torch_port_bridges import assert_bridge_inverts
 
 from test_torch_retinanet import (NARROW_BB, _np, assert_grad_norms, images,
                                   jax_detector_variables)
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "mask_rcnn_efficientvit_m4_512_seed0.npz"
@@ -51,14 +52,6 @@ WEIGHT_SEED, INPUT_SEED, TARGET_SEED, ROWS_SEED, KEY_SEED = 0, 1, 2, 3, 7
 NC, FPN, FC, MASK_C, CANVAS, BATCH = 5, 16, 32, 16, 128, 2
 RPN_S, RCNN_S, PROPS = 64, 32, 48                 # the narrow step's sampler sizes
 bridge = mask_rcnn_state_dict_from_jax
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class NarrowJaxMaskRCNN(JM.MaskRCNN):

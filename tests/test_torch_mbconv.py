@@ -26,6 +26,7 @@ from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.nn.layers import MBConv, set_mbconv_kernel
 from cream_tpu_torch.ops import mbconv
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _np(t):

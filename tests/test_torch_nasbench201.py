@@ -28,20 +28,12 @@ from cream_tpu_torch.models import nasbench201 as N
 from cream_tpu_torch.nas import cdarts
 from cream_tpu_torch.zoo.load import nasbench201_state_dict_from_jax, seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts, jax_variables_from_port
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "nasbench201_infer_seed0.npz"
 WEIGHT_SEED, INPUT_SEED = 0, 1
 NARROW = dict(num_classes=5, C=4, N=1)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

@@ -42,6 +42,7 @@ from cream_tpu_torch.models.efficientvit import EfficientViT
 from cream_tpu_torch.train.detection import sigmoid_focal_loss
 from cream_tpu_torch.zoo.load import retinanet_state_dict_from_jax, seeded_state_dict
 from torch_port_bridges import assert_bridge_inverts
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
@@ -51,15 +52,6 @@ WEIGHT_SEED, INPUT_SEED, TARGET_SEED, ROWS_SEED = 0, 1, 2, 3
 NARROW_BB = dict(embed_dim=(48, 48, 64), key_dim=(8, 8, 8), depth=(1, 1, 1),
                  num_heads=(3, 3, 4), window_size=(7, 7, 7), kernels=(7, 5, 3, 3))
 NC, FPN, CANVAS, BATCH = 5, 16, 128, 2
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test: the suite runs in several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t) -> np.ndarray:

@@ -18,6 +18,7 @@ from cream_tpu.nn.rpe import IRPE as JaxIRPE
 from cream_tpu.ops import rpe as jrpe
 from cream_tpu_torch.nn.rpe import IRPE
 from cream_tpu_torch.ops import rpe
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 METHODS = ("EUCLIDEAN", "QUANT", "PRODUCT", "CROSS_ROWS", "CROSS_COLS")
 

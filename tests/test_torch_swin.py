@@ -12,6 +12,7 @@ Regenerate the golden files (JAX fp32 logits of s3_tiny, swin_tiny and
 mini_swin_tiny, and one fp32 JAX train step of s3_tiny) with
     PYTHONPATH=.:tests python tests/test_torch_swin.py
 """
+import functools
 from pathlib import Path
 
 import flax.linen as fnn
@@ -44,6 +45,7 @@ from cream_tpu_torch.zoo.load import (load_pth, mini_swin_state_dict_from_jax,
                                       seeded_state_dict, swin_state_dict_from_jax)
 
 from test_torch_train import _leaves
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data" / "torch_port"
@@ -405,10 +407,17 @@ def _batch(seed, batch=4, img=64, num_classes=10):
     return x, np.eye(num_classes, dtype=np.float32)[rng.integers(0, num_classes, batch)]
 
 
-def _jax_loss_and_grads(jm, params, x, y):
-    def f(p):
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(jm):
+    """value_and_grad of the soft-target loss over `jm`'s train forward,
+    jitted once per module (the batch is an argument)."""
+    def f(p, x, y):
         return jax_losses.soft_target_ce(jm.apply({"params": p}, x, train=True), y)
-    return jax.jit(jax.value_and_grad(f))(params)
+    return jax.jit(jax.value_and_grad(f))
+
+
+def _jax_loss_and_grads(jm, params, x, y):
+    return _jax_value_and_grad(jm)(params, x, y)
 
 
 def _port_tree(tensors, depths):

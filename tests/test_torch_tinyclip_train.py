@@ -50,6 +50,7 @@ from cream_tpu_torch.zoo.load import clip_state_dict_from_jax, seeded_state_dict
 import chip_smoke
 from test_torch_clip import (NARROW, _jax_gates, _np, _np_sd, gate_set, golden_text,
                              narrow_clip, pair_inputs, port_features)
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "tinyclip_39m_train_seed0.npz"

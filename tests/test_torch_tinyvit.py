@@ -27,6 +27,7 @@ from cream_tpu_torch.core.config import Config
 from cream_tpu_torch.models import create_model, list_models
 from cream_tpu_torch.models.tinyvit import TinyViT
 from cream_tpu_torch.zoo.load import seeded_state_dict, state_dict_from_jax
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "tinyvit_21m_224_seed0.npz"

@@ -13,6 +13,7 @@ B=2 on the seeded weights) with
     python tests/test_torch_train.py
 """
 import copy
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +45,7 @@ from cream_tpu_torch.train.state import TrainState
 from cream_tpu_torch.train.steps import (loss_and_grads, make_eval_step,
                                          make_train_step, step_generator)
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "data" / "torch_port" / "tinyvit_21m_224_train_seed0.npz"
@@ -86,13 +88,21 @@ def _batch(seed, batch=BATCH, img=IMG, num_classes=10):
     return x, np.eye(num_classes, dtype=np.float32)[labels], labels
 
 
-def _jax_loss_and_grads(jm, params, batch_stats, x, y, loss_fn):
-    """The JAX train step's loss and raw grads at (params, batch_stats)."""
-    def f(p):
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(jm, loss_fn):
+    """value_and_grad of `loss_fn` over `jm`'s train-mode forward, jitted
+    once per (module, loss): the state and the batch are its arguments, so
+    a multi-step test compiles it once."""
+    def f(p, batch_stats, x, y):
         logits, _ = jm.apply({"params": p, "batch_stats": batch_stats}, x,
                              train=True, mutable=["batch_stats"])
         return loss_fn(logits, y)
-    return jax.jit(jax.value_and_grad(f))(params)
+    return jax.jit(jax.value_and_grad(f))
+
+
+def _jax_loss_and_grads(jm, params, batch_stats, x, y, loss_fn):
+    """The JAX train step's loss and raw grads at (params, batch_stats)."""
+    return _jax_value_and_grad(jm, loss_fn)(params, batch_stats, x, y)
 
 
 def _narrow_pair():

@@ -9,21 +9,11 @@ import torch
 from cream_tpu_torch.cli import train
 from cream_tpu_torch.core.checkpoint import latest_step, restore_checkpoint
 from cream_tpu_torch.data.imagenet import SyntheticDataset
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 BASE = ["model.name=tiny_vit_5m_224", "model.dtype=float32", "model.img_size=64",
         "data.img_size=64", "data.dataset=synthetic", "data.batch_size=2",
         "data.num_workers=2", "train.warmup_epochs=0"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The steps are hundreds of tiny ops: one thread runs them about as
-    fast as eight on an idle machine, and does not slow to a crawl when the
-    suite's other workers hold the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from cream_tpu.ops.pallas.window_attention import \
     fused_window_attention as jax_fused_window_attention
 from cream_tpu_torch.ops import window_attention as wa
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _shift_mask(H, W, ws, shift):

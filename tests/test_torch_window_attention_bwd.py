@@ -17,6 +17,7 @@ from cream_tpu.ops.pallas.window_attention import \
 from cream_tpu_torch.ops import window_attention as wa
 from cream_tpu_torch.ops.window import window_partition, window_reverse
 from test_torch_window_attention import CASES, _shift_mask
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _inputs(seed, B, H, W, ws, heads, kd, dv, use_mask, use_qb):

@@ -19,6 +19,7 @@ from cream_tpu.ops.pallas.window_relayout import (window_partition_pallas,
 from cream_tpu_torch.nn.attention import WindowBiasAttention, fits_kernel
 from cream_tpu_torch.ops import window_relayout
 from cream_tpu_torch.zoo.load import seeded_state_dict
+from torch_threads import one_torch_thread_module  # noqa: F401
 
 
 def _input(shape, seed=0):
