@@ -52,7 +52,19 @@ non-zero):
      epoch and its eval: finite losses, 10 + 10 K1/K2 launches a rank-step
 9a2. core.dryrun.dryrun_multichip(W, device="cuda"): a data-parallel
      TinyViT-5M step and the contrastive gradient through the gather on W
-     NCCL ranks
+     NCCL ranks (the third check, tensor parallelism, runs at even W)
+9a3. tensor × data parallelism of the CLIP towers (`core.tensor_parallel`,
+     the CLIP blocks split by heads, `train.steps.make_contrastive_step`):
+     TinyCLIP-39M/16 bf16 at full width, bs256: the first vision and text
+     blocks' model ranks 0 and 1 of 2 run without a group and summed by
+     hand against the unsplit block (4 bf16 ulps); the contrastive Adam
+     step at (data 1, model 1) under a one-rank NCCL group (the blocks
+     split over it) against the plain step on the same global batch (loss
+     within 5e-3, below 2 bf16 ulps; grad norm 2%; each tensor's grad,
+     gathered whole, within 10% of its norm), pairs/s by CUDA events plain,
+     TP, TP, plain, the model group's all-reduces' device ms; with 2 cards
+     also (data 1, model 2), with 4 (data 2, model 2) and
+     dryrun_multichip(4), each against the one-card step
  9a. Swin goldens: s3_tiny, swin_tiny and mini_swin_tiny fp32 (B=2) on
      seeded weights against the JAX package's logits stored in
      tests/data/torch_port/ (12, 12 and 0 fp32 K1 launches), and one fp32
@@ -352,6 +364,9 @@ non-zero):
      pin_layouts on: 3 K11 launches (none in the backward), the loss bit for
      bit the unpinned step's, per-tensor grads no further from it than a
      second unpinned step is
+Every timing by CUDA graphs or CUDA events takes 5 reps of 10 calls, but a
+call over 5 ms (a plain version, an unfused module, a whole forward), which
+is timed over runs of ~20 ms in 3 reps (`timing_plan`).
 The total wall time is printed, then the card, then a JSON summary of the
 kernels (K1/K2 rows with an `s3_tiny` sum beside TinyViT's, K1's with a
 `swin_base` sum); the last line
@@ -511,9 +526,35 @@ def bound(dtype: torch.dtype, ref: torch.Tensor) -> float:
     return 1e-5 * top
 
 
-def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
-    """Median over `reps` of the mean time of `iters` calls, CUDA events."""
+# a call slower than SLOW_CALL_MS (a plain version, an unfused module, a
+# whole forward) is timed over runs of ~SLOW_RUN_MS in SLOW_REPS reps
+SLOW_CALL_MS, SLOW_RUN_MS, SLOW_REPS = 5.0, 20.0, 3
+
+
+def warm_ms(fn) -> float:
+    """One call of `fn` (its warm-up), timed by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def timing_plan(first_ms: float, iters: int, reps: int) -> tuple[int, int]:
+    """(iters, reps) for a callable whose warm-up call took `first_ms`:
+    as asked, or for a call over SLOW_CALL_MS ~SLOW_RUN_MS of calls a rep
+    in SLOW_REPS reps."""
+    if first_ms <= SLOW_CALL_MS:
+        return iters, reps
+    return max(1, min(iters, round(SLOW_RUN_MS / first_ms))), min(reps, SLOW_REPS)
+
+
+def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Median over `reps` of the mean time of `iters` calls, CUDA events
+    (fewer for a slow call: `timing_plan`)."""
+    iters, reps = timing_plan(warm_ms(fn), iters, reps)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -529,10 +570,10 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5) -> float:
 
 def graph_ms(fn, iters: int = 10, reps: int = 5) -> float:
     """Device time of one call of `fn`: `iters` calls captured in one CUDA
-    graph, the median over `reps` replays (CUDA events) over `iters`. The
-    host's cost of issuing each call, which `cuda_ms` measures for a launch
-    shorter than it, is out."""
-    fn()
+    graph, the median over `reps` replays (CUDA events) over `iters` (fewer
+    for a slow call: `timing_plan`). The host's cost of issuing each call,
+    which `cuda_ms` measures for a launch shorter than it, is out."""
+    iters, reps = timing_plan(warm_ms(fn), iters, reps)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1625,8 +1666,11 @@ def phase_evit_graph(name: str, batch: int) -> dict:
     blocks = sum(isinstance(m, CascadedGroupAttention) for m in model.modules())
     routes = ("cascade", "core", "plain")
 
+    calls = dict.fromkeys(routes, 0)
+
     def forward(route):
         def run():
+            calls[route] += 1
             model.set_attn_kernel(route)
             return model(x)
         return run
@@ -1634,11 +1678,12 @@ def phase_evit_graph(name: str, batch: int) -> dict:
         for route in routes:
             forward(route)()                     # the folds, cached
         torch.cuda.synchronize()
-        n0 = cga.LAUNCHES
+        n0, c0 = cga.LAUNCHES, calls["cascade"]
         rounds = graph_rounds(*(forward(r) for r in routes))
-    # graph_ms runs fn once and captures it 10 times a round
-    check(cga.LAUNCHES - n0 == GRAPH_ROUNDS * 11 * blocks,
-          f"{name}: {cga.LAUNCHES - n0} K4 launches issued for the cascade graphs")
+    # each cascade forward graph_ms runs or captures issues one K4 a block
+    n = calls["cascade"] - c0
+    check(cga.LAUNCHES - n0 == n * blocks and n >= 2 * GRAPH_ROUNDS,
+          f"{name}: {cga.LAUNCHES - n0} K4 launches issued for {n} cascade forwards")
     ms = {r: statistics.median(t) for r, t in zip(routes, rounds)}
     print(f"graph {name} bf16 B={batch} eval forward (device, CUDA graph, {GRAPH_ROUNDS} interleaved rounds "
           f"cascade/core/plain): " + ", ".join(
@@ -5816,6 +5861,269 @@ def phase_dryrun() -> dict:
     return res
 
 
+# ---- tensor × data parallelism of the CLIP towers (slice 25) ----
+
+TP_MODEL = "tinyclip_vit_39m_16_text_19m"
+TP_BATCH = 256            # the global batch of the tensor-parallel phase
+TP_STEPS = 5              # timed steps, after 2
+TP_ULPS = 4               # the hand-summed shards against the unsplit block
+# the TP step against the one-card step: the loss at an fp32 scale (the bf16
+# runs read 1e-4 to 4.4e-4; 2 bf16 ulps at 5.59 would be 6.25e-2, and a
+# random-init contrastive loss sits near ln 256 whatever the features), and
+# each tensor's grad within TP_GRAD_REL of its norm plus TP_GRAD_FLOOR of
+# the global norm (on the CPU in bf16 at width 256 the intact split read a
+# worst 2.2e-2; with copy_to_model's backward sum left out the LayerNorms
+# upstream read 0.91 to 0.99)
+TP_LOSS_ABS = 5e-3
+TP_GRAD_REL, TP_GRAD_FLOOR = 0.1, 1e-3
+
+
+def tp_model(device) -> torch.nn.Module:
+    """TinyCLIP-39M/16 bf16 on seeded weights on `device`: the same bits on
+    every card."""
+    model = create_model(TP_MODEL, device=device, dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    return model
+
+
+def tp_step(model: torch.nn.Module, images: torch.Tensor, text: torch.Tensor):
+    """One contrastive Adam step (1e-4, no decay: optax's adam) of `model`
+    on its rows (`train.steps.make_contrastive_step`): under a process group
+    the TP × DP step, without one the plain step. Returns (a callable that
+    runs the next step, the first step's loss and grad norm)."""
+    from cream_tpu_torch.train.steps import make_contrastive_step
+    state = TrainState(model, make_adamw(1e-4, weight_decay=0.0))
+    step = make_contrastive_step()
+    _, metrics = step(state, images, text)
+    first = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    return (lambda: step(state, images, text)), first
+
+
+def bf16_ulps(err: float, ref: torch.Tensor) -> float:
+    """`err` in bf16 ulps at the largest |ref|."""
+    return err / 2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7)
+
+
+def phase_tp_shards(full: torch.nn.Module) -> dict:
+    """(a) The shard math at full width on this card: model ranks 0 and 1 of
+    2 built from `full`'s weights (`split_clip`, no group: each returns its
+    partial products), for the first vision block (197 tokens) and the
+    first text block (77 tokens, causal) at bs TP_BATCH in bf16: the
+    attention's and the MLP's partial outputs summed by hand (fp32, the
+    replicated bias once, then bf16) and the block composed from them,
+    each within TP_ULPS bf16 ulps of the unsplit one's largest |value|."""
+    from cream_tpu_torch.core.tensor_parallel import ModelShard, row_parallel_out
+    from cream_tpu_torch.models.clip import split_clip
+    from cream_tpu_torch.nn.layers import linear
+    halves = [split_clip(full, ModelShard(r, 2)) for r in range(2)]
+    device = next(full.parameters()).device
+    gen = torch.Generator(device).manual_seed(9)
+    dt, errs = torch.bfloat16, {}
+    for tower, length in (("vision", 197), ("text", 77)):
+        def block(m):
+            return (m.visual.transformer if tower == "vision" else m.transformer).resblocks[0]
+        blk, parts = block(full), [block(h) for h in halves]
+        width = blk.ln_1.weight.shape[0]
+        x = torch.randn(TP_BATCH, length, width, generator=gen, device=device).to(dt)
+        mask = (None if tower == "vision" else
+                torch.full((length, length), -np.inf, device=device).triu(1))
+
+        def attn_sum(y):
+            return row_parallel_out(sum(p.attn.partial(y, mask) for p in parts),
+                                    blk.attn.out_proj.bias, dt, None)
+
+        def mlp_sum(y):
+            return row_parallel_out(sum(p.mlp.partial(y, p.act, dt) for p in parts),
+                                    blk.mlp.c_proj.bias, dt, None)
+        with torch.no_grad():
+            y = blk.ln_1(x)
+            x1 = x + blk.attn(y, mask)
+            z = blk.ln_2(x1)
+            pairs = {"attn": (attn_sum(y), blk.attn(y, mask)),
+                     "mlp": (mlp_sum(z), linear(blk.mlp.c_proj, blk.mlp.hidden(z, blk.act, dt),
+                                                dt))}
+            xs = x + attn_sum(y)
+            pairs["block"] = (xs + mlp_sum(blk.ln_2(xs)), blk(x, mask))
+        for part, (got, want) in pairs.items():
+            err = float((got.float() - want.float()).abs().max())
+            errs[f"{tower}_{part}"] = bf16_ulps(err, want)
+    print(f"tp shards TinyCLIP-39M/16 bf16 bs{TP_BATCH}, model ranks 0 + 1 of 2 summed by hand "
+          f"against the unsplit block (bf16 ulps at the largest |value|, bound {TP_ULPS}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= TP_ULPS, f"tp shards: {k} {v:.2f} bf16 ulps from the unsplit block")
+    return errs
+
+
+def tp_grads(model: torch.nn.Module, images: torch.Tensor, text: torch.Tensor) -> dict:
+    """The contrastive loss's grads of `model` on this rank's rows, before
+    any step: averaged over the data group and gathered whole over the
+    model group (fp32; the one-card grads without a process group)."""
+    from cream_tpu_torch.core.tensor_parallel import gather_tree
+    from cream_tpu_torch.train.steps import contrastive_loss_and_grads, data_parallel_mean
+    _, grads = contrastive_loss_and_grads(model, images, text)
+    data_parallel_mean(grads, {})
+    return {k: v.float() for k, v in gather_tree(grads, port_mesh.model_group()).items()}
+
+
+def check_tp_grads(tag: str, got: dict, want: dict) -> float:
+    """Each tensor's grad of a TP × DP step against the one-card step's:
+    |got - want| within TP_GRAD_REL of |want| plus TP_GRAD_FLOOR of the
+    global norm. Returns the worst |got - want| / |want|."""
+    gn = float(global_norm(want.values()))
+    worst, name, used = 0.0, "", 0.0
+    for k, w in want.items():
+        err, norm = float((got[k].to(w.device) - w).norm()), float(w.norm())
+        used = max(used, err / (TP_GRAD_REL * norm + TP_GRAD_FLOOR * gn))
+        if norm > 0 and err / norm > worst:
+            worst, name = err / norm, k
+    print(f"tp {tag}: per-tensor grads of {len(want)} tensors vs one card, worst "
+          f"|diff|/|grad| {worst:.2e} ({name}); the most of the bound used {used:.3f} (bound "
+          f"{TP_GRAD_REL:g} of |grad| + {TP_GRAD_FLOOR:g} of the global norm {gn:.4f})")
+    check(used <= 1, f"tp {tag}: a grad beyond {TP_GRAD_REL:g} of its norm")
+    return worst
+
+
+def check_tp_step(tag: str, got: dict, want: dict) -> dict:
+    """A TP × DP step against the plain one-card step on the same global
+    batch: loss within TP_LOSS_ABS (below 2 bf16 ulps), grad norm within
+    2%."""
+    loss_lim = min(TP_LOSS_ABS, 2 * 2.0 ** (np.floor(np.log2(want["loss"])) - 7))
+    err = {"loss": abs(got["loss"] - want["loss"]), "loss_bound": loss_lim,
+           "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]}
+    print(f"tp {tag}: loss {got['loss']:.5f} vs one card {want['loss']:.5f} (|diff| "
+          f"{err['loss']:.2e}, bound {loss_lim:.2e}); grad_norm {got['grad_norm']:.4f} vs "
+          f"{want['grad_norm']:.4f} (rel {err['grad_norm_rel']:.2e}, bound 2e-2)")
+    check(err["loss"] <= loss_lim, f"tp {tag}: loss {got['loss']} vs {want['loss']}")
+    check(err["grad_norm_rel"] <= 2e-2, f"tp {tag}: grad_norm {got['grad_norm']} vs "
+          f"{want['grad_norm']}")
+    return err
+
+
+def tp_rank(out: str, model: int, steps: int = TP_STEPS) -> None:
+    """A rank of the multi-card check (`launch_ranks`): the (W // model,
+    model) layout (`init_distributed(model=)`), the split TinyCLIP-39M/16 on
+    this rank's data rows of the global batch, its first step's loss and
+    grad norm, then the pairs/s of `steps` timed steps (CUDA events) and the
+    device ms of the model group's and the data group's all-reduces a step
+    (`profile` ranges); to out/rank<r>.npz."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import pair_inputs
+    from cream_tpu_torch.core.tensor_parallel import current_shard
+    from cream_tpu_torch.models.clip import split_clip
+    port_mesh.init_distributed("cuda", model=model)
+    device = port_mesh.local_device("cuda")
+    full = tp_model(device)
+    images, text = pair_inputs(full, TP_BATCH, seed=3)
+    n, d = TP_BATCH // port_mesh.data_size(), port_mesh.data_rank()
+    rows = images[d * n:(d + 1) * n], text[d * n:(d + 1) * n]
+    split = split_clip(full, current_shard())
+    del full
+    grads = tp_grads(split, *rows)
+    if port_mesh.rank() == 0:
+        torch.save({k: v.cpu() for k, v in grads.items()}, Path(out) / "grads.pt")
+    del grads
+    run, first = tp_step(split, *rows)
+    pairs = timed_images_per_s(run, TP_BATCH, steps, 2)
+    prof = profile(run, steps=3, warmup=1, ranges=("model_all_reduce", "grad_all_reduce"))
+    np.savez(Path(out) / f"rank{port_mesh.rank()}.npz", pairs_per_s=pairs,
+             layout=np.asarray([port_mesh.data_size(), port_mesh.model_size()]),
+             model_ar_ms=prof["ranges_ms"]["model_all_reduce"],
+             grad_ar_ms=prof["ranges_ms"]["grad_all_reduce"], device_ms=prof["device_ms"],
+             wall_ms=prof["wall_ms"], **first)
+    port_mesh.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tp() -> dict:
+    """Tensor × data parallelism of the CLIP towers (`core.tensor_parallel`,
+    `models.clip` split by heads, `train.steps.make_contrastive_step`):
+    (a) the shards summed by hand against the unsplit blocks
+    (`phase_tp_shards`); the TP step at (data 1, model 1) under a one-rank
+    NCCL group in this process (its blocks split over that group, every
+    model-group sum an NCCL all-reduce) against the plain step on the same
+    global batch of TP_BATCH (`check_tp_step`, and the first step's grads
+    per tensor: `check_tp_grads`), pairs/s by CUDA events plain, TP, TP, plain,
+    and the TP step's profile with the model group's all-reduces' device ms;
+    (b) with 2 or more cards (data 1, model 2), with 4 or more also (data
+    2, model 2), each a card a rank (`tp_rank`), against the one-card step,
+    and `dryrun_multichip(4, "cuda")`'s three checks."""
+    from cream_tpu_torch.cli.profile_step import profile
+    from cream_tpu_torch.cli.speed_test import pair_inputs
+    from cream_tpu_torch.core.tensor_parallel import ModelShard
+    from cream_tpu_torch.models.clip import split_clip
+    device = torch.device("cuda", torch.cuda.current_device())
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = tp_model(device)
+    res = {"shards_ulps": phase_tp_shards(full)}
+    images, text = pair_inputs(full, TP_BATCH, seed=3)
+    want_grads = tp_grads(full, images, text)
+    plain, want = tp_step(copy.deepcopy(full), images, text)
+    pairs = {"plain": [timed_images_per_s(plain, TP_BATCH, TP_STEPS, 2)], "tp": []}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        split = split_clip(full, ModelShard(0, 1, dist.group.WORLD))
+        tag = "(data 1, model 1) in process, one-rank NCCL group"
+        grads_rel = {"1x1": check_tp_grads(tag, tp_grads(split, images, text), want_grads)}
+        run, got = tp_step(split, images, text)
+        res["errors"] = {"1x1": check_tp_step(tag, got, want)}
+        for _ in range(2):
+            pairs["tp"].append(timed_images_per_s(run, TP_BATCH, TP_STEPS, 2))
+        prof = profile(run, steps=3, warmup=1, ranges=("model_all_reduce", "grad_all_reduce"))
+    finally:
+        dist.destroy_process_group()
+    pairs["plain"].append(timed_images_per_s(plain, TP_BATCH, TP_STEPS, 2))
+    del full, plain, run, split
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(pairs_per_s=pairs, profile=prof, layouts={}, grads_rel=grads_rel)
+    cards = torch.cuda.device_count()
+    for world, model in ((2, 2), (4, 2)):
+        if cards < world:
+            continue
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+            launch_ranks(world, ["-c", f"import chip_smoke as c; c.tp_rank({out!r}, {model})"],
+                         600.0, cwd=str(ROOT))
+            ranks = [dict(np.load(Path(out) / f"rank{r}.npz")) for r in range(world)]
+            got_grads = torch.load(Path(out) / "grads.pt")
+        tag = f"(data {world // model}, model {model})"
+        grads_rel[tag] = check_tp_grads(f"{tag}, a card a rank", got_grads, want_grads)
+        del got_grads
+        res["errors"][tag] = check_tp_step(
+            f"{tag}, a card a rank", {k: float(ranks[0][k]) for k in ("loss", "grad_norm")},
+            want)
+        res["layouts"][tag] = {k: [float(r[k]) for r in ranks]
+                               for k in ("pairs_per_s", "model_ar_ms", "grad_ar_ms",
+                                         "device_ms", "wall_ms")}
+    if cards >= 4:
+        t0 = time.time()
+        dry = dryrun_multichip(4, device="cuda")
+        t = dry["tensor_parallel"]
+        print(f"dryrun_multichip(4, cuda): step {dry['step']}, loss {dry['loss']:.4f}; "
+              f"contrastive loss {dry['contrastive']['loss']:.4f}; tensor parallelism at "
+              f"(data {t['layout'][0]}, model {t['layout'][1]}): loss {t['loss']:.4f}, in_proj "
+              f"grads {t['in_proj_grad_shapes']}; {time.time() - t0:.1f} s")
+        res["dryrun4"] = {"loss": dry["loss"], "tensor_parallel": t}
+    ranges = prof["ranges_ms"]
+    print(f"tp step TinyCLIP-39M/16 bf16 global bs{TP_BATCH}, CUDA events over {TP_STEPS} "
+          f"steps after 2: plain {' / '.join(f'{v:.1f}' for v in pairs['plain'])} pairs/s, "
+          f"(data 1, model 1) {' / '.join(f'{v:.1f}' for v in pairs['tp'])} pairs/s; its "
+          f"profile: device {prof['device_ms']:.2f} of {prof['wall_ms']:.2f} ms (idle "
+          f"{prof['idle_share']:.3f}), model-group all-reduces {ranges['model_all_reduce']:.3f} "
+          f"ms, grad all-reduce {ranges['grad_all_reduce']:.3f} ms a step"
+          + "".join(f"; {tag} pairs/s by rank "
+                    + " / ".join(f"{v:.1f}" for v in lay["pairs_per_s"])
+                    + ", model-group all-reduces " + " / ".join(f"{v:.3f}"
+                                                               for v in lay["model_ar_ms"])
+                    + " ms, grad all-reduce " + " / ".join(f"{v:.3f}" for v in lay["grad_ar_ms"])
+                    + " ms a step" for tag, lay in res["layouts"].items())
+          + ("" if res["layouts"] else "; more layouts not run: one card")
+          + f" [{card_info()}]")
+    return res
+
+
 def evit_row(name: str, src: str, line: int, launches: int, err: float, t: dict,
              keys: tuple[str, ...], extra: dict) -> dict:
     """A kernel row of the JSON line; times summed over one EfficientViT-M5
@@ -5863,6 +6171,9 @@ def main() -> None:
     dp_cli = phase_dp_cli()
     dryrun = phase_dryrun()
     dp_s = time.time() - t_dp
+    t_tp = time.time()
+    tp = phase_tp()
+    tp_s = time.time() - t_tp
     for name in ("s3_tiny", "swin_tiny", "mini_swin_tiny"):
         phase_golden(name, DATA / f"{name}_seed0.npz")
     phase_train_golden("s3_tiny", DATA / "s3_tiny_train_seed0.npz")
@@ -6219,6 +6530,16 @@ def main() -> None:
           f"device time a step; torchrun cli.train {dp_cli['steps']} steps in "
           f"{dp_cli['seconds']:.1f} s; dryrun_multichip({dp_world()}) loss {dryrun['loss']:.4f} "
           f"[{card}]")
+    tpp = tp["pairs_per_s"]
+    print(f"tensor × data parallelism of the CLIP towers (phase 9a3, {tp_s:.1f} s), "
+          f"{torch.cuda.device_count()} card(s): TinyCLIP-39M/16 contrastive step bf16 global "
+          f"bs{TP_BATCH} at (data 1, model 1) {statistics.median(tpp['tp']):.1f} pairs/s (the "
+          f"plain step {statistics.median(tpp['plain']):.1f} in the same run), model-group "
+          f"all-reduces {tp['profile']['ranges_ms']['model_all_reduce']:.3f} ms of device time "
+          f"a step; the shards summed by hand within "
+          f"{max(tp['shards_ulps'].values()):.2f} bf16 ulps of the unsplit blocks"
+          + "".join(f"; {tag} {statistics.median(lay['pairs_per_s']):.1f} pairs/s"
+                    for tag, lay in tp["layouts"].items()) + f" [{card}]")
     print(f"total wall time {time.time() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -5,6 +5,15 @@ checkpoint is a directory `<ckpt_dir>/<step>/` holding `state.pt` (the
 state's `state_dict()`) and `extra.json` (small JSON metadata). A step directory appears only once
 complete (it is written under a temporary name and renamed), and the newest
 `max_to_keep` are kept. Files are read back with `weights_only=True`.
+
+A state split over a model group (`core.tensor_parallel`) is saved whole:
+the model ranks' shards of its weights, optimizer slots and EMA are
+gathered into the full state dict, which loads on one card. Under a model
+group (`core.mesh.init_distributed(model=M)`) every rank calls the save:
+the model peers of data rank 0 (ranks 0 to M - 1) gather, rank 0 writes,
+and the other data ranks return at once. A save that a model peer of data
+rank 0 does not call waits on the gather forever. `restore_checkpoint` cuts
+a full checkpoint back to the state's shard.
 """
 from __future__ import annotations
 
@@ -16,6 +25,9 @@ import threading
 from typing import Any
 
 import torch
+
+from cream_tpu_torch.core.mesh import data_rank, model_group, model_rank, model_size
+from cream_tpu_torch.core.tensor_parallel import gather_tree, shard_state_dict
 
 
 def _cpu(tree: Any) -> Any:
@@ -30,8 +42,15 @@ def _cpu(tree: Any) -> Any:
 
 
 def _snapshot(state: Any) -> Any:
-    """What a checkpoint of `state` holds, copied to the CPU."""
-    return _cpu(state.state_dict() if hasattr(state, "state_dict") else state)
+    """What a checkpoint of `state` holds, copied to the CPU, on the rank
+    that writes it; None on the others. A split state's shards are
+    gathered whole over the model group of data rank 0 (see the module's
+    doc)."""
+    if model_group() is not None and data_rank() != 0:
+        return None
+    tree = state.state_dict() if hasattr(state, "state_dict") else state
+    tree = _cpu(gather_tree(tree, model_group()))
+    return tree if model_rank() == 0 else None
 
 
 def steps(ckpt_dir: str) -> list[int]:
@@ -66,8 +85,11 @@ def _write(ckpt_dir: str, step: int, snap: Any, extra: dict | None,
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     extra: dict | None = None, max_to_keep: int = 3) -> None:
     """state: an object with `state_dict()` (e.g. TrainState) or a dict of
-    tensors; extra: small JSON-able metadata."""
-    _write(ckpt_dir, step, _snapshot(state), extra, max_to_keep)
+    tensors; extra: small JSON-able metadata. Under a model group every
+    rank calls it (the module's doc)."""
+    snap = _snapshot(state)
+    if snap is not None:
+        _write(ckpt_dir, step, snap, extra, max_to_keep)
 
 
 class AsyncCheckpointer:
@@ -86,6 +108,8 @@ class AsyncCheckpointer:
     def save(self, step: int, state: Any, extra: dict | None = None) -> None:
         self.wait()
         snap = _snapshot(state)
+        if snap is None:
+            return
 
         def run():
             try:
@@ -133,8 +157,11 @@ def restore_checkpoint(ckpt_dir: str, state: Any, step: int | None = None
                        ) -> tuple[Any, dict | None, int]:
     """Load the checkpoint of `step` (default: the newest) into `state` (its
     `load_state_dict`; a plain dict is replaced) and return (state, extra,
-    step)."""
+    step). Under a model group the full checkpoint is cut to this rank's
+    shard."""
     sd, path, step = _load(ckpt_dir, step)
+    if model_group() is not None:
+        sd = shard_state_dict(sd, model_rank(), model_size())
     if hasattr(state, "load_state_dict"):
         state.load_state_dict(sd)
     else:

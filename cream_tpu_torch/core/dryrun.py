@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `dryrun_multichip` (`__graft_entry__.py`):
 `dryrun_multichip(n)` starts n ranks, one process each (NCCL on n cards;
-gloo processes with `device="cpu"`), and each runs two checks:
+gloo processes with `device="cpu"`), and each runs the JAX dry run's three
+checks (the third where n is even, as in JAX):
 
   1. one data-parallel train step of TinyViT-5M (16 classes, 64 x 64
      images, a global batch of 2n: 2 rows a rank) with AdamW(1e-3, weight
@@ -10,11 +11,18 @@ gloo processes with `device="cpu"`), and each runs two checks:
      finite;
   2. CLIP's contrastive loss over a global batch of 4n features gathered
      from the ranks (`distill.clip_losses` with the group): its gradient
-     flows back through the gather and is finite.
-
-The JAX dry run's third check, the CLIP towers split by heads over a
-tensor-parallel `model` axis (`partition_by_rules`, `CLIP_TP_RULES`), is
-not ported yet: the port's CLIP blocks are not split by heads.
+     flows back through the gather and is finite;
+  3. tensor × data parallelism: the ranks split into a (data, model)
+     layout with JAX's choice, model = 4 where n divides by 4, else 2, and
+     data = n // model (`core.mesh.init_distributed(device, model=)`); a
+     CLIP whose blocks are split by heads over the model group
+     (`core.tensor_parallel`, `CLIP_TP_RULES`) takes one contrastive grad
+     step on 2 rows a data rank (zero images, token ids of ones, as JAX's):
+     the loss is finite and `in_proj_weight`'s grad on each rank has the
+     shard's shape. JAX's check runs a 2-head CLIP of width 128, whose
+     fused in_proj columns XLA splits anywhere; the port splits whole heads,
+     so it takes width 256 in both towers: 4 heads of 64, which divide by
+     either model size.
 
     python -c "from cream_tpu_torch.core.dryrun import dryrun_multichip; \
 dryrun_multichip(2, device='cpu')"
@@ -34,6 +42,16 @@ import torch
 
 PACKAGE_PARENT = Path(__file__).resolve().parents[2]
 CLIP_BATCH, CLIP_DIM, CLIP_SCALE = 4, 16, 50.0
+# the third check's CLIP: JAX's dry-run config at width 256 (4 heads a tower)
+TP_CLIP = dict(embed_dim=64, vision_width=256, vision_layers=2, vision_patch=16,
+               image_size=64, text_width=256, text_layers=2, text_heads=4,
+               context_length=16, vocab_size=1000)
+
+
+def tp_layout(n: int) -> tuple[int, int]:
+    """(data, model) of the third check on n ranks: JAX's choice."""
+    tp = 4 if n % 4 == 0 else 2
+    return n // tp, tp
 
 
 def free_port() -> int:
@@ -86,10 +104,11 @@ def clip_features(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 900.0) -> dict:
-    """Run the dry run's two checks on n ranks (see the module's doc);
-    raises if a check fails or, on CUDA, if fewer than n cards are present.
-    Returns rank 0's step metrics and the contrastive check's inputs, loss
-    and gradient (the ranks' rows in rank order)."""
+    """Run the dry run's checks on n ranks (see the module's doc); raises
+    if a check fails or, on CUDA, if fewer than n cards are present.
+    Returns rank 0's step metrics, the contrastive check's inputs, loss and
+    gradient (the ranks' rows in rank order), and the third check's layout,
+    loss and every rank's `in_proj_weight` grad shape (None for odd n)."""
     if torch.device(device).type == "cuda":
         if torch.cuda.device_count() < n:
             raise RuntimeError(f"dryrun_multichip({n}) needs {n} cards, "
@@ -101,15 +120,21 @@ def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 900.0) -> di
                          "--out", out], timeout)
         ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(n)]
     img, txt = clip_features(n)
+    tp = None
+    if n % 2 == 0:
+        tp = {"layout": tp_layout(n), "loss": float(ranks[0]["tp_loss"]),
+              "in_proj_grad_shapes": [tuple(int(d) for d in r["tp_grad_shape"])
+                                      for r in ranks]}
     return {"loss": float(ranks[0]["loss"]), "step": int(ranks[0]["step"]),
             "grad_norm": float(ranks[0]["grad_norm"]),
             "contrastive": {"image": img, "text": txt, "scale": CLIP_SCALE,
                             "loss": float(ranks[0]["clip_loss"]),
-                            "grad": np.concatenate([r["clip_grad"] for r in ranks])}}
+                            "grad": np.concatenate([r["clip_grad"] for r in ranks])},
+            "tensor_parallel": tp}
 
 
 def _rank_main(device: str, out: str) -> None:
-    """One rank of the dry run: its two checks, then its results to
+    """One rank of the dry run: its checks, then its results to
     `out/rank<r>.npz`."""
     from cream_tpu_torch.core import mesh
     from cream_tpu_torch.distill.clip_losses import clip_contrastive_loss
@@ -143,11 +168,38 @@ def _rank_main(device: str, out: str) -> None:
     (grad,) = torch.autograd.grad(clip_loss, a)
     if not bool(torch.isfinite(grad).all()):
         raise RuntimeError("dry run contrastive gradient not finite")
-    np.savez(os.path.join(out, f"rank{r}.npz"), loss=loss, step=state.step,
-             grad_norm=float(metrics["grad_norm"]), clip_loss=float(clip_loss),
-             clip_grad=grad.cpu().numpy())
+    res = dict(loss=loss, step=state.step, grad_norm=float(metrics["grad_norm"]),
+               clip_loss=float(clip_loss), clip_grad=grad.cpu().numpy())
+    if n % 2 == 0:
+        res.update(_tp_check(device, dev, n))
+    np.savez(os.path.join(out, f"rank{r}.npz"), **res)
     mesh.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _tp_check(device: str, dev: torch.device, n: int) -> dict:
+    """The third check on this rank (see the module's doc)."""
+    from cream_tpu_torch.core import mesh
+    from cream_tpu_torch.core.tensor_parallel import current_shard
+    from cream_tpu_torch.models.clip import CLIP, CLIPConfig, split_clip
+    from cream_tpu_torch.train.steps import contrastive_loss_and_grads
+    from cream_tpu_torch.zoo.load import seeded_state_dict
+
+    data, tp = tp_layout(n)
+    mesh.init_distributed(device, model=tp)
+    full = CLIP(CLIPConfig(**TP_CLIP), device=dev)
+    full.load_state_dict(seeded_state_dict(full, 4))
+    model = split_clip(full, current_shard())
+    ctx, size = TP_CLIP["context_length"], TP_CLIP["image_size"]
+    loss, grads = contrastive_loss_and_grads(
+        model, torch.zeros(2, size, size, 3, device=dev),
+        torch.ones(2, ctx, dtype=torch.int64, device=dev))
+    g = grads["visual.transformer.resblocks.0.attn.in_proj_weight"]
+    want = (3 * TP_CLIP["vision_width"] // tp, TP_CLIP["vision_width"])
+    if not np.isfinite(float(loss)) or tuple(g.shape) != want:
+        raise RuntimeError(f"dry run tensor parallelism ({data}, {tp}): loss {float(loss)}, "
+                           f"in_proj grad {tuple(g.shape)}, want {want}")
+    return {"tp_loss": float(loss), "tp_grad_shape": np.asarray(g.shape)}
 
 
 if __name__ == "__main__":

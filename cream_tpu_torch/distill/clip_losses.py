@@ -3,14 +3,16 @@
 Counterpart of `cream_tpu/distill/clip_losses.py` (TinyCLIP's ClipLoss,
 src/open_clip/loss.py:18-165, and ClipSoftLoss, clip_soft_loss.py:54-88).
 With a `torch.distributed` process group each rank holds its local block
-of the batch: the features are gathered with gradient
-(`torch.distributed.nn.functional.all_gather`), each rank computes its
-rows of the similarity matrix against the whole batch with labels offset
-by rank * B (the reference's `local_loss` path), and the loss is the mean
-over ranks. The mean's backward sends each rank's own term 1/world of the
+of the batch: the features are gathered with gradient (`_GatherRows`),
+each rank computes its rows of the similarity matrix against the whole
+batch with labels offset by rank * B (the reference's `local_loss` path),
+and the loss is the mean over ranks. The mean's backward sends each rank's own term 1/world of the
 gradient; the gather's backward sums the gathered rows' grads over ranks,
-so each rank's features get the gradient of the mean loss. Without a
-group it is the one-card loss.
+so each rank's features get the gradient of the mean loss, and its
+parameters the share of that gradient that flows through its own rows
+(the sum of the shares over ranks is the gradient). Without a group it is
+the one-card loss. Under a (data, model) layout the group is the data
+group (`core.mesh.data_group()`): model peers hold the same rows.
 
 The similarities, softmaxes and cross entropies are fp32 whatever the
 features' dtype: the JAX package multiplies bf16 features by the fp32
@@ -39,11 +41,30 @@ class _MeanOverRanks(torch.autograd.Function):
         return grad / ctx.world, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """The group's rows concatenated in group-rank order; the backward sums
+    the grad over the group and keeps this rank's rows (a reduce-scatter,
+    written as an all-reduce: torch's own gather's backward on gloo names
+    its source by group rank as if it were a global rank, which fails in a
+    subgroup)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.group, ctx.rows = group, x.shape[0]
+        ctx.first = dist.get_rank(group) * x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        total = grad.contiguous().clone()
+        dist.all_reduce(total, group=ctx.group)
+        return total[ctx.first:ctx.first + ctx.rows], None
+
+
 def _gather(feat: torch.Tensor, group) -> torch.Tensor:
-    if group is None:
-        return feat
-    from torch.distributed.nn.functional import all_gather
-    return torch.cat(all_gather(feat, group=group), dim=0)
+    return feat if group is None else _GatherRows.apply(feat, group)
 
 
 def _mean(x: torch.Tensor, group) -> torch.Tensor:

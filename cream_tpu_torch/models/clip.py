@@ -19,6 +19,19 @@ and owns no parameters for it. `head_dim` stays 64 when the width is pruned.
 `prune_clip` materializes a gated model as such a ragged one (host-side),
 and `remat=True` recomputes each block in the backward.
 
+Tensor parallelism: built with a `model_shard` (`core.tensor_parallel.
+ModelShard`, `current_shard()` under `core.mesh`'s (data, model) layout), a
+CLIP or CLIP classifier holds one model rank's shard of every block: whole
+heads of q, k and v and their out_proj columns, and its columns of the MLP,
+under the same state-dict names (`shard_state_dict` cuts a full one;
+`split_clip` shards a built model). Each rank computes its own heads and MLP
+channels; the row-split products are summed over the model group in fp32,
+out_proj's and c_proj's biases added once after the sum. `heads_z` and
+`intermediate_z` are sliced to the rank's heads and channels; `hidden_z`,
+`mha_z` and `ffn_z` apply after the sum. Every block's heads and MLP width
+must divide by the model size, or the model raises naming the layer. The
+unsplit model (no shard) computes as it did.
+
 Rounding points are the JAX package's: parameters are fp32 and cast to the
 compute dtype per call; LayerNorm statistics are fp32; q is scaled by
 hd**-0.5 in the compute dtype before the product; the scores, the softmax
@@ -44,6 +57,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from cream_tpu_torch.core.tensor_parallel import (ModelShard, copy_to_model, mark_split,
+                                                   row_parallel_out, shard_state_dict)
 from cream_tpu_torch.models.registry import register_model
 from cream_tpu_torch.nn.act import gelu
 from cream_tpu_torch.nn.layers import linear
@@ -81,21 +96,28 @@ class MaskedLayerNorm(nn.Module):
 
 class GatedAttention(nn.Module):
     """Multi-head attention with per-head and hidden gates; `in_proj_weight`
-    rows are [q(h0..hH); k; v] as in torch's MultiheadAttention."""
+    rows are [q(h0..hH); k; v] as in torch's MultiheadAttention. With a
+    `model_shard` it holds that model rank's heads (`heads` is then its
+    count of them); `name` labels a refusal."""
 
     def __init__(self, width: int, heads: int, head_dim: int = 64, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, model_shard: ModelShard | None = None,
+                 name: str = "attn"):
         super().__init__()
+        self.model_shard = model_shard
+        if model_shard is not None:
+            heads = model_shard.split(heads, f"{name} heads")
         self.heads, self.head_dim, self.dtype = heads, head_dim, dtype
         inner = heads * head_dim
         self.in_proj_weight = nn.Parameter(torch.empty(3 * inner, width, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * inner, device=device))
         self.out_proj = nn.Linear(inner, width, device=device)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        if model_shard is not None:
+            mark_split(model_shard, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-                heads_z: Optional[torch.Tensor] = None,
-                hidden_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _heads(self, x: torch.Tensor, attn_mask, heads_z) -> torch.Tensor:
+        """The heads' outputs, gated, as (B, L, H * hd) in the compute dtype."""
         B, L, _ = x.shape
         H, hd, dt = self.heads, self.head_dim, self.dtype
         qkv = F.linear(x, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
@@ -107,20 +129,65 @@ class GatedAttention(nn.Module):
         attn = torch.softmax(sim, dim=-1).to(dt)
         out = torch.matmul(attn.float(), v.float()).to(dt)
         if heads_z is not None:
+            if self.model_shard is not None:
+                heads_z = heads_z[self.model_shard.part(H * self.model_shard.size)]
             out = out * heads_z.view(1, H, 1, 1).to(dt)
-        out = linear(self.out_proj, out.transpose(1, 2).reshape(B, L, H * hd), dt)
+        return out.transpose(1, 2).reshape(B, L, H * hd)
+
+    def partial(self, x: torch.Tensor, attn_mask=None, heads_z=None) -> torch.Tensor:
+        """A split layer's share of out_proj's product from its own heads,
+        in fp32, without the bias: the model ranks' shares sum to it."""
+        x = copy_to_model(x, self.model_shard.group)
+        return F.linear(self._heads(x, attn_mask, heads_z),
+                        self.out_proj.weight.to(self.dtype)).float()
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                heads_z: Optional[torch.Tensor] = None,
+                hidden_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = self.dtype
+        if self.model_shard is None:
+            out = linear(self.out_proj, self._heads(x, attn_mask, heads_z), dt)
+        else:
+            out = row_parallel_out(self.partial(x, attn_mask, heads_z), self.out_proj.bias,
+                                   dt, self.model_shard.group)
         if hidden_z is not None:
             out = out * hidden_z.to(dt)
         return out
 
 
 class Mlp(nn.Module):
-    """open_clip's `mlp`: c_fc -> activation -> c_proj."""
+    """open_clip's `mlp`: c_fc -> activation -> c_proj. With a
+    `model_shard` it holds that model rank's hidden channels."""
 
-    def __init__(self, width: int, hidden: int, *, device=None):
+    def __init__(self, width: int, hidden: int, *, device=None,
+                 model_shard: ModelShard | None = None, name: str = "mlp"):
         super().__init__()
+        self.model_shard = model_shard
+        if model_shard is not None:
+            hidden = model_shard.split(hidden, f"{name} width")
         self.c_fc = nn.Linear(width, hidden, device=device)
         self.c_proj = nn.Linear(hidden, width, device=device)
+        if model_shard is not None:
+            mark_split(model_shard, self.c_fc.weight, self.c_fc.bias, self.c_proj.weight)
+
+    def hidden(self, x: torch.Tensor, act, dtype: torch.dtype, intermediate_z=None
+               ) -> torch.Tensor:
+        """The activated hidden channels (this rank's, split), gated."""
+        h = act(linear(self.c_fc, x, dtype))
+        if intermediate_z is not None:
+            if self.model_shard is not None:
+                intermediate_z = intermediate_z[
+                    self.model_shard.part(h.shape[-1] * self.model_shard.size)]
+            h = h * intermediate_z.to(dtype)
+        return h
+
+    def partial(self, x: torch.Tensor, act, dtype: torch.dtype, intermediate_z=None
+                ) -> torch.Tensor:
+        """A split MLP's share of c_proj's product, in fp32, without the
+        bias: the model ranks' shares sum to it."""
+        x = copy_to_model(x, self.model_shard.group)
+        return F.linear(self.hidden(x, act, dtype, intermediate_z),
+                        self.c_proj.weight.to(dtype)).float()
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -128,16 +195,19 @@ class ResidualAttentionBlock(nn.Module):
     pruned away: the sublayer is skipped and owns no parameters."""
 
     def __init__(self, width: int, heads: int, mlp_width: int, act: str = "gelu",
-                 head_dim: int = 64, *, dtype: torch.dtype, device=None):
+                 head_dim: int = 64, *, dtype: torch.dtype, device=None,
+                 model_shard: ModelShard | None = None, name: str = "resblock"):
         super().__init__()
         self.dtype = dtype
         self.act = quick_gelu if act == "quick_gelu" else gelu
         if heads > 0:
             self.ln_1 = MaskedLayerNorm(width, dtype=dtype, device=device)
-            self.attn = GatedAttention(width, heads, head_dim, dtype=dtype, device=device)
+            self.attn = GatedAttention(width, heads, head_dim, dtype=dtype, device=device,
+                                       model_shard=model_shard, name=f"{name}.attn")
         if mlp_width > 0:
             self.ln_2 = MaskedLayerNorm(width, dtype=dtype, device=device)
-            self.mlp = Mlp(width, mlp_width, device=device)
+            self.mlp = Mlp(width, mlp_width, device=device, model_shard=model_shard,
+                           name=f"{name}.mlp")
 
     def forward(self, x: torch.Tensor, attn_mask=None, hidden_z=None, heads_z=None,
                 mha_z=None, intermediate_z=None, ffn_z=None) -> torch.Tensor:
@@ -148,10 +218,12 @@ class ResidualAttentionBlock(nn.Module):
                 h = h * mha_z.to(dt)
             x = x + h
         if hasattr(self, "mlp"):
-            h = self.act(linear(self.mlp.c_fc, self.ln_2(x, hidden_z), dt))
-            if intermediate_z is not None:
-                h = h * intermediate_z.to(dt)
-            h = linear(self.mlp.c_proj, h, dt)
+            mlp, y = self.mlp, self.ln_2(x, hidden_z)
+            if mlp.model_shard is None:
+                h = linear(mlp.c_proj, mlp.hidden(y, self.act, dt, intermediate_z), dt)
+            else:
+                h = row_parallel_out(mlp.partial(y, self.act, dt, intermediate_z),
+                                     mlp.c_proj.bias, dt, mlp.model_shard.group)
             if hidden_z is not None:
                 h = h * hidden_z.to(dt)
             if ffn_z is not None:
@@ -176,16 +248,21 @@ class CLIPTransformer(nn.Module):
     """`resblocks`, with per-layer head counts and MLP widths. With `remat`
     each block's activations are recomputed in the backward instead of
     kept (`torch.utils.checkpoint`, non-reentrant, one block at a time), as
-    the JAX package's `nn.remat` does: the same values, less memory."""
+    the JAX package's `nn.remat` does: the same values, less memory; a split
+    block's recomputed forward repeats its model-group sums, on every rank
+    in the same order. `name` (the state-dict prefix) labels a refusal to
+    split."""
 
     def __init__(self, width: int, layers: int, heads: Sequence[int],
                  mlp_widths: Sequence[int], act: str = "gelu", remat: bool = False, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, model_shard: ModelShard | None = None,
+                 name: str = "transformer"):
         super().__init__()
         self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads[i], mlp_widths[i], act,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device, model_shard=model_shard,
+                                   name=f"{name}.resblocks.{i}")
             for i in range(layers))
 
     def forward(self, x: torch.Tensor, attn_mask=None, masks: Optional[dict] = None):
@@ -211,7 +288,7 @@ class VisionTower(nn.Module):
                  layers: int = 12, heads: Sequence[int] | None = None,
                  mlp_widths: Sequence[int] | None = None, output_dim: int = 512,
                  act: str = "gelu", remat: bool = False, *, dtype: torch.dtype,
-                 device=None):
+                 device=None, model_shard: ModelShard | None = None):
         super().__init__()
         self.dtype, self.patch_size = dtype, patch_size
         grid = image_size // patch_size
@@ -224,7 +301,7 @@ class VisionTower(nn.Module):
         self.transformer = CLIPTransformer(
             width, layers, tuple(heads or [width // 64] * layers),
             tuple(mlp_widths or [width * 4] * layers), act, remat, dtype=dtype,
-            device=device)
+            device=device, model_shard=model_shard, name="visual.transformer")
         self.ln_post = MaskedLayerNorm(width, dtype=dtype, device=device)
         self.proj = nn.Parameter(scale * torch.randn(width, output_dim, device=device))
 
@@ -257,7 +334,7 @@ class TextTower(nn.Module):
                  width: int = 512, layers: int = 12, heads: Sequence[int] | None = None,
                  mlp_widths: Sequence[int] | None = None, output_dim: int = 512,
                  act: str = "gelu", remat: bool = False, *, dtype: torch.dtype,
-                 device=None):
+                 device=None, model_shard: ModelShard | None = None):
         super().__init__()
         self.dtype, self.context_length = dtype, context_length
         self.token_embedding = nn.Embedding(vocab_size, width, device=device)
@@ -266,7 +343,7 @@ class TextTower(nn.Module):
         self.transformer = CLIPTransformer(
             width, layers, tuple(heads or [width // 64] * layers),
             tuple(mlp_widths or [width * 4] * layers), act, remat, dtype=dtype,
-            device=device)
+            device=device, model_shard=model_shard, name="transformer")
         self.ln_final = MaskedLayerNorm(width, dtype=dtype, device=device)
         self.text_projection = nn.Parameter(
             width ** -0.5 * torch.randn(width, output_dim, device=device))
@@ -307,20 +384,23 @@ class CLIP(TextTower):
     """Two towers and `logit_scale`; forward(image, text) ->
     (image_features, text_features, exp(logit_scale)), the features L2
     normalized in the compute dtype. `image_masks`/`text_masks` are gate
-    dicts (see the module docstring)."""
+    dicts (see the module docstring). With `model_shard` both towers' blocks
+    are split (see the module docstring)."""
 
     def __init__(self, cfg: CLIPConfig = CLIPConfig(), quick_gelu: bool = False,
                  vision_heads: Sequence[int] | None = None,
                  vision_mlp_widths: Sequence[int] | None = None,
                  text_heads_per_layer: Sequence[int] | None = None,
                  text_mlp_widths: Sequence[int] | None = None, remat: bool = False, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 model_shard: ModelShard | None = None):
         act = "quick_gelu" if quick_gelu else "gelu"
         c = cfg
         super().__init__(c.context_length, c.vocab_size, c.text_width, c.text_layers,
                          text_heads_per_layer or [c.text_heads] * c.text_layers,
                          text_mlp_widths, c.embed_dim, act, remat, dtype=dtype,
-                         device=device)
+                         device=device, model_shard=model_shard)
+        self.model_shard = model_shard
         self.cfg, self.img_size, self.quick_gelu = cfg, c.image_size, quick_gelu
         # the per-layer geometry as given (None: uniform), which the L0
         # gates of a ragged model follow
@@ -328,7 +408,8 @@ class CLIP(TextTower):
         self.text_heads_per_layer, self.text_mlp_widths = text_heads_per_layer, text_mlp_widths
         self.visual = VisionTower(c.image_size, c.vision_patch, c.vision_width,
                                   c.vision_layers, vision_heads, vision_mlp_widths,
-                                  c.embed_dim, act, remat, dtype=dtype, device=device)
+                                  c.embed_dim, act, remat, dtype=dtype, device=device,
+                                  model_shard=model_shard)
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07)), device=device))
 
     def encode_image(self, image, masks=None, normalized: bool = True):
@@ -342,22 +423,44 @@ class CLIP(TextTower):
 class CLIPClassifier(nn.Module):
     """The CLIP vision tower and a linear head: TinyViT's distillation
     teacher (TinyViT/models/clip.py:108-158). Logits = head(proj(features));
-    a 22k head's logits go through the 22k -> 1k remap in save_logits."""
+    a 22k head's logits go through the 22k -> 1k remap in save_logits.
+    With `model_shard` the vision tower's blocks are split."""
 
     def __init__(self, cfg: CLIPConfig = CLIPConfig(), num_classes: int = 1000,
                  quick_gelu: bool = False, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, model_shard: ModelShard | None = None):
         super().__init__()
         c = cfg
         self.cfg, self.img_size, self.dtype = cfg, c.image_size, dtype
+        self.quick_gelu, self.model_shard = quick_gelu, model_shard
         self.visual = VisionTower(c.image_size, c.vision_patch, c.vision_width,
                                   c.vision_layers, output_dim=c.embed_dim,
                                   act="quick_gelu" if quick_gelu else "gelu",
-                                  dtype=dtype, device=device)
+                                  dtype=dtype, device=device, model_shard=model_shard)
         self.head = nn.Linear(c.embed_dim, num_classes, device=device)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         return linear(self.head, self.visual(image), self.dtype)
+
+
+def split_clip(model: nn.Module, model_shard: ModelShard) -> nn.Module:
+    """A CLIP or CLIP classifier built again as `model_shard`'s split model
+    (the same geometry, dtype, device and remat) with its shard of
+    `model`'s weights."""
+    device = next(model.parameters()).device
+    if isinstance(model, CLIP):
+        split = CLIP(model.cfg, model.quick_gelu, model.vision_heads, model.vision_mlp_widths,
+                     model.text_heads_per_layer, model.text_mlp_widths,
+                     model.visual.transformer.remat, dtype=model.dtype, device=device,
+                     model_shard=model_shard)
+    elif isinstance(model, CLIPClassifier):
+        split = CLIPClassifier(model.cfg, model.head.out_features, model.quick_gelu,
+                               dtype=model.dtype, device=device, model_shard=model_shard)
+    else:
+        raise TypeError(f"split_clip: {type(model).__name__} is not a CLIP model")
+    split.load_state_dict(shard_state_dict(model.state_dict(), model_shard.rank,
+                                           model_shard.size))
+    return split
 
 
 def _np_gate(g) -> Optional[np.ndarray]:
@@ -535,9 +638,10 @@ def _clip_factory(name: str, cfg: CLIPConfig):
 
 def _classifier_factory(name: str, cfg: CLIPConfig):
     def factory(num_classes: int = 1000, quick_gelu: bool = False,
-                img_size: int | None = None, *, device, dtype=torch.float32):
+                img_size: int | None = None, *, device, dtype=torch.float32,
+                model_shard: ModelShard | None = None):
         return CLIPClassifier(_with_img_size(cfg, img_size), num_classes, quick_gelu,
-                              dtype=dtype, device=device)
+                              dtype=dtype, device=device, model_shard=model_shard)
     factory.__name__ = name
     return factory
 

@@ -131,8 +131,8 @@ def _channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm of this rank's rows with the moments of the
     global batch (SyncBN): each rank's fp32 sums and sums of squares over
-    every dim but dim 1, and its count, are summed over the group in one
-    all-reduce, and the variance is flax's fast one, E[x^2] - E[x]^2. The
+    every dim but dim 1, and its count, are summed over the data group in
+    one all-reduce, and the variance is flax's fast one, E[x^2] - E[x]^2. The
     backward sums the grads' two channel sums over the group in one
     all-reduce, so each rank's input grad is the gradient of the ranks'
     summed loss; the weight and bias grads are this rank's share, which the
@@ -152,7 +152,7 @@ class GlobalBatchNorm(torch.autograd.Function):
             C, n = y.shape[1], y.numel() // y.shape[1]
             sums = _local_sums(y)
             stats = torch.cat([sums, sums.new_full((1,), float(n))])
-            torch.distributed.all_reduce(stats)
+            torch.distributed.all_reduce(stats, group=data_group())
             count = stats[2 * C]
             mean = stats[:C] / count
             var = (stats[C:2 * C] / count - mean * mean).clamp_min(0.0)
@@ -174,7 +174,7 @@ class GlobalBatchNorm(torch.autograd.Function):
             sum_dy, sum_dy_xmu, dweight, dbias = _backward_reduce(
                 dout, y, weight, mean, invstd, ctx.bias_dtype is not None)
             sums = torch.cat([sum_dy, sum_dy_xmu])
-            torch.distributed.all_reduce(sums)
+            torch.distributed.all_reduce(sums, group=data_group())
             dx = _backward_elemt(dout, y, weight, mean, invstd, sums[:C], sums[C:], count)
             return dx, dweight, dbias, None
 

@@ -4,10 +4,11 @@ and the 16-byte alignment the CUDA kernels' vector accesses need.
 The random draws take an explicit `torch.Generator` (the counterpart of the
 JAX package's rng keys); they cannot give JAX's bits, only its
 distribution. Under a data-parallel group (`core.mesh`) a draw is made for
-the global batch, whose rows are the ranks' rows in rank order, and each
-rank keeps its own rows, as the JAX package's one key over the sharded
+the global batch, whose rows are the data ranks' rows in data-rank order, and
+each rank keeps its own rows, as the JAX package's one key over the sharded
 global shape gives: W ranks then draw what one card draws on the
-concatenated batch."""
+concatenated batch, and model peers (`core.mesh`), which hold the same
+rows, draw the same numbers."""
 from __future__ import annotations
 
 import itertools

@@ -24,6 +24,9 @@ import re
 from typing import Callable, Mapping
 
 import torch
+import torch.distributed as dist
+
+from cream_tpu_torch.core.tensor_parallel import split_group
 
 NO_DECAY_PATTERNS = (r"\bbias\b", r"\bscale\b", r"attention_biases",
                      r"\bnorm", r"\bbn\b", r"logit_scale",
@@ -51,19 +54,43 @@ def layer_lr_scales(params: Mapping[str, torch.Tensor], depth: int,
     return {name: scale(name) for name in params}
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, groups=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, as a 0-d fp32 tensor
-    (the norm of the per-tensor norms)."""
+    (the norm of the per-tensor norms). `groups`, one a tensor, names the
+    model group (`core.tensor_parallel.split_group`) whose shards a tensor
+    is one of, or None for a whole tensor: the shards' squares are summed
+    over that group, the whole tensors' counted once, so every model rank
+    gets the unsplit norm."""
+    tensors = list(tensors)
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    groups = list(groups or [None] * len(tensors))
+    spans = {g for g in groups if g is not None}
+    if not spans:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    if len(spans) > 1:
+        raise ValueError("global_norm: shards of more than one model group")
+    squares = torch.stack(norms) ** 2
+    mask = torch.tensor([g is not None for g in groups], dtype=squares.dtype,
+                        device=squares.device)
+    own = (squares * mask).sum()
+    dist.all_reduce(own, group=spans.pop())
+    return torch.sqrt(own + (squares * (1 - mask)).sum())
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+def split_groups(params: Mapping[str, torch.Tensor]) -> dict[str, object]:
+    """{name: model group} of the params that hold a model rank's shard
+    with collectives (`core.tensor_parallel.mark_split`)."""
+    return {n: split_group(p) for n, p in params.items() if split_group(p) is not None}
+
+
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        groups: Mapping[str, object] | None = None
                         ) -> dict[str, torch.Tensor]:
     """`optax.clip_by_global_norm`: g unchanged when ||g|| < max_norm, else
     g scaled to the norm max_norm, g / (||g|| / max_norm). (No +1e-6,
-    unlike `clip_grad_norm_`.) Decided on the device, without a sync."""
-    norm = global_norm(grads.values())
+    unlike `clip_grad_norm_`.) Decided on the device, without a sync. The
+    grads named in `groups` are model shards (`global_norm`)."""
+    norm = global_norm(grads.values(), [(groups or {}).get(n) for n in grads])
     denom = torch.where(norm < max_norm, torch.ones_like(norm), norm / max_norm)
     return dict(zip(grads, torch._foreach_div(list(grads.values()), denom)))
 
@@ -95,9 +122,11 @@ class _Optimizer:
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, torch.Tensor]) -> None:
-        """Update `params` in place from `grads` (same names)."""
+        """Update `params` in place from `grads` (same names). A split
+        model's shards (`core.tensor_parallel.split_group`) enter the
+        clipping norm once each, summed over their model group."""
         if self.clip_grad:
-            grads = clip_by_global_norm(grads, self.clip_grad)
+            grads = clip_by_global_norm(grads, self.clip_grad, split_groups(params))
         lr = self.lr()
         self.count += 1
         names = list(params)

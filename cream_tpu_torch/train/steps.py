@@ -16,6 +16,13 @@ before clipping and the optimizer, so `grad_norm` is the global one. The
 grads come from `torch.autograd.grad`, which `DistributedDataParallel`'s
 hooks would not see, so the step reduces them itself. Each rank's rows must
 be as many as every other rank's.
+
+Tensor × data parallelism (`core.mesh.init_distributed(device, model=M)`):
+the means run over the data group only, and a model split over the model
+group (`core.tensor_parallel`) keeps its shards' grads to itself; its
+`grad_norm` and clipping count each shard once. `make_contrastive_step` is
+CLIP's contrastive step in that layout, the counterpart of the JAX
+package's step on parameters sharded by `CLIP_TP_RULES`.
 """
 from __future__ import annotations
 
@@ -24,9 +31,10 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from cream_tpu_torch.core.mesh import all_reduce_mean_, data_group
+from cream_tpu_torch.core.mesh import all_reduce_mean_, data_group, data_size
 from cream_tpu_torch.core.prng import seeded_generator
-from cream_tpu_torch.train.optim import global_norm
+from cream_tpu_torch.distill.clip_losses import clip_contrastive_loss
+from cream_tpu_torch.train.optim import global_norm, split_groups
 from cream_tpu_torch.train.state import TrainState
 
 
@@ -91,8 +99,52 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss):
             metrics["accuracy"] = (logits.argmax(-1) == labels).float().mean()
         data_parallel_mean(grads, metrics)
         state.apply_gradients(grads)
-        metrics["grad_norm"] = global_norm(grads.values())
+        metrics["grad_norm"] = split_global_norm(state, grads)
         return state, metrics
+
+    return step
+
+
+def split_global_norm(state: TrainState, grads: dict) -> torch.Tensor:
+    """The global norm of `grads`, a split model's shards counted once each
+    (summed over their model group)."""
+    groups = split_groups(state.params)
+    return global_norm(grads.values(), [groups.get(n) for n in grads])
+
+
+def contrastive_loss_and_grads(model: torch.nn.Module, images: torch.Tensor,
+                               text: torch.Tensor):
+    """CLIP's contrastive loss (`distill.clip_losses`) of `model`'s
+    features over the data group's global batch, and the grads by param
+    name. The gather's backward brings every data rank's terms to this
+    rank's features, so each rank's grads are its rows' share of the global
+    loss's gradient, the shares summing to it: the backward is seeded with
+    the data size, so that the data-parallel mean of the grads is the
+    gradient."""
+    model.train()
+    img, txt, scale = model(images, text)
+    loss = clip_contrastive_loss(img, txt, scale, group=data_group())
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                grad_outputs=torch.full_like(loss, float(data_size())))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def make_contrastive_step():
+    """Returns step(state, images, text) -> (state, metrics): CLIP's
+    contrastive step on this rank's rows (images NHWC, token ids (B, L)):
+    the loss over the data group's global batch, the grads averaged over
+    the data group only (model peers hold the same rows and their own
+    shards), the state's optimizer (Adam: `make_adamw(lr,
+    weight_decay=0.0)`). Replicated parameters stay bit-identical across
+    model peers. metrics: 'loss' (the global batch's) and 'grad_norm' (of
+    the averaged grads, before any clipping), on the device."""
+
+    def step(state: TrainState, images: torch.Tensor, text: torch.Tensor):
+        loss, grads = contrastive_loss_and_grads(state.model, images, text)
+        data_parallel_mean(grads, {})
+        state.apply_gradients(grads)
+        return state, {"loss": loss, "grad_norm": split_global_norm(state, grads)}
 
     return step
 

@@ -80,13 +80,13 @@ def encode_rows(encode_fn, rows: np.ndarray, device) -> torch.Tensor:
     call; under a data-parallel group the rows are zero-padded to a multiple
     of the rank count, each rank encodes its block and the blocks are
     gathered, the padding cut off."""
-    world = mesh.world_size()
+    world = mesh.data_size()
     if mesh.data_group() is None:
         return encode_fn(torch.from_numpy(rows).to(device))
     n = rows.shape[0]
     rows = np.concatenate([rows, np.zeros(((-n) % world,) + rows.shape[1:], rows.dtype)])
     per = rows.shape[0] // world
-    mine = rows[mesh.rank() * per:(mesh.rank() + 1) * per]
+    mine = rows[mesh.data_rank() * per:(mesh.data_rank() + 1) * per]
     return mesh.all_gather_rows(encode_fn(torch.from_numpy(mine).to(device)))[:n]
 
 
